@@ -1,0 +1,125 @@
+"""tpudct_torch constants, kernel parameters and gates against the reference.
+
+Tolerance: none.  Every table, transform core, row norm, kernel constant
+and gate decision must equal the reference's bit for bit, since they are
+the codec's only parameters: with equal parameters both packages compute
+the same codec.
+"""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import tpudct.constants as R
+import tpudct_torch
+import tpudct_torch.constants as P
+from tpudct.kernels import hp_pallas
+from tpudct_torch.kernels import hp
+
+_INT_CORES = ["haweel", "rdct", "wht", "bas"]
+
+
+def test_tables_and_cores_equal_reference():
+    assert P.BLOCK_SIZE == R.BLOCK_SIZE and P.LEVEL_SHIFT == R.LEVEL_SHIFT
+    for a, b in [(P.HAWEEL_TS, R.HAWEEL_TS), (P.T, R.T), (P.Q, R.Q), (P.QC, R.QC),
+                 (P.haweel_row_norms(), R.haweel_row_norms()),
+                 (P.haweel_integer_core(), R.haweel_integer_core())]:
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", sorted(R.TRANSFORMS) + sorted(R.TRANSFORM_ALIASES))
+def test_transform_registry_equals_reference(name):
+    a, b = P.get_transform(name), R.get_transform(name)
+    assert a.name == b.name and a.has_integer_core == b.has_integer_core
+    for x, y in [(a.t, b.t), (a.ts, b.ts), (a.d, b.d)]:
+        if y is None:
+            assert x is None
+        else:
+            assert x.dtype == y.dtype and np.array_equal(x, y)
+
+
+def test_registry_names_and_errors():
+    assert sorted(P.TRANSFORMS) == sorted(R.TRANSFORMS)
+    assert P.TRANSFORM_ALIASES == R.TRANSFORM_ALIASES
+    with pytest.raises(ValueError, match="unknown transform"):
+        P.get_transform("nope")
+    with pytest.raises(KeyError, match="unknown quantization table"):
+        P.get_q_table("nope")
+
+
+def test_registered_table_gets_the_same_name_in_both_packages():
+    table = np.random.default_rng(3).integers(1, 120, size=(8, 8)).astype(np.float32)
+    name_p, name_r = P.register_q_table(table), R.register_q_table(table)
+    assert name_p == name_r and name_p.startswith("q:")
+    assert np.array_equal(P.get_q_table(name_p), R.get_q_table(name_r))
+    assert P.register_q_table(table) == name_p  # re-registering is a no-op
+    with pytest.raises(ValueError, match="already registered"):
+        P.register_q_table(table + 1, name=name_p)
+    with pytest.raises(ValueError, match="8x8"):
+        P.register_q_table(np.ones((4, 4)))
+    with pytest.raises(ValueError, match="> 0"):
+        P.register_q_table(np.zeros((8, 8)))
+
+
+@pytest.mark.parametrize("retain_k", [None, 6])
+@pytest.mark.parametrize("q_scale", [1.0, 2.5])
+@pytest.mark.parametrize("q_table", ["luma", "chroma"])
+@pytest.mark.parametrize("transform", _INT_CORES)
+def test_kernel_constants_equal_reference_tiles(transform, q_table, q_scale, retain_k):
+    """The 8x8 tables equal the top-left block of the reference's tiled
+    Pallas constants (_consts_int, _consts_bf, _consts_f32)."""
+    k = hp.kernel_constants(transform, q_table, q_scale, retain_k)
+    bdts, _, scale = hp_pallas._consts_int(32, q_scale, retain_k, transform, q_table)
+    qdd, _, _ = hp_pallas._consts_bf(32, q_scale, transform, q_table)
+    bdt, _, qt = hp_pallas._consts_f32(32, q_scale, transform, q_table)
+    for mine, ref in [(k.ts, bdts), (k.scale, scale), (k.qdd, qdd), (k.t, bdt), (k.q, qt)]:
+        assert mine.dtype == ref.dtype
+        assert np.array_equal(mine, ref[:8, :8])
+
+
+def test_kernel_constants_refuse_a_transform_without_integer_core():
+    with pytest.raises(ValueError, match="has none"):
+        hp.kernel_constants("dct")
+
+
+@pytest.mark.parametrize("q_table", ["luma", "chroma"])
+@pytest.mark.parametrize("transform", sorted(R.TRANSFORMS))
+def test_gates_agree_with_reference(transform, q_table):
+    assert hp._max_coeff(transform, q_table) == hp_pallas._max_coeff(transform, q_table)
+    for h in (8, 16, 32, 40, 64, 96, 4000):
+        for w in (8, 120, 128, 256, 300, 3072):
+            assert hp.supports(h, w) == hp_pallas.supports(h, w)
+            for q_scale in (0.5, 0.76, 0.77, 1.0, 2.5):
+                assert hp.supports_u8(h, w, q_scale, transform, q_table) == hp_pallas.supports_u8(
+                    h, w, q_scale, transform, q_table
+                )
+
+
+def test_haweel_int8_bound():
+    assert 97.0 < hp._max_coeff("haweel", "luma") < 97.5
+
+
+def _port_modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages(tpudct_torch.__path__, "tpudct_torch.")
+    )
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py, imports without JAX or
+    the reference package (the card's machine has neither)."""
+    mods = _port_modules() + ["chip_smoke"]
+    assert "tpudct_torch.kernels.hp" in mods and "tpudct_torch.models.dispatch" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpudct'))\n"
+        "assert not bad, bad\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    subprocess.run([sys.executable, "-c", code], cwd=root, env=env, check=True, timeout=120)

@@ -1,0 +1,336 @@
+"""hp codec kernels: the counterpart of ``tpudct/kernels/hp_pallas.py``.
+
+Four wrappers, each over one hand-written CUDA kernel in
+``tpudct_torch/csrc/hp_codec.cu`` (see its header for the value chain and
+the design), each with a plain torch twin in this module that computes the
+same values in the same order:
+
+  hp_roundtrip_u8  u8 (H, W) -> int8 coefficients + u8 reconstruction  (B1)
+  hp_encode_u8     u8 (H, W) -> int8 coefficients                       (B2)
+  hp_decode_u8     int8 (H, W) -> u8 reconstruction                     (B3)
+  hp_roundtrip     f32 (H, W) -> f32 coefficients + f32 reconstruction  (B4,
+                   integer core; the f32-literal core is not ported yet)
+
+A wrapper given a CPU tensor runs the twin; given a CUDA tensor it launches
+the kernel or raises, and counts the launch in ``LAUNCHES``.  The kernels
+need h % 8 == 0 and w % 8 == 0 only; ``supports``/``supports_u8`` keep the
+reference's gates (lane 128, u8 rows 32, the int8-fit bound) so dispatch
+takes the same path and the same padding in both packages.
+
+The codec's only parameters are four 8x8 tables (``kernel_constants``),
+computed in f64 and cast once to f32 exactly as the reference's
+``_consts_int``/``_consts_bf``/``_consts_f32`` compute them, so every
+transform with an integer core, every quantization table and ``retain_k``
+ride the same kernels.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tpudct_torch.constants import LEVEL_SHIFT, get_q_table, get_transform
+from tpudct_torch.ops.blocks import as_block_grid, from_block_grid
+from tpudct_torch.ops.quant import retention_mask
+from tpudct_torch.ops.transform import to_uint8
+
+LANE = 128
+
+#: Kernel launches per wrapper; a wrapper adds one only where it launches
+#: its CUDA kernel (never for the CPU twin).
+LAUNCHES = {"hp_roundtrip_u8": 0, "hp_encode_u8": 0, "hp_decode_u8": 0, "hp_roundtrip": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Gates (same decisions as the reference)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=8)
+def _max_coeff(transform: str = "haweel", q_table: str = "luma") -> float:
+    """Max |quantized coefficient| at q_scale=1: max_il sum|T_i| sum|T_l|
+    128 / Q_il (~97.2 for haweel/luma); inf without an integer core."""
+    tr = get_transform(transform)
+    if not tr.has_integer_core:
+        return float("inf")
+    row_abs = np.abs(tr.ts.astype(np.float64)).sum(axis=1) * tr.d
+    return float((np.outer(row_abs, row_abs) * 128.0 / get_q_table(q_table)).max())
+
+
+def supports(h: int, w: int) -> bool:
+    """The reference's f32-kernel gate (rows by 8, lanes by 128)."""
+    return h % 8 == 0 and w % LANE == 0 and h >= 8 and w >= LANE
+
+
+def supports_u8(h: int, w: int, q_scale: float = 1.0, transform: str = "haweel",
+                q_table: str = "luma") -> bool:
+    """The reference's u8-kernel gate: rows by 32, lanes by 128, an integer
+    core, and coefficients that fit int8."""
+    return (
+        h % 32 == 0
+        and w % LANE == 0
+        and _max_coeff(transform, q_table) / q_scale <= 127.0
+    )
+
+
+# ---------------------------------------------------------------------------
+# Constants
+# ---------------------------------------------------------------------------
+
+
+class HpConstants(NamedTuple):
+    """The codec's parameters, 8x8 each: the integer core ``ts`` (int8);
+    the forward scale d_i d_l / (Q q_scale) times the zonal mask; the
+    butterfly dequantization ``qdd`` = Q q_scale d_i d_l; the literal
+    transform ``t``; and ``q`` = Q q_scale (the "highest" tier's pair)."""
+
+    ts: np.ndarray
+    scale: np.ndarray
+    qdd: np.ndarray
+    t: np.ndarray
+    q: np.ndarray
+
+
+def _frozen(a: np.ndarray) -> np.ndarray:
+    a.setflags(write=False)
+    return a
+
+
+@functools.lru_cache(maxsize=64)
+def kernel_constants(transform: str = "haweel", q_table: str = "luma",
+                     q_scale: float = 1.0, retain_k=None) -> HpConstants:
+    tr = get_transform(transform)
+    if not tr.has_integer_core:
+        raise ValueError(f"int core requested but {transform!r} has none")
+    d = tr.d.astype(np.float64)
+    qt = get_q_table(q_table)
+    scale = np.outer(d, d) / (qt * np.float32(q_scale)) * retention_mask(retain_k)
+    qdd = qt.astype(np.float64) * float(q_scale) * np.outer(d, d)
+    return HpConstants(
+        ts=_frozen(tr.ts.astype(np.int8)),
+        scale=_frozen(scale.astype(np.float32)),
+        qdd=_frozen(qdd.astype(np.float32)),
+        t=_frozen(np.array(tr.t, np.float32)),
+        q=_frozen((qt * np.float32(q_scale)).astype(np.float32)),
+    )
+
+
+def _precision(name: str) -> str:
+    if name == "high":
+        raise NotImplementedError(
+            "decode_precision='high' (the bf16x3 inverse) is not ported yet "
+            "(ROADMAP.md A.3)"
+        )
+    if name not in ("highest", "butterfly"):
+        raise ValueError(
+            "decode_precision must be 'highest', 'high' or 'butterfly', "
+            f"got {name!r}"
+        )
+    return name
+
+
+class _Args(NamedTuple):
+    """One launch's tables: forward (ts, scale), inverse (a, s), and the
+    same four packed as the 256 f32 the CUDA side reads as HpConsts."""
+
+    ts: np.ndarray
+    scale: np.ndarray
+    a: np.ndarray
+    s: np.ndarray
+    packed: np.ndarray
+
+
+@functools.lru_cache(maxsize=64)
+def _args(transform, q_table, q_scale, retain_k, decode_precision) -> _Args:
+    k = kernel_constants(transform, q_table, q_scale, retain_k)
+    ts = _frozen(k.ts.astype(np.float32))
+    a, s = (ts, k.qdd) if _precision(decode_precision) == "butterfly" else (k.t, k.q)
+    packed = np.concatenate([m.ravel() for m in (ts, k.scale, a, s)])
+    return _Args(ts, k.scale, a, s, _frozen(packed))
+
+
+# ---------------------------------------------------------------------------
+# Plain torch twins: the kernels' value chain, the same sums in the same order
+# ---------------------------------------------------------------------------
+
+
+def _left(w: np.ndarray, g: torch.Tensor) -> torch.Tensor:
+    """out[:, i, :, c] = sum_k w[i, k] * g[:, k, :, c], summed k = 0..7."""
+    rows = []
+    for i in range(8):
+        acc = g[:, 0] * w[i, 0].item()
+        for k in range(1, 8):
+            acc = acc + g[:, k] * w[i, k].item()
+        rows.append(acc)
+    return torch.stack(rows, dim=1)
+
+
+def _right(w: np.ndarray, g: torch.Tensor) -> torch.Tensor:
+    """out[..., j] = sum_l g[..., l] * w[l, j], summed l = 0..7."""
+    cols = []
+    for j in range(8):
+        acc = g[..., 0] * w[0, j].item()
+        for l in range(1, 8):
+            acc = acc + g[..., l] * w[l, j].item()
+        cols.append(acc)
+    return torch.stack(cols, dim=-1)
+
+
+def _grid8(m: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(m, device=like.device).reshape(1, 8, 1, 8)
+
+
+def _fwd_plain(x_int: torch.Tensor, k: _Args) -> torch.Tensor:
+    """Level-shifted int32 pixel grid -> quantized coefficients (f32 grid).
+
+    Ts X Ts^T in int32 is exact; then the rounded f32 scale multiply and
+    the rounded tie-add, then truncation (round half away from zero)."""
+    ts = k.ts.astype(np.int32)
+    core = _right(ts.T, _left(ts, x_int))
+    z = core.to(torch.float32) * _grid8(k.scale, core)
+    return (z + torch.copysign(torch.full_like(z, 0.5), z)).trunc()
+
+
+def _inv_plain(c: torch.Tensor, k: _Args) -> torch.Tensor:
+    """Coefficient grid -> reconstruction + 128 (f32 grid), A^T (c * S) A."""
+    m = c.to(torch.float32) * _grid8(k.s, c)
+    return _right(k.a, _left(np.ascontiguousarray(k.a.T), m)) + LEVEL_SHIFT
+
+
+def _shift_u8(image_u8: torch.Tensor) -> torch.Tensor:
+    return as_block_grid(image_u8).to(torch.int32) - 128
+
+
+def _shift_f32(image: torch.Tensor) -> torch.Tensor:
+    """(x.astype(int32) - 128).astype(int8): the integer core's input."""
+    return (as_block_grid(image).to(torch.int32) - 128).to(torch.int8).to(torch.int32)
+
+
+def roundtrip_u8_plain(image_u8, q_scale=1.0, q_table="luma", retain_k=None,
+                       decode_precision="butterfly", transform="haweel"):
+    k = _args(transform, q_table, q_scale, retain_k, decode_precision)
+    c = _fwd_plain(_shift_u8(image_u8), k)
+    return from_block_grid(c.to(torch.int8)), from_block_grid(to_uint8(_inv_plain(c, k)))
+
+
+def encode_u8_plain(image_u8, q_scale=1.0, q_table="luma", retain_k=None, transform="haweel"):
+    k = _args(transform, q_table, q_scale, retain_k, "butterfly")
+    return from_block_grid(_fwd_plain(_shift_u8(image_u8), k).to(torch.int8))
+
+
+def decode_u8_plain(coeffs_i8, q_scale=1.0, q_table="luma", decode_precision="butterfly",
+                    transform="haweel"):
+    k = _args(transform, q_table, q_scale, None, decode_precision)
+    return from_block_grid(to_uint8(_inv_plain(as_block_grid(coeffs_i8), k)))
+
+
+def roundtrip_plain(image, q_scale=1.0, q_table="luma", retain_k=None,
+                    decode_precision="butterfly", transform="haweel"):
+    k = _args(transform, q_table, q_scale, retain_k, decode_precision)
+    c = _fwd_plain(_shift_f32(image), k)
+    return from_block_grid(c), from_block_grid(_inv_plain(c, k))
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(x, dtype: torch.dtype, name: str) -> tuple:
+    """Validate a kernel operand; returns (h, w).  True for both devices,
+    so the CPU twin refuses exactly what the kernel refuses."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name} takes a torch.Tensor, got {type(x).__name__}")
+    if x.dim() != 2:
+        raise ValueError(f"{name} takes a 2-D (H, W) tensor, got shape {tuple(x.shape)}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} takes {dtype}, got {x.dtype}")
+    h, w = x.shape
+    if h == 0 or w == 0 or h % 8 or w % 8:
+        raise ValueError(f"{name} needs h % 8 == 0 and w % 8 == 0, got {h}x{w}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda tensors, got {x.device}")
+    if x.device.type == "cuda":
+        if not x.is_contiguous():
+            raise ValueError(f"{name} needs a contiguous tensor")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} needs a 16-byte aligned tensor")
+    return h, w
+
+
+def _launch(fn_name: str, tensors, h: int, w: int, k: _Args) -> None:
+    from tpudct_torch.kernels._build import library
+
+    lib = library()
+    dev = tensors[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = getattr(lib, fn_name)(
+        *[t.data_ptr() for t in tensors], h, w, k.packed.ctypes.data, stream, dev.index
+    )
+    if err:
+        raise RuntimeError(f"{fn_name}: CUDA error {err}: {lib.hp_error_string(err).decode()}")
+
+
+def hp_roundtrip_u8(image_u8, q_scale: float = 1.0, q_table: str = "luma", retain_k=None,
+                    decode_precision: str = "butterfly", transform: str = "haweel"):
+    """Fused u8 codec pass: uint8 (H, W) -> (int8 coefficients, uint8 recon)."""
+    h, w = _check(image_u8, torch.uint8, "hp_roundtrip_u8")
+    if image_u8.device.type == "cpu":
+        return roundtrip_u8_plain(image_u8, q_scale, q_table, retain_k, decode_precision, transform)
+    k = _args(transform, q_table, q_scale, retain_k, decode_precision)
+    c = torch.empty((h, w), dtype=torch.int8, device=image_u8.device)
+    r = torch.empty((h, w), dtype=torch.uint8, device=image_u8.device)
+    _launch("hp_rt_u8_launch", (image_u8, c, r), h, w, k)
+    LAUNCHES["hp_roundtrip_u8"] += 1
+    return c, r
+
+
+def hp_encode_u8(image_u8, q_scale: float = 1.0, q_table: str = "luma", retain_k=None,
+                 transform: str = "haweel"):
+    """uint8 (H, W) image -> int8 quantized coefficients."""
+    h, w = _check(image_u8, torch.uint8, "hp_encode_u8")
+    if image_u8.device.type == "cpu":
+        return encode_u8_plain(image_u8, q_scale, q_table, retain_k, transform)
+    k = _args(transform, q_table, q_scale, retain_k, "butterfly")
+    c = torch.empty((h, w), dtype=torch.int8, device=image_u8.device)
+    _launch("hp_encode_u8_launch", (image_u8, c), h, w, k)
+    LAUNCHES["hp_encode_u8"] += 1
+    return c
+
+
+def hp_decode_u8(coeffs_i8, q_scale: float = 1.0, q_table: str = "luma",
+                 decode_precision: str = "butterfly", transform: str = "haweel"):
+    """int8 (H, W) coefficients -> uint8 reconstruction (dequant, inverse,
+    +128, truncation and clamp in one pass)."""
+    h, w = _check(coeffs_i8, torch.int8, "hp_decode_u8")
+    if coeffs_i8.device.type == "cpu":
+        return decode_u8_plain(coeffs_i8, q_scale, q_table, decode_precision, transform)
+    k = _args(transform, q_table, q_scale, None, decode_precision)
+    r = torch.empty((h, w), dtype=torch.uint8, device=coeffs_i8.device)
+    _launch("hp_decode_u8_launch", (coeffs_i8, r), h, w, k)
+    LAUNCHES["hp_decode_u8"] += 1
+    return r
+
+
+def hp_roundtrip(image, q_scale: float = 1.0, q_table: str = "luma", retain_k=None,
+                 decode_precision: str = "butterfly", transform: str = "haweel"):
+    """Fused codec pass on the integer core: f32 (H, W) image with integral
+    pixel values -> (f32 coefficients, f32 reconstruction); ``retain_k``
+    rides the quantization scale."""
+    h, w = _check(image, torch.float32, "hp_roundtrip")
+    if image.device.type == "cpu":
+        return roundtrip_plain(image, q_scale, q_table, retain_k, decode_precision, transform)
+    k = _args(transform, q_table, q_scale, retain_k, decode_precision)
+    c = torch.empty((h, w), dtype=torch.float32, device=image.device)
+    r = torch.empty((h, w), dtype=torch.float32, device=image.device)
+    _launch("hp_rt_f32_launch", (image, c, r), h, w, k)
+    LAUNCHES["hp_roundtrip"] += 1
+    return c, r

@@ -1,0 +1,140 @@
+"""`hp`: the flagship pipeline, backed by the hand-written CUDA kernels.
+
+Counterpart of ``tpudct/models/hp_appr.py`` with the same gates, the same
+fallbacks to the `batched` einsum path and the same refusals.  On a CPU
+tensor each kernel wrapper runs its plain torch twin; on a CUDA tensor it
+launches the kernel (``tpudct_torch/kernels/hp.py``).
+
+Not ported yet, and refused with NotImplementedError on every device where
+the reference would run the missing kernel (ROADMAP.md A.3): ``dct`` at
+kernel shapes (B5), ``idct`` at kernel shapes (B6), the f32-literal core
+(``exact_int_core=False`` or ``transform="dct"``) and
+``decode_precision="high"``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpudct_torch.config import CodecConfig
+from tpudct_torch.constants import get_transform
+from tpudct_torch.kernels import hp
+from tpudct_torch.models.base import Pipeline, register
+from tpudct_torch.models.batched import BatchedPipeline
+from tpudct_torch.ops.transform import to_uint8
+
+_batched = BatchedPipeline()
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md A.3)")
+
+
+def _require_int_core(cfg: CodecConfig, forward: bool = True) -> None:
+    """The ported kernels run the exact integer core only; a decode
+    ignores ``exact_int_core`` (a forward-transform choice), as in the
+    reference."""
+    if not get_transform(cfg.transform).has_integer_core:
+        raise _not_ported(
+            f"transform {cfg.transform!r} on the hp kernels (the f32-literal core)"
+        )
+    if forward and not cfg.exact_int_core:
+        raise _not_ported("exact_int_core=False (the f32-literal core of hp_roundtrip)")
+
+
+class HpApprPipeline(Pipeline):
+    name = "hp"
+
+    def dct(self, image, cfg: CodecConfig):
+        if not image.dtype.is_floating_point:
+            image = image.to(torch.float32)
+        h, w = image.shape
+        if not hp.supports(h, w) or cfg.deadzone != 0.5:
+            # deadzone quantization rides the einsum quantizer, as in the
+            # reference; the fused kernels bake the 0.5 rule
+            return _batched.dct(image, cfg)
+        raise _not_ported("the hp_dct kernel (B5)")
+
+    def idct(self, coeffs, cfg: CodecConfig):
+        h, w = coeffs.shape
+        if not hp.supports(h, w):
+            return _batched.idct(coeffs, cfg)
+        raise _not_ported("the hp_idct kernel (B6)")
+
+    def roundtrip(self, image, cfg: CodecConfig):
+        """One fused kernel (B4) where the reference's gate allows."""
+        if not image.dtype.is_floating_point:
+            image = image.to(torch.float32)
+        h, w = image.shape
+        if not hp.supports(h, w) or cfg.deadzone != 0.5:
+            return super().roundtrip(image, cfg)  # deadzone: einsum path
+        _require_int_core(cfg)
+        c, r = hp.hp_roundtrip(
+            image.to(torch.float32).contiguous(),
+            q_scale=cfg.q_scale,
+            q_table=cfg.q_table,
+            retain_k=cfg.retain_k,
+            decode_precision=cfg.decode_precision,
+            transform=cfg.transform,
+        )
+        return c, to_uint8(r)
+
+    # ---- u8-native path ------------------------------------------------
+
+    def encode_u8(self, image_u8, cfg: CodecConfig):
+        """uint8 image -> int8 coefficient map."""
+        h, w = image_u8.shape
+        if not hp.supports_u8(h, w, cfg.q_scale, cfg.transform, cfg.q_table):
+            bound = hp._max_coeff(cfg.transform, cfg.q_table)
+            why = (
+                f"transform {cfg.transform!r} has no integer core"
+                if bound == float("inf")
+                else f"q_scale>={bound / 127.0:.2f} for int8 coefficients"
+            )
+            raise ValueError(
+                f"u8 path needs h%32==0, w%128==0 and {why} "
+                f"(got {h}x{w}, q_scale={cfg.q_scale}, transform={cfg.transform})"
+            )
+        return hp.hp_encode_u8(
+            image_u8.contiguous(), q_scale=cfg.q_scale, q_table=cfg.q_table,
+            retain_k=cfg.retain_k, transform=cfg.transform,
+        )
+
+    def decode_u8(self, coeffs_i8, cfg: CodecConfig):
+        """int8 coefficient map -> uint8 reconstruction."""
+        h, w = coeffs_i8.shape
+        if h % 32 or w % 128:
+            raise ValueError(
+                f"u8 decode path needs h%32==0 and w%128==0, got {h}x{w}; "
+                "use idct() + to_uint8 for other shapes"
+            )
+        _require_int_core(cfg, forward=False)
+        return hp.hp_decode_u8(
+            coeffs_i8.contiguous(), q_scale=cfg.q_scale, q_table=cfg.q_table,
+            decode_precision=cfg.decode_precision, transform=cfg.transform,
+        )
+
+    def roundtrip_u8(self, image_u8, cfg: CodecConfig):
+        """Fully fused u8-native pass: uint8 -> (int8 coeffs, uint8 recon)."""
+        h, w = image_u8.shape
+        bound = hp._max_coeff(cfg.transform, cfg.q_table)
+        if bound / cfg.q_scale > 127.0:
+            # int8 coefficients would wrap around (or the transform has no
+            # integer core) — refuse rather than silently corrupt.
+            raise ValueError(
+                f"transform={cfg.transform} has no integer core; use roundtrip()"
+                if bound == float("inf")
+                else f"q_scale={cfg.q_scale} with transform={cfg.transform} "
+                "does not fit int8 coefficients; use roundtrip()"
+            )
+        if not hp.supports_u8(h, w, cfg.q_scale, cfg.transform, cfg.q_table):
+            c, r = self.roundtrip(image_u8.to(torch.float32), cfg)
+            return c.to(torch.int8), r
+        return hp.hp_roundtrip_u8(
+            image_u8.contiguous(), q_scale=cfg.q_scale, q_table=cfg.q_table,
+            retain_k=cfg.retain_k, decode_precision=cfg.decode_precision,
+            transform=cfg.transform,
+        )
+
+
+register(HpApprPipeline())

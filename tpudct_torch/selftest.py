@@ -1,0 +1,144 @@
+"""Correctness gate: the codec held against a float64 numpy golden model.
+
+Port of the reference's ``bench.py`` ``correctness_gate``, with its own
+copy of the golden model (``tests/golden.py``), so it runs where neither
+JAX nor the test tree can be imported.  Tolerances are the reference's
+documented equivalence class: coefficients match the golden except at
+exact .5 quantizer ties (+-1 on <= 0.5% of entries); the reconstruction
+differs only where a tie flipped (the per-block bound below); MSE within 2%
+of the golden's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpudct_torch.constants import BLOCK_SIZE, Q, T, get_q_table
+
+
+def synthetic_image(size: int, seed: int = 42) -> np.ndarray:
+    """Deterministic uint8-valued float image (uniform noise from a seed)."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, size=(size, size)).astype(np.float32)
+
+
+# ---- float64 golden model --------------------------------------------------
+
+
+def round_half_away_np(x):
+    return np.sign(x) * np.floor(np.abs(x) + 0.5)
+
+
+def blockify_np(x, bs=BLOCK_SIZE):
+    h, w = x.shape
+    return x.reshape(h // bs, bs, w // bs, bs).transpose(0, 2, 1, 3).reshape(-1, bs, bs)
+
+
+def deblockify_np(b, h, w, bs=BLOCK_SIZE):
+    return b.reshape(h // bs, w // bs, bs, bs).transpose(0, 2, 1, 3).reshape(h, w)
+
+
+def zonal_mask_np(k, bs=BLOCK_SIZE):
+    if k is None:
+        return np.ones((bs, bs))
+    u, v = np.meshgrid(np.arange(bs), np.arange(bs), indexing="ij")
+    return (u + v < k).astype(np.float64)
+
+
+def golden_dct(img, q_scale=1.0, retain_k=None, dtype=np.float64, t=None, q=None):
+    t = (T if t is None else t).astype(dtype)
+    q = (Q if q is None else np.asarray(q)).astype(dtype) * q_scale
+    h, w = img.shape
+    xb = blockify_np(img.astype(dtype)) - 128.0
+    yb = np.einsum("ij,bjk,lk->bil", t, xb, t)
+    cb = round_half_away_np(yb / q) * zonal_mask_np(retain_k)
+    return deblockify_np(cb, h, w)
+
+
+def golden_idct(coeffs, q_scale=1.0, dtype=np.float64, t=None, q=None):
+    t = (T if t is None else t).astype(dtype)
+    q = (Q if q is None else np.asarray(q)).astype(dtype) * q_scale
+    h, w = coeffs.shape
+    yb = blockify_np(coeffs.astype(dtype)) * q
+    xb = np.einsum("ji,bjk,kl->bil", t, yb, t) + 128.0
+    return deblockify_np(xb, h, w)
+
+
+def golden_roundtrip(img, q_scale=1.0, retain_k=None, t=None, q=None):
+    c = golden_dct(img, q_scale, retain_k, t=t, q=q)
+    r = golden_idct(c, q_scale, t=t, q=q)
+    return c, np.clip(np.trunc(r), 0, 255).astype(np.uint8)
+
+
+# ---- the gate --------------------------------------------------------------
+
+
+def _check(cond, msg: str) -> None:
+    # an explicit raise, not `assert`: the gate must survive python -O
+    if not cond:
+        raise AssertionError(msg)
+
+
+def correctness_gate(p, cfg, size: int = 512, force_f32: bool = False, device=None) -> dict:
+    """One size x size seed-42 image through pipeline `p` on `device`,
+    held against the golden model.
+
+    On the u8 path (the default config's), the standalone encode and
+    decode must also agree with the fused roundtrip bit for bit.
+    ``force_f32`` takes the f32 roundtrip instead (the hp_roundtrip kernel).
+    """
+    from tpudct_torch.kernels import hp
+
+    img = synthetic_image(size)
+    gc, gr = golden_roundtrip(img)
+    u8_path = not force_f32 and hasattr(p, "roundtrip_u8") and hp.supports_u8(
+        size, size, cfg.q_scale, cfg.transform, cfg.q_table
+    )
+    if u8_path:
+        xu8 = torch.as_tensor(img.astype(np.uint8), device=device)
+        c, r = p.roundtrip_u8(xu8, cfg)
+        c_split = p.encode_u8(xu8, cfg)
+        r_split = p.decode_u8(c_split, cfg)
+        _check(torch.equal(c_split, c), "standalone encode_u8 disagrees with the fused roundtrip")
+        _check(torch.equal(r_split, r), "standalone decode_u8 disagrees with the fused roundtrip")
+    else:
+        c, r = p.roundtrip(torch.as_tensor(img, device=device), cfg)
+    rep = check_against_golden(img, c, r, cfg, (gc, gr))
+    return {
+        "gate": "pass", "size": size, "path": "u8" if u8_path else "f32",
+        "device": str(torch.device(device or "cpu")), **rep,
+    }
+
+
+def check_against_golden(img: np.ndarray, c, r, cfg, golden=None) -> dict:
+    """Hold coefficients `c` and uint8 reconstruction `r` (tensors or
+    arrays) of the image `img` against the golden model's default codec
+    (haweel, standard Q, q_scale 1): the tie class, the per-block tie-flip
+    bound and MSE within 2%.  Raises AssertionError on a breach."""
+    h, w = img.shape
+    gc, gr = golden_roundtrip(img) if golden is None else golden
+    c = np.asarray(c.cpu() if isinstance(c, torch.Tensor) else c).astype(np.float64)
+    r = np.asarray(r.cpu() if isinstance(r, torch.Tensor) else r)
+    _check(c.shape == (h, w) and r.shape == (h, w), f"shapes {c.shape}, {r.shape} != {(h, w)}")
+    cdiff = np.abs(c - gc)
+    ties = int((cdiff > 0).sum())
+    _check(cdiff.max() <= 1.0, f"coefficient error {cdiff.max()} exceeds the +-1 tie class")
+    _check(
+        ties <= max(4, int(c.size * 0.005)),
+        f"{ties} coefficient mismatches (> 0.5% of {c.size}): not ties",
+    )
+    _check(r.dtype == np.uint8, f"reconstruction dtype {r.dtype}")
+    rdiff = np.abs(r.astype(np.int64) - gr.astype(np.int64))
+    # Per-block tie-flip bound: a flipped coefficient (u,v) moves any pixel
+    # of its block by at most max|T_u| * max|T_l| * Q[u,v] <= 0.5 * Q[u,v];
+    # ties in one block stack additively, truncation adds 1.
+    q8 = get_q_table(cfg.q_table) * cfg.q_scale
+    nbh, nbw = h // 8, w // 8
+    bound = 0.5 * np.einsum("aibj,ij->ab", cdiff.reshape(nbh, 8, nbw, 8), q8) + 1.0
+    worst = (rdiff.reshape(nbh, 8, nbw, 8).max(axis=(1, 3)) - bound).max()
+    _check(worst <= 0, f"reconstruction error exceeds the per-block tie-flip bound by {worst}")
+    mse = float(((r.astype(np.float64) - img) ** 2).mean())
+    gmse = float(((gr.astype(np.float64) - img) ** 2).mean())
+    _check(abs(mse - gmse) <= 0.02 * gmse + 1e-9, f"MSE {mse} vs golden {gmse}: quality drifted >2%")
+    return {"coeff_ties": ties, "recon_max_diff": int(rdiff.max()), "mse": mse, "golden_mse": gmse}
