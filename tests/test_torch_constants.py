@@ -82,8 +82,48 @@ def test_kernel_constants_equal_reference_tiles(transform, q_table, q_scale, ret
 
 
 def test_kernel_constants_refuse_a_transform_without_integer_core():
+    """A transform without an integer core has only the literal tables; its
+    integer-core forward and butterfly inverse are refused, as in the
+    reference's _consts_int and _consts_bf."""
+    k = hp.kernel_constants("dct")
+    assert k.ts is None and k.scale is None and k.qdd is None
     with pytest.raises(ValueError, match="has none"):
-        hp.kernel_constants("dct")
+        hp._args("dct", "luma", 1.0, None, "highest", True)
+    with pytest.raises(ValueError, match="has none"):
+        hp._args("dct", "luma", 1.0, None, "butterfly", False)
+    for ref in (lambda: hp_pallas._consts_int(32, 1.0, None, "dct"),
+                lambda: hp_pallas._consts_bf(32, 1.0, "dct")):
+        with pytest.raises(ValueError, match="has none"):
+            ref()
+
+
+@pytest.mark.parametrize("retain_k", [None, 6])
+@pytest.mark.parametrize("q_scale", [1.0, 0.5])
+@pytest.mark.parametrize("transform", sorted(R.TRANSFORMS))
+def test_literal_tables_equal_reference_tiles(transform, q_scale, retain_k):
+    """T, Q q_scale and the mask of the f32-literal core equal the top-left
+    block of the reference's _consts_f32 and hp_roundtrip's mask tile, for
+    every transform."""
+    from tpudct.ops.quant import retention_mask
+
+    k = hp.kernel_constants(transform, "luma", q_scale, retain_k)
+    bdt, _, qt = hp_pallas._consts_f32(32, q_scale, transform, "luma")
+    for mine, ref in [(k.t, bdt[:8, :8]), (k.q, qt[:8, :8]),
+                      (k.mask, retention_mask(retain_k).astype(np.float32))]:
+        assert mine.dtype == ref.dtype and np.array_equal(mine, ref)
+    a = hp._args(transform, "luma", q_scale, retain_k, "highest", False)
+    assert np.array_equal(a.fwd, k.t) and np.array_equal(a.mask, k.mask)
+    assert a.packed.dtype == np.float32 and a.packed.size == 5 * 64
+
+
+def test_scaled_gates_agree_with_reference():
+    for fr in (1, 2, 3, 4, 8):
+        for fc in (1, 2, 4, 8):
+            assert hp.scaled_pad_align(fr, fc) == hp_pallas.scaled_pad_align(fr, fc)
+            for h, w in [(64, 1024), (64, 128), (60, 1024), (32, 512), (256, 2048), (96, 384)]:
+                for q_scale, transform in [(1.0, "haweel"), (0.5, "haweel"), (1.0, "dct")]:
+                    assert hp.supports_scaled_u8(h, w, fr, fc, q_scale, transform) == \
+                        hp_pallas.supports_scaled_u8(h, w, fr, fc, q_scale, transform)
 
 
 @pytest.mark.parametrize("q_table", ["luma", "chroma"])
@@ -114,6 +154,7 @@ def test_port_imports_no_jax():
     the reference package (the card's machine has neither)."""
     mods = _port_modules() + ["chip_smoke"]
     assert "tpudct_torch.kernels.hp" in mods and "tpudct_torch.models.dispatch" in mods
+    assert "tpudct_torch.ops.scaled" in mods and "tpudct_torch.entry" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

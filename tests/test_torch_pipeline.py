@@ -9,6 +9,14 @@ Tolerances and their reasons:
   0.5% of entries — the reference's own equivalence class between its
   pipelines; against the float64 golden model the same class holds.
 - Refusals: the same exception type and message as the reference.
+- The f32 kernel paths (hp_dct, hp_idct, both roundtrip cores, "high"):
+  the classes stated in test_torch_hp.py — coefficients bit-identical on
+  the integer core and within the tie class on the f32-literal core; f32
+  reconstructions within 1e-4 (2e-3 for "high"); u8 reconstructions within
+  the per-block tie-flip bound and +-1 on at most 5e-3 of pixels.
+- Scaled and stacked dispatch: every stacked result is bit-identical to its
+  per-image helper; against the reference, the u8 classes above (seen: 0
+  differing pixels for the default config).
 """
 
 import os
@@ -155,12 +163,191 @@ def test_decode_u8_refuses_off_grid_like_reference():
     ("roundtrip_u8", {"decode_precision": "high"}), ("decode_u8", {"transform": "dct"}),
 ])
 def test_unported_paths_raise_not_implemented(call, kw):
-    p, cfg = tpudct_torch.get_pipeline("hp"), tpudct_torch.CodecConfig(**kw)
-    u8 = torch.as_tensor(_img((32, 128)))
-    arg = {"roundtrip_u8": u8, "decode_u8": torch.zeros((32, 128), dtype=torch.int8)}.get(
-        call, u8.to(torch.float32))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.3"):
-        getattr(p, call)(arg, cfg)
+    """These seven calls refused with NotImplementedError until hp_dct,
+    hp_idct, the f32-literal core and the "high" mapping were ported; each
+    now runs and matches the reference's same call under the same config."""
+    (p, rp), (cfg, rcfg) = _pair(), _cfgs(**kw)
+    u8 = _img((32, 128), seed=15)
+    c8 = np.array(rp.encode_u8(jnp.asarray(u8), tpudct.CodecConfig()))
+    arg = {"roundtrip_u8": u8, "decode_u8": c8, "idct": c8.astype(np.float32)}.get(
+        call, u8.astype(np.float32))
+    mine = getattr(p, call)(torch.as_tensor(arg), cfg)
+    ref = getattr(rp, call)(jnp.asarray(arg), rcfg)
+    if call == "dct":
+        assert np.array_equal(mine.numpy(), np.asarray(ref))
+    elif call == "idct":
+        assert np.abs(mine.numpy() - np.asarray(ref)).max() <= 1e-4
+    elif call == "decode_u8":  # "dct" decodes at "highest"
+        _assert_recon(mine.numpy(), ref, 5e-3)
+    else:
+        (c, r), (c_ref, r_ref) = mine, ref
+        _assert_tie_class(c.numpy(), c_ref, r.numpy(), r_ref, cfg)
+        if cfg.exact_int_core and cfg.transform != "dct":  # the same coefficients
+            _assert_recon(r.numpy(), r_ref, 5e-3)
+
+
+_F32_CFGS = [{"exact_int_core": False}, {"transform": "dct"}, {"decode_precision": "high"},
+             {"q_scale": 0.5}]
+
+
+@pytest.mark.parametrize("call", ["dct", "idct", "roundtrip", "encode"])
+@pytest.mark.parametrize("kw", _F32_CFGS)
+def test_hp_f32_paths_match_reference(kw, call):
+    """dct, idct, roundtrip and encode at kernel shapes (hp_dct, hp_idct,
+    hp_roundtrip on either core) under the configs that reach the f32
+    kernels: coefficients within the tie class (bit-identical on the
+    integer core), reconstructions within the per-block tie-flip bound and
+    +-1 on at most 5e-3 of pixels ("high" and "highest" tiers)."""
+    (p, rp), (cfg, rcfg) = _pair(), _cfgs(retain_k=6, **kw) if call == "encode" else _cfgs(**kw)
+    img = _img((64, 256), seed=16, dtype=np.float32)
+    int_core = cfg.exact_int_core and cfg.transform != "dct"
+    if call == "idct":
+        c = np.array(rp.dct(jnp.asarray(img), rcfg))
+        r, r_ref = p.idct(torch.as_tensor(c), cfg), rp.idct(jnp.asarray(c), rcfg)
+        tol = 2e-3 if cfg.decode_precision == "high" else 1e-4
+        assert np.abs(r.numpy() - np.asarray(r_ref)).max() <= tol
+        return
+    mine = getattr(p, call)(torch.as_tensor(img), cfg)
+    ref = getattr(rp, call)(jnp.asarray(img), rcfg)
+    if call == "roundtrip":
+        (c, r), (c_ref, r_ref) = mine, ref
+        _assert_tie_class(c.numpy(), c_ref, r.numpy(), r_ref, cfg)
+        if int_core:
+            _assert_recon(r.numpy(), r_ref, 5e-3)
+    elif int_core:
+        assert np.array_equal(mine.numpy(), np.asarray(ref))
+    else:
+        _assert_ties(mine.numpy(), ref)
+
+
+@pytest.mark.parametrize("kw", [{"q_scale": 0.5}, {"transform": "dct"}, {"exact_int_core": False}])
+def test_gray_auto_f32_paths_match_reference(kw):
+    """Configs off the int8 kernels encode through Pipeline.encode (hp_dct)
+    and decode through hp_idct (exact_int_core=False alone stays on the
+    int8 kernels, as in the reference): against the reference's auto
+    helpers, and split == fused."""
+    (p, rp), (cfg, rcfg) = _pair(), _cfgs(**kw)
+    img = _img((100, 200), seed=17)
+    c, hw = PD.encode_gray_auto(p, img, cfg)
+    c_ref, hw_ref = RD.encode_gray_auto(rp, img, rcfg)
+    assert hw == hw_ref and tuple(c.shape) == np.shape(c_ref)
+    assert c.numpy().dtype == np.asarray(c_ref).dtype
+    _assert_ties(c.numpy(), c_ref)
+    r = PD.decode_gray_auto(p, c.numpy(), cfg, hw)
+    r_ref = RD.decode_gray_auto(rp, np.asarray(c_ref), rcfg, hw_ref)
+    assert r.shape == r_ref.shape and r.dtype == np.uint8
+    if cfg.transform != "dct":  # the same coefficients
+        assert np.array_equal(c.numpy(), np.asarray(c_ref))
+        _assert_recon(r, r_ref)
+    c2, r2 = PD.roundtrip_gray_auto(p, img, cfg)
+    assert torch.equal(c2, c) and np.array_equal(r2, r)
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 6, 8])
+@pytest.mark.parametrize("shape", [(100, 200), (250, 130)])
+def test_decode_gray_scaled_auto_matches_reference(shape, m):
+    """Integer factors ride scaled_decode_u8, m = 6 the area-resample
+    einsum, m = 8 the full decode: the cropped u8 plane matches the
+    reference's +-1 on at most 1e-4 of pixels (seen: 0)."""
+    (p, rp), (cfg, rcfg) = _pair(), _cfgs()
+    c, hw = PD.encode_gray_auto(p, _img(shape, seed=m), cfg)
+    r = PD.decode_gray_scaled_auto(p, c.numpy(), cfg, hw, m)
+    r_ref = RD.decode_gray_scaled_auto(rp, c.numpy(), rcfg, hw, m)
+    assert r.dtype == np.uint8 and r.shape == r_ref.shape
+    _assert_recon(r, r_ref)
+    # a tensor in gives the same plane
+    assert np.array_equal(PD.decode_gray_scaled_auto(p, c, cfg, hw, m), r)
+
+
+def _batch_inputs():
+    rng = np.random.default_rng(18)
+    shapes = [(100, 200), (64, 256), (40, 136), (100, 200), (250, 130), (64, 256)]
+    return [rng.integers(0, 256, size=s, dtype=np.uint8) for s in shapes]
+
+
+@pytest.mark.parametrize("kw", [{}, {"q_scale": 0.5}])
+def test_encode_gray_batch_auto_matches_per_image_and_reference(kw):
+    (p, rp), (cfg, rcfg) = _pair(), _cfgs(**kw)
+    imgs = _batch_inputs()
+    imgs[2] = imgs[2].astype(np.float32)  # an f32 image joins its own group
+    out = PD.encode_gray_batch_auto(p, imgs, cfg)
+    ref = RD.encode_gray_batch_auto(rp, imgs, rcfg)
+    for img, (c, hw), (c_ref, hw_ref) in zip(imgs, out, ref):
+        c1, hw1 = PD.encode_gray_auto(p, img, cfg)
+        assert isinstance(c, np.ndarray) and hw == hw1 == hw_ref
+        assert np.array_equal(c, c1.numpy())
+        _assert_ties(c, c_ref)
+    # chunking splits the stacks and changes nothing
+    for (c, _), (c2, _) in zip(out, PD.encode_gray_batch_auto(p, imgs, cfg, max_pixels=30000)):
+        assert np.array_equal(c, c2)
+
+
+def test_decode_gray_batch_auto_matches_per_image_and_reference():
+    (p, rp) = _pair()
+    cfgs = [_cfgs(), _cfgs(q_scale=0.5), _cfgs(decode_precision="highest")]
+    items, ritems = [], []
+    for i, img in enumerate(_batch_inputs()):
+        cfg, rcfg = cfgs[i % 3]
+        c, hw = PD.encode_gray_auto(p, img, cfg)
+        items.append((c.numpy(), cfg, hw))
+        ritems.append((c.numpy(), rcfg, hw))
+    out = PD.decode_gray_batch_auto(p, items)
+    ref = RD.decode_gray_batch_auto(rp, ritems)
+    for (c, cfg, hw), r, r_ref in zip(items, out, ref):
+        assert np.array_equal(r, PD.decode_gray_auto(p, c, cfg, hw))
+        _assert_recon(r, r_ref, 5e-3)
+
+
+@pytest.mark.parametrize("m", [2, 4, 6])
+def test_decode_gray_scaled_batch_auto_matches_per_image_and_reference(m):
+    (p, rp) = _pair()
+    cfgs = [_cfgs(), _cfgs(q_scale=2.5), _cfgs(q_scale=0.5)]
+    items, ritems = [], []
+    for i, img in enumerate(_batch_inputs()):
+        cfg, rcfg = cfgs[i % 3]
+        c, hw = PD.encode_gray_auto(p, img, cfg)
+        items.append((c.numpy(), cfg, hw))
+        ritems.append((c.numpy(), rcfg, hw))
+    out = PD.decode_gray_scaled_batch_auto(p, items, m)
+    ref = RD.decode_gray_scaled_batch_auto(rp, ritems, m)
+    for (c, cfg, hw), r, r_ref in zip(items, out, ref):
+        assert np.array_equal(r, PD.decode_gray_scaled_auto(p, c, cfg, hw, m))
+        _assert_recon(r, r_ref, 5e-3)
+
+
+@pytest.mark.parametrize("cuda", [False, True])
+def test_host_arrays_run_on_the_default_device(cuda, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: cuda)
+    assert PD.default_device() == (torch.device("cuda", 0) if cuda else torch.device("cpu"))
+    monkeypatch.undo()
+    # every stacked chunk and every host array goes through default_device()
+    calls = []
+    monkeypatch.setattr(PD, "default_device", lambda: calls.append(1) or torch.device("cpu"))
+    p, cfg = _pair()[0], _cfgs()[0]
+    imgs = _batch_inputs()
+    out = PD.encode_gray_batch_auto(p, imgs, cfg, max_pixels=30000)
+    n_chunks = len(calls)
+    assert n_chunks >= 3
+    calls.clear()
+    for img, (c, _) in zip(imgs, out):
+        assert np.array_equal(PD.encode_gray_auto(p, img, cfg)[0].numpy(), c)
+    assert len(calls) == len(imgs)
+    calls.clear()
+    PD.encode_gray_auto(p, torch.as_tensor(imgs[0]), cfg)  # a tensor stays where it is
+    assert not calls
+
+
+def test_entry_matches_reference_entry():
+    import __graft_entry__
+    from tpudct_torch.entry import entry
+
+    fn, (x,) = entry()
+    rfn, (rx,) = __graft_entry__.entry()
+    assert x.dtype == torch.float32 and x.device.type == "cpu"
+    assert np.array_equal(x.numpy(), np.asarray(rx))
+    (c, r), (c_ref, r_ref) = fn(x), rfn(rx)
+    assert np.array_equal(c.numpy(), np.asarray(c_ref))
+    _assert_recon(r.numpy(), r_ref)
 
 
 @pytest.mark.parametrize("kw", [{}, {"retain_k": 6}, {"q_scale": 2.5}, {"decode_precision": "highest"}])
@@ -237,6 +424,33 @@ def test_selftest_gate_fails_a_wrong_codec():
         selftest.correctness_gate(Broken(), tpudct_torch.CodecConfig(), size=128)
 
 
+def test_family_gates_pass_on_cpu():
+    for name in ("hp", "batched"):
+        reps = selftest.family_gates(tpudct_torch.get_pipeline(name), tpudct_torch.CodecConfig())
+        assert [r["family"] for r in reps] == ["f32", "scaled"]
+        assert all(r["gate"] == "pass" for r in reps)
+        assert reps[1]["max_dev"] <= 1e-2 and ("fast_path" in reps[1]) == (name == "hp")
+
+
+@pytest.mark.parametrize("kw", [{"transform": "dct"}, {"q_scale": 0.5}, {"exact_int_core": False},
+                                {"q_scale": 2.5, "retain_k": 6}])
+def test_selftest_gate_follows_config(kw):
+    """The golden is built from the config (transform, Q table, q_scale,
+    retain_k); the f32 roundtrip passes it under each config."""
+    import tests.golden as G
+    from tpudct_torch.constants import get_q_table, get_transform
+
+    cfg = tpudct_torch.CodecConfig(**kw)
+    img = _img((64, 64), seed=19, dtype=np.float32)
+    mine = selftest.golden_for(img, cfg)
+    ref = G.golden_roundtrip(img, cfg.q_scale, cfg.retain_k, t=get_transform(cfg.transform).t,
+                             q=get_q_table(cfg.q_table))
+    for a, b in zip(mine, ref):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    rep = selftest.correctness_gate(tpudct_torch.get_pipeline("hp"), cfg, size=128, force_f32=True)
+    assert rep["gate"] == "pass"
+
+
 def test_selftest_golden_equals_test_golden():
     import tests.golden as G
 
@@ -244,6 +458,9 @@ def test_selftest_golden_equals_test_golden():
     for kw in ({}, {"q_scale": 2.5, "retain_k": 6}):
         for a, b in zip(selftest.golden_roundtrip(img, **kw), G.golden_roundtrip(img, **kw)):
             assert a.dtype == b.dtype and np.array_equal(a, b)
+    # the default config's golden is the default golden
+    for a, b in zip(selftest.golden_for(img, tpudct_torch.CodecConfig()), G.golden_roundtrip(img)):
+        assert np.array_equal(a, b)
     assert np.array_equal(selftest.synthetic_image(64), synthetic_image(64))
 
 

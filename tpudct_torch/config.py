@@ -19,8 +19,8 @@ class CodecConfig:
 
     Attributes:
       transform: 8x8 transform (constants.TRANSFORMS): "haweel" (default),
-        "rdct"/"cb2011", "wht", "bas" or "dct" (no integer core; the hp
-        kernels of this package do not take it yet).
+        "rdct"/"cb2011", "wht", "bas" or "dct" (no integer core: the hp
+        kernels run it on the f32-literal core and decode it at "highest").
       q_scale: multiplier applied to the quantization table.
       q_table: "luma" (default), "chroma" or a name from register_q_table.
       retain_k: zonal retention: keep coefficient (u, v) iff u + v < k;
@@ -30,10 +30,11 @@ class CodecConfig:
         the 0.5 rule), exactly as in the reference.
       interpret: inert (Pallas interpreter mode in the reference).
       exact_int_core: the hp forward runs the exact integer Ts X Ts^T core.
-        False selects the f32-literal core, not ported yet.
+        False selects the f32-literal core (T X T^T in f32, true division).
       decode_precision: "butterfly" (default; f32 inverse on the integer
         core with the row norms folded into the dequantization), "highest"
-        (f32 inverse on the literal T) or "high" (not ported yet).
+        (f32 inverse on the literal T) or "high" (the reference's bf16x3
+        tier; here the "highest" body).
       band_rows, tile_cols: inert (Pallas tile geometry in the reference).
     """
 

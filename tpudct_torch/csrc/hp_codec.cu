@@ -4,37 +4,60 @@
 //
 // Entry points and the Pallas TPU kernels they replace
 // (tpudct/kernels/hp_pallas.py):
-//   hp_rt_u8_launch      B1  hp_roundtrip_u8  (_k_rt_u8_bf, _k_rt_u8)
-//   hp_encode_u8_launch  B2  hp_encode_u8     (_k_encode_u8)
-//   hp_decode_u8_launch  B3  hp_decode_u8     (_k_decode_u8_bf, _k_decode_u8)
-//   hp_rt_f32_launch     B4  hp_roundtrip     (_k_rt_int_bf, _k_rt_int)
+//   hp_rt_u8_launch             B1  hp_roundtrip_u8  (_k_rt_u8_bf, _k_rt_u8)
+//   hp_encode_u8_launch         B2  hp_encode_u8     (_k_encode_u8)
+//   hp_decode_u8_launch         B3  hp_decode_u8     (_k_decode_u8_bf, _k_decode_u8)
+//   hp_rt_f32_launch            B4  hp_roundtrip     (_k_rt_int_bf, _k_rt_int;
+//                               B4' with literal=1:   _k_rt_f32_bf, _k_rt_f32)
+//   hp_dct_launch               B5  hp_dct           (_k_dct_int, _k_dct_f32)
+//   hp_idct_launch              B6  hp_idct          (_k_idct_bf, _k_idct)
+//   hp_scaled_decode_u8_launch  B7  hp_scaled_decode_u8 (_k_scaled_decode_u8_bf)
 //
 // Value chain (identical to the reference's, rounding included):
-//   forward  c = trunc(fl(fl(f32(Ts X Ts^T) * scale) + copysign(0.5)))
+//   forward, integer core
+//            c = trunc(fl(fl(f32(Ts X Ts^T) * scale) + copysign(0.5)))
 //            Ts X Ts^T is exact integer arithmetic (|Ts| <= 2, |X| <= 128,
 //            every partial sum < 2^24, so it is exact in f32 with or
 //            without FMA contraction); scale = d_i d_l / (Q q_scale) times
 //            the zonal mask.  The multiply and the tie-add are each rounded
 //            (__fmul_rn, __fadd_rn): an FMA there moves which .5 ties flip.
+//   forward, f32-literal core (any f32 pixels; every transform)
+//            Z = T (X - 128) T^T with the literal f32 T, rows k = 0..7 then
+//            columns l = 0..7, every product and sum rounded on its own;
+//            c = trunc(fl(fl(Z / (Q q_scale)) + copysign(0.5))) * mask.
+//            True division (__fdiv_rn), as the reference divides: a
+//            reciprocal multiply moves ties.  The zonal mask multiplies
+//            after rounding, so a masked negative coefficient is -0.0.
 //   inverse  M = fl(c * S); X = A^T M A summed k = 0..7 over rows, then
 //            j = 0..7 over columns, every product and sum rounded on its own
 //            (no FMA), then + 128.  A = Ts with S = Q q_scale d d^T is the
 //            "butterfly" tier; A = T (f32 literals) with S = Q q_scale is
-//            the "highest" tier: one body, two constant sets.  The plain
-//            twins in kernels/hp.py sum in the same order, so kernel and
-//            twin agree bit for bit.
+//            the "highest" tier: one body, two constant sets.  The
+//            reference's "high" tier (a bf16x3 MXU product, there because
+//            the TPU has no f32 MXU path) runs the "highest" constants.
 //   u8 out   clamp(trunc(X + 128), 0, 255).
+//   scaled   box sums of fr x fc windows of the clamped, truncated decode
+//            (exact integers < 2^14), times 1/(fr fc) (a power of two, so
+//            exact): bit-identical to box_pool_u8(hp_decode_u8(c)).
+//
+// The plain twins in kernels/hp.py sum in the same order, so kernel and
+// twin agree bit for bit.
 //
 // Design: one thread per 8x8 block, the block held in registers.  A thread
 // reads its block as 8 row loads of 8 bytes (u8/int8) or 32 bytes (f32);
 // consecutive threads own horizontally adjacent blocks, so a warp's row
 // load is one contiguous 256-byte (or 1 KiB) span.  The 8x8 constants ride
-// the kernel parameters (constant bank, read uniformly by the warp).
+// the kernel parameters (constant bank, read uniformly by the warp).  The
+// scaled decode pools inside the thread's block (fr and fc divide 8, so no
+// window crosses a block) and is instantiated per (fr, fc) so that every
+// register index is static.
 //
 // Bound: memory.  The fused u8 pass moves 3 bytes per pixel (read u8, write
-// int8 + u8): 192 MiB at 8192^2, about 60 us at the H100 SXM's 3.35 TB/s.
-// The arithmetic is ~2k f32 operations per block.  This first version
-// favours a plain, checkable shape over reaching that bound.
+// int8 + u8): 192 MiB at 8192^2, about 60 us at the H100 SXM's 3.35 TB/s;
+// hp_dct and hp_idct move 8, the f32 roundtrips 12, the scaled u8 decode
+// 1 + 1/(fr fc).  The arithmetic is ~2k f32 operations per block (the
+// literal forward adds 64 IEEE divisions).  This version favours a plain,
+// checkable shape over reaching the memory bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,33 +65,65 @@
 namespace {
 
 struct HpConsts {
-  float ts[64];     // integer core Ts, row-major (exact small integers)
-  float scale[64];  // forward quantization scale per position
-  float a[64];      // inverse transform matrix (Ts or T)
-  float s[64];      // dequantization multiplier per position
+  float fwd[64];   // forward matrix: Ts (integer core) or T (f32-literal core)
+  float fq[64];    // integer core: scale = d_i d_l / (Q q_scale) * mask;
+                   // f32-literal core: the divisor Q q_scale
+  float mask[64];  // f32-literal core: zonal mask applied after rounding
+  float a[64];     // inverse transform matrix (Ts or T)
+  float s[64];     // dequantization multiplier per position
 };
 
+__device__ __forceinline__ float round_away(float z) {
+  return truncf(__fadd_rn(z, copysignf(0.5f, z)));
+}
+
 __device__ __forceinline__ void fwd_block(float x[64], const HpConsts& k) {
-  // x: level-shifted pixels in, quantized coefficients (integral f32) out.
+  // x: level-shifted integral pixels in, quantized coefficients out.
   float u[64];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      float acc = k.ts[i * 8] * x[c];
+      float acc = k.fwd[i * 8] * x[c];
 #pragma unroll
-      for (int kk = 1; kk < 8; ++kk) acc += k.ts[i * 8 + kk] * x[kk * 8 + c];
+      for (int kk = 1; kk < 8; ++kk) acc += k.fwd[i * 8 + kk] * x[kk * 8 + c];
       u[i * 8 + c] = acc;
     }
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      float core = u[i * 8] * k.ts[j * 8];
+      float core = u[i * 8] * k.fwd[j * 8];
 #pragma unroll
-      for (int l = 1; l < 8; ++l) core += u[i * 8 + l] * k.ts[j * 8 + l];
-      const float z = __fmul_rn(core, k.scale[i * 8 + j]);
-      x[i * 8 + j] = truncf(__fadd_rn(z, copysignf(0.5f, z)));
+      for (int l = 1; l < 8; ++l) core += u[i * 8 + l] * k.fwd[j * 8 + l];
+      x[i * 8 + j] = round_away(__fmul_rn(core, k.fq[i * 8 + j]));
+    }
+}
+
+__device__ __forceinline__ void fwd_block_literal(float x[64], const HpConsts& k) {
+  // x: f32 pixels in (not shifted), quantized and masked coefficients out.
+  float u[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) x[e] = __fsub_rn(x[e], 128.0f);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float acc = __fmul_rn(k.fwd[i * 8], x[c]);
+#pragma unroll
+      for (int kk = 1; kk < 8; ++kk)
+        acc = __fadd_rn(acc, __fmul_rn(k.fwd[i * 8 + kk], x[kk * 8 + c]));
+      u[i * 8 + c] = acc;
+    }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float z = __fmul_rn(u[i * 8], k.fwd[j * 8]);
+#pragma unroll
+      for (int l = 1; l < 8; ++l) z = __fadd_rn(z, __fmul_rn(u[i * 8 + l], k.fwd[j * 8 + l]));
+      const float c = round_away(__fdiv_rn(z, k.fq[i * 8 + j]));
+      x[i * 8 + j] = __fmul_rn(c, k.mask[i * 8 + j]);
     }
 }
 
@@ -119,12 +174,18 @@ __device__ __forceinline__ void load_i8(const int8_t* p, float* x) {
   }
 }
 
+__device__ __forceinline__ void load_f32(const float* p, float* x) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+
 // f32 pixels: trunc to int32, subtract 128, wrap to int8 — the reference's
 // (x.astype(int32) - 128).astype(int8) for the int core.
 __device__ __forceinline__ void load_f32_shifted(const float* p, float* x) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  float v[8];
+  load_f32(p, v);
 #pragma unroll
   for (int e = 0; e < 8; ++e)
     x[e] = static_cast<float>(static_cast<int8_t>(__float2int_rz(v[e]) - 128));
@@ -140,48 +201,85 @@ __device__ __forceinline__ void store_i8(int8_t* p, const float* c) {
   *reinterpret_cast<uint2*>(p) = v;
 }
 
+__device__ __forceinline__ float clamp_trunc(float x) {
+  return fminf(fmaxf(truncf(x), 0.0f), 255.0f);
+}
+
 __device__ __forceinline__ uint32_t to_u8(float x) {
-  return static_cast<uint32_t>(fminf(fmaxf(truncf(x), 0.0f), 255.0f));
+  return static_cast<uint32_t>(clamp_trunc(x));
 }
 
-__device__ __forceinline__ void store_u8(uint8_t* p, const float* x) {
-  uint2 v = {0u, 0u};
+// N values of one output row: u8 with one 8/4/2/1-byte store.  The values
+// are exact integers in [0, 255], so the cast is the truncation.
+template <int N>
+__device__ __forceinline__ void store_row_u8(uint8_t* p, const float* x) {
+  if constexpr (N == 8) {
+    uint2 v = {0u, 0u};
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    v.x |= to_u8(x[e]) << (8 * e);
-    v.y |= to_u8(x[4 + e]) << (8 * e);
+    for (int e = 0; e < 4; ++e) {
+      v.x |= to_u8(x[e]) << (8 * e);
+      v.y |= to_u8(x[4 + e]) << (8 * e);
+    }
+    *reinterpret_cast<uint2*>(p) = v;
+  } else if constexpr (N == 4) {
+    uint32_t v = 0u;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v |= to_u8(x[e]) << (8 * e);
+    *reinterpret_cast<uint32_t*>(p) = v;
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(to_u8(x[0]) | (to_u8(x[1]) << 8));
+  } else {
+    *p = static_cast<uint8_t>(to_u8(x[0]));
   }
-  *reinterpret_cast<uint2*>(p) = v;
 }
 
-__device__ __forceinline__ void store_f32(float* p, const float* x) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
+template <int N>
+__device__ __forceinline__ void store_row_f32(float* p, const float* x) {
+  if constexpr (N == 8) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
+  } else if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+    *p = x[0];
+  }
 }
+
+__device__ __forceinline__ void store_u8(uint8_t* p, const float* x) { store_row_u8<8>(p, x); }
+__device__ __forceinline__ void store_f32(float* p, const float* x) { store_row_f32<8>(p, x); }
 
 // ---- kernels ---------------------------------------------------------------
 
-// Element offset of row r of this thread's block, or -1 past the last block.
+__device__ __forceinline__ long long block_index() {
+  return static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+}
+
+// Element offset of this thread's block (row 0), or -1 past the last block.
 __device__ __forceinline__ long long block_origin(int h, int w) {
   const long long nbw = w / 8;
-  const long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long b = block_index();
   if (b >= (h / 8) * nbw) return -1;
   return (b / nbw) * 8 * static_cast<long long>(w) + (b % nbw) * 8;
 }
+
+#define ROWS(stmt)                                                \
+  _Pragma("unroll") for (int r = 0; r < 8; ++r) {                 \
+    const long long ro = o + r * static_cast<long long>(w);       \
+    stmt;                                                         \
+  }
 
 __global__ void k_rt_u8(const uint8_t* __restrict__ img, int8_t* __restrict__ coef,
                         uint8_t* __restrict__ rec, int h, int w, const HpConsts k) {
   const long long o = block_origin(h, w);
   if (o < 0) return;
   float x[64];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) load_u8_shifted(img + o + r * static_cast<long long>(w), x + 8 * r);
+  ROWS(load_u8_shifted(img + ro, x + 8 * r));
   fwd_block(x, k);
-#pragma unroll
-  for (int r = 0; r < 8; ++r) store_i8(coef + o + r * static_cast<long long>(w), x + 8 * r);
+  ROWS(store_i8(coef + ro, x + 8 * r));
   inv_block(x, k);
-#pragma unroll
-  for (int r = 0; r < 8; ++r) store_u8(rec + o + r * static_cast<long long>(w), x + 8 * r);
+  ROWS(store_u8(rec + ro, x + 8 * r));
 }
 
 __global__ void k_encode_u8(const uint8_t* __restrict__ img, int8_t* __restrict__ coef,
@@ -189,11 +287,9 @@ __global__ void k_encode_u8(const uint8_t* __restrict__ img, int8_t* __restrict_
   const long long o = block_origin(h, w);
   if (o < 0) return;
   float x[64];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) load_u8_shifted(img + o + r * static_cast<long long>(w), x + 8 * r);
+  ROWS(load_u8_shifted(img + ro, x + 8 * r));
   fwd_block(x, k);
-#pragma unroll
-  for (int r = 0; r < 8; ++r) store_i8(coef + o + r * static_cast<long long>(w), x + 8 * r);
+  ROWS(store_i8(coef + ro, x + 8 * r));
 }
 
 __global__ void k_decode_u8(const int8_t* __restrict__ coef, uint8_t* __restrict__ rec,
@@ -201,26 +297,89 @@ __global__ void k_decode_u8(const int8_t* __restrict__ coef, uint8_t* __restrict
   const long long o = block_origin(h, w);
   if (o < 0) return;
   float x[64];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) load_i8(coef + o + r * static_cast<long long>(w), x + 8 * r);
+  ROWS(load_i8(coef + ro, x + 8 * r));
   inv_block(x, k);
-#pragma unroll
-  for (int r = 0; r < 8; ++r) store_u8(rec + o + r * static_cast<long long>(w), x + 8 * r);
+  ROWS(store_u8(rec + ro, x + 8 * r));
 }
 
+// f32 image block -> quantized coefficients in x, on either core.
+template <bool kLiteral>
+__device__ __forceinline__ void load_fwd_f32(const float* __restrict__ img, long long o, int w,
+                                             float x[64], const HpConsts& k) {
+  if constexpr (kLiteral) {
+    ROWS(load_f32(img + ro, x + 8 * r));
+    fwd_block_literal(x, k);
+  } else {
+    ROWS(load_f32_shifted(img + ro, x + 8 * r));
+    fwd_block(x, k);
+  }
+}
+
+template <bool kLiteral>
 __global__ void k_rt_f32(const float* __restrict__ img, float* __restrict__ coef,
                          float* __restrict__ rec, int h, int w, const HpConsts k) {
   const long long o = block_origin(h, w);
   if (o < 0) return;
   float x[64];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) load_f32_shifted(img + o + r * static_cast<long long>(w), x + 8 * r);
-  fwd_block(x, k);
-#pragma unroll
-  for (int r = 0; r < 8; ++r) store_f32(coef + o + r * static_cast<long long>(w), x + 8 * r);
+  load_fwd_f32<kLiteral>(img, o, w, x, k);
+  ROWS(store_f32(coef + ro, x + 8 * r));
   inv_block(x, k);
+  ROWS(store_f32(rec + ro, x + 8 * r));
+}
+
+template <bool kLiteral>
+__global__ void k_dct(const float* __restrict__ img, float* __restrict__ coef, int h, int w,
+                      const HpConsts k) {
+  const long long o = block_origin(h, w);
+  if (o < 0) return;
+  float x[64];
+  load_fwd_f32<kLiteral>(img, o, w, x, k);
+  ROWS(store_f32(coef + ro, x + 8 * r));
+}
+
+__global__ void k_idct(const float* __restrict__ coef, float* __restrict__ rec, int h, int w,
+                       const HpConsts k) {
+  const long long o = block_origin(h, w);
+  if (o < 0) return;
+  float x[64];
+  ROWS(load_f32(coef + ro, x + 8 * r));
+  inv_block(x, k);
+  ROWS(store_f32(rec + ro, x + 8 * r));
+}
+
+// int8 (h, w) -> (h / FR, w / FC) box averages of the clamped, truncated
+// decode; u8 (truncated) when out_u8, else f32.
+template <int FR, int FC>
+__global__ void k_scaled_decode_u8(const int8_t* __restrict__ coef, void* __restrict__ out,
+                                   int h, int w, int out_u8, const HpConsts k) {
+  constexpr int OR = 8 / FR, OC = 8 / FC;
+  const long long o = block_origin(h, w);
+  if (o < 0) return;
+  float x[64];
+  ROWS(load_i8(coef + ro, x + 8 * r));
+  inv_block(x, k);
+  float avg[OR * OC];
 #pragma unroll
-  for (int r = 0; r < 8; ++r) store_f32(rec + o + r * static_cast<long long>(w), x + 8 * r);
+  for (int i = 0; i < OR; ++i)
+#pragma unroll
+    for (int j = 0; j < OC; ++j) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int a = 0; a < FR; ++a)
+#pragma unroll
+        for (int b = 0; b < FC; ++b) sum += clamp_trunc(x[(i * FR + a) * 8 + j * FC + b]);
+      avg[i * OC + j] = sum * (1.0f / (FR * FC));
+    }
+  const long long nbw = w / 8, blk = block_index();
+  const long long ow = w / FC;
+  const long long oo = (blk / nbw) * OR * ow + (blk % nbw) * OC;
+#pragma unroll
+  for (int i = 0; i < OR; ++i) {
+    if (out_u8)
+      store_row_u8<OC>(static_cast<uint8_t*>(out) + oo + i * ow, avg + i * OC);
+    else
+      store_row_f32<OC>(static_cast<float*>(out) + oo + i * ow, avg + i * OC);
+  }
 }
 
 constexpr int kThreads = 128;
@@ -235,10 +394,31 @@ inline int prologue(int device, int h, int w) {
   return static_cast<int>(cudaSetDevice(device));
 }
 
+inline const HpConsts& consts_of(const void* p) { return *static_cast<const HpConsts*>(p); }
+
+template <int FR, int FC>
+void launch_scaled(const void* coef, void* out, int h, int w, int out_u8, const HpConsts& k,
+                   cudaStream_t stream) {
+  k_scaled_decode_u8<FR, FC><<<grid_for(h, w), kThreads, 0, stream>>>(
+      static_cast<const int8_t*>(coef), out, h, w, out_u8, k);
+}
+
+template <int FR>
+int launch_scaled_fc(int fc, const void* coef, void* out, int h, int w, int out_u8,
+                     const HpConsts& k, cudaStream_t stream) {
+  switch (fc) {
+    case 1: launch_scaled<FR, 1>(coef, out, h, w, out_u8, k, stream); return 0;
+    case 2: launch_scaled<FR, 2>(coef, out, h, w, out_u8, k, stream); return 0;
+    case 4: launch_scaled<FR, 4>(coef, out, h, w, out_u8, k, stream); return 0;
+    case 8: launch_scaled<FR, 8>(coef, out, h, w, out_u8, k, stream); return 0;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // ---- C interface -------------------------------------------------------------
-// Pointers are device pointers except `consts`, a host pointer to 256 floats
+// Pointers are device pointers except `consts`, a host pointer to 320 floats
 // laid out as HpConsts.  Each function returns a cudaError_t value (0 = ok)
 // after checking the launch; it neither synchronizes nor allocates.
 
@@ -250,7 +430,7 @@ int hp_rt_u8_launch(const void* img, void* coef, void* rec, int h, int w,
   if (err) return err;
   k_rt_u8<<<grid_for(h, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(img), static_cast<int8_t*>(coef), static_cast<uint8_t*>(rec), h, w,
-      *static_cast<const HpConsts*>(consts));
+      consts_of(consts));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -259,8 +439,7 @@ int hp_encode_u8_launch(const void* img, void* coef, int h, int w, const void* c
   int err = prologue(device, h, w);
   if (err) return err;
   k_encode_u8<<<grid_for(h, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(img), static_cast<int8_t*>(coef), h, w,
-      *static_cast<const HpConsts*>(consts));
+      static_cast<const uint8_t*>(img), static_cast<int8_t*>(coef), h, w, consts_of(consts));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -269,18 +448,62 @@ int hp_decode_u8_launch(const void* coef, void* rec, int h, int w, const void* c
   int err = prologue(device, h, w);
   if (err) return err;
   k_decode_u8<<<grid_for(h, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(coef), static_cast<uint8_t*>(rec), h, w,
-      *static_cast<const HpConsts*>(consts));
+      static_cast<const int8_t*>(coef), static_cast<uint8_t*>(rec), h, w, consts_of(consts));
   return static_cast<int>(cudaGetLastError());
 }
 
-int hp_rt_f32_launch(const void* img, void* coef, void* rec, int h, int w,
+int hp_rt_f32_launch(const void* img, void* coef, void* rec, int h, int w, int literal,
                      const void* consts, void* stream, int device) {
   int err = prologue(device, h, w);
   if (err) return err;
-  k_rt_f32<<<grid_for(h, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(img), static_cast<float*>(coef), static_cast<float*>(rec), h, w,
-      *static_cast<const HpConsts*>(consts));
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* x = static_cast<const float*>(img);
+  auto* c = static_cast<float*>(coef);
+  auto* r = static_cast<float*>(rec);
+  if (literal)
+    k_rt_f32<true><<<grid_for(h, w), kThreads, 0, s>>>(x, c, r, h, w, consts_of(consts));
+  else
+    k_rt_f32<false><<<grid_for(h, w), kThreads, 0, s>>>(x, c, r, h, w, consts_of(consts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int hp_dct_launch(const void* img, void* coef, int h, int w, int literal, const void* consts,
+                  void* stream, int device) {
+  int err = prologue(device, h, w);
+  if (err) return err;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* x = static_cast<const float*>(img);
+  auto* c = static_cast<float*>(coef);
+  if (literal)
+    k_dct<true><<<grid_for(h, w), kThreads, 0, s>>>(x, c, h, w, consts_of(consts));
+  else
+    k_dct<false><<<grid_for(h, w), kThreads, 0, s>>>(x, c, h, w, consts_of(consts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int hp_idct_launch(const void* coef, void* rec, int h, int w, const void* consts, void* stream,
+                   int device) {
+  int err = prologue(device, h, w);
+  if (err) return err;
+  k_idct<<<grid_for(h, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(coef), static_cast<float*>(rec), h, w, consts_of(consts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int hp_scaled_decode_u8_launch(const void* coef, void* out, int h, int w, int fr, int fc,
+                               int out_u8, const void* consts, void* stream, int device) {
+  int err = prologue(device, h, w);
+  if (err) return err;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const HpConsts& k = consts_of(consts);
+  switch (fr) {
+    case 1: err = launch_scaled_fc<1>(fc, coef, out, h, w, out_u8, k, s); break;
+    case 2: err = launch_scaled_fc<2>(fc, coef, out, h, w, out_u8, k, s); break;
+    case 4: err = launch_scaled_fc<4>(fc, coef, out, h, w, out_u8, k, s); break;
+    case 8: err = launch_scaled_fc<8>(fc, coef, out, h, w, out_u8, k, s); break;
+    default: err = static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,6 @@
 """Build and load the CUDA library of the hp kernels.
 
-``tpudct_torch/csrc/hp_codec.cu`` is compiled by nvcc into a shared library
+``tpudct_torch/csrc/hp_codec.cu`` (kernels B1-B7) is compiled by nvcc into a shared library
 with a plain C interface and loaded with ctypes.  The library lives in
 ``build/tpudct_torch/`` at the root of the checkout (listed in .gitignore),
 named by a hash of the source and the flags, so an edited source rebuilds
@@ -33,7 +33,10 @@ _SIGNATURES = {
     "hp_rt_u8_launch": (_P, _P, _P, _I, _I, _P, _P, _I),
     "hp_encode_u8_launch": (_P, _P, _I, _I, _P, _P, _I),
     "hp_decode_u8_launch": (_P, _P, _I, _I, _P, _P, _I),
-    "hp_rt_f32_launch": (_P, _P, _P, _I, _I, _P, _P, _I),
+    "hp_rt_f32_launch": (_P, _P, _P, _I, _I, _I, _P, _P, _I),
+    "hp_dct_launch": (_P, _P, _I, _I, _I, _P, _P, _I),
+    "hp_idct_launch": (_P, _P, _I, _I, _P, _P, _I),
+    "hp_scaled_decode_u8_launch": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _I),
 }
 
 

@@ -1,5 +1,6 @@
-"""Gray-plane dispatch: one gate for the u8 kernels, the f32 kernel and the
-einsum path (the gray subset of ``tpudct/models/dispatch.py``).
+"""Gray-plane dispatch: one gate for the u8 kernels, the f32 kernels and the
+einsum path, the scaled decode and the stacked bulk helpers (the gray part
+of ``tpudct/models/dispatch.py``).
 
 The gate and the padding are the reference's, so both packages send a
 shape down the same path:
@@ -12,7 +13,9 @@ shape down the same path:
   to the constant level shift), decode, crop.
 
 Inputs may be numpy arrays or tensors.  A tensor stays on its device (a
-CUDA tensor runs the CUDA kernels); a numpy array is taken on the CPU.
+CUDA tensor runs the CUDA kernels, a CPU tensor their plain twins); a numpy
+array goes to :func:`default_device`, as the reference's host arrays go to
+its default accelerator.
 """
 
 from __future__ import annotations
@@ -36,6 +39,19 @@ from tpudct_torch.ops.transform import to_uint8
 _U8_ROWS = 32
 _F32_ROWS = 8
 _LANE = 128
+
+
+def default_device() -> torch.device:
+    """Where host arrays run: the first CUDA card when there is one, else
+    the CPU."""
+    return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+
+
+def _tensor(a) -> torch.Tensor:
+    """A tensor as it is; anything else on :func:`default_device`."""
+    if isinstance(a, torch.Tensor):
+        return a
+    return torch.as_tensor(np.asarray(a), device=default_device())
 
 
 def _abs_bound(a) -> float:
@@ -83,7 +99,8 @@ def _resolve_path(p: Pipeline, img, cfg: CodecConfig) -> str:
     return path
 
 
-def _pad_for(path: str, img):
+def _pad_for(path: str, img: torch.Tensor):
+    """Edge-replicate pad an image to the grid of `path`, in its dtype."""
     if path == "u8":
         return pad_to_kernel(torch.as_tensor(img, dtype=torch.uint8), _U8_ROWS, _LANE)
     if path == "f32":
@@ -103,6 +120,7 @@ def encode_gray_auto(p: Pipeline, img, cfg: CodecConfig):
     """Gray encode through the fastest eligible path.  Returns (coeffs,
     (h, w)) with `coeffs` at the 8-aligned padded shape (int8 when the u8
     kernels ran, f32 otherwise)."""
+    img = _tensor(img)
     h, w = tuple(img.shape)
     path = _resolve_path(p, img, cfg)
     x, _ = _pad_for(path, img)
@@ -114,37 +132,99 @@ def decode_gray_auto(p: Pipeline, coeffs, cfg: CodecConfig, orig_shape) -> np.nd
     """Decode a quantized-coefficient map to a cropped uint8 numpy plane,
     on the int8 kernel whenever the values fit int8 and the zero-padded
     map meets the grid."""
+    h, w = orig_shape
+    coeffs = _tensor(coeffs)
+    path = _decode_path(p, coeffs, cfg)
+    return _decode_padded(p, path, _pad_coeffs_for(path, coeffs), cfg)[:h, :w].cpu().numpy()
+
+
+def _pad_coeffs_for(path: str, coeffs: torch.Tensor) -> torch.Tensor:
+    """Zero-pad a quantized map to the grid of its decode `path`, in that
+    path's dtype (the general path takes the map as it is)."""
+    if path == "u8":
+        return pad_coeffs_to_kernel(coeffs.to(torch.int8), _U8_ROWS, _LANE)[0]
+    if path == "f32":
+        return pad_coeffs_to_kernel(coeffs.to(torch.float32), _F32_ROWS, _LANE)[0]
+    return coeffs
+
+
+def _decode_padded(p: Pipeline, path: str, cpad: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
+    """The uint8 decode of a map padded by :func:`_pad_coeffs_for`."""
+    return p.decode_u8(cpad, cfg) if path == "u8" else to_uint8(p.idct(cpad, cfg))
+
+
+def _decode_path(p: Pipeline, coeffs, cfg: CodecConfig) -> str:
+    """The decode path of a quantized map (array or tensor): ``"u8"`` where
+    the values fit int8 and the zero-padded map meets the u8 grid, ``"f32"``
+    where it meets the f32 grid, else ``"general"``."""
     from tpudct_torch.kernels import hp
 
-    h, w = orig_shape
     hc, wc = tuple(coeffs.shape)
+    if not hasattr(p, "decode_u8"):
+        return "general"
     if (
-        hasattr(p, "decode_u8")
-        and hp.supports_u8(
+        hp.supports_u8(
             *kernel_padded_shape(hc, wc, _U8_ROWS, _LANE),
             cfg.q_scale, cfg.transform, cfg.q_table,
         )
         and _abs_bound(coeffs) <= 127
     ):
-        cpad, _ = pad_coeffs_to_kernel(
-            torch.as_tensor(coeffs, dtype=torch.int8), _U8_ROWS, _LANE
+        return "u8"
+    return "f32" if hp.supports(*kernel_padded_shape(hc, wc, _F32_ROWS, _LANE)) else "general"
+
+
+def _scaled_u8_align(p: Pipeline, coeffs, cfg: CodecConfig, fac: int):
+    """(row, lane) padding under which a quantized map (array or tensor)
+    takes the u8 scaled decode at factor ``fac``, or None where it does not
+    (the values do not fit int8, or the padded map fails the u8 gate)."""
+    from tpudct_torch.kernels import hp
+
+    ra, la = hp.scaled_pad_align(fac, fac)
+    if (
+        hasattr(p, "decode_u8")
+        and hp.supports_u8(
+            *kernel_padded_shape(*tuple(coeffs.shape), ra, la),
+            cfg.q_scale, cfg.transform, cfg.q_table,
         )
-        r = p.decode_u8(cpad, cfg)
-    elif hasattr(p, "decode_u8") and hp.supports(
-        *kernel_padded_shape(hc, wc, _F32_ROWS, _LANE)
+        and _abs_bound(coeffs) <= 127
     ):
-        cpad, _ = pad_coeffs_to_kernel(
-            torch.as_tensor(coeffs, dtype=torch.float32), _F32_ROWS, _LANE
-        )
-        r = to_uint8(p.idct(cpad, cfg))
-    else:
-        r = to_uint8(p.idct(torch.as_tensor(coeffs), cfg))
-    return r[:h, :w].cpu().numpy()
+        return ra, la
+    return None
+
+
+def decode_gray_scaled_auto(p: Pipeline, coeffs, cfg: CodecConfig, orig_shape,
+                            m: int) -> np.ndarray:
+    """M/8 fractional-scale decode of a quantized map -> cropped uint8 numpy
+    plane.  Integer 8/M factors pad to ``hp.scaled_pad_align`` and ride
+    ``ops.scaled.scaled_decode_u8`` (the fused kernel, or its bit-identical
+    composed form); M = 8 is the plain full decode; other numerators take
+    the exact area-resample einsum (``scaled_decode_m8``)."""
+    from tpudct_torch.ops.scaled import (
+        scaled_decode, scaled_decode_m8, scaled_decode_u8, scaled_shape_m8,
+    )
+
+    h, w = orig_shape
+    coeffs = _tensor(coeffs)
+    if m == 8:
+        return decode_gray_auto(p, coeffs, cfg, orig_shape)
+    hs, ws = scaled_shape_m8(h, m), scaled_shape_m8(w, m)
+    if 8 % m:
+        rec = scaled_decode_m8(coeffs, cfg, m)
+        return to_uint8(rec)[:hs, :ws].cpu().numpy()
+    fac = 8 // m
+    align = _scaled_u8_align(p, coeffs, cfg, fac)
+    if align is not None:
+        cpad, _ = pad_coeffs_to_kernel(coeffs.to(torch.int8), *align)
+        # out_u8: the truncation rides the kernel's epilogue
+        return scaled_decode_u8(p, cpad, cfg, fac, out_u8=True)[:hs, :ws].cpu().numpy()
+    rec = scaled_decode(coeffs, cfg, fac)
+    return to_uint8(rec)[:hs, :ws].cpu().numpy()
 
 
 def roundtrip_gray(p: Pipeline, img, cfg: CodecConfig):
     """Core of :func:`roundtrip_gray_auto`: returns tensors (coeffs at the
     8-aligned shape, uint8 reconstruction cropped to (h, w))."""
+    img = _tensor(img)
     h, w = tuple(img.shape)
     path = _resolve_path(p, img, cfg)
     x, _ = _pad_for(path, img)
@@ -158,3 +238,159 @@ def roundtrip_gray_auto(p: Pipeline, img, cfg: CodecConfig):
     as a numpy array)."""
     c, r = roundtrip_gray(p, img, cfg)
     return c, r.cpu().numpy()
+
+
+# ---- stacked bulk dispatch -------------------------------------------------
+#
+# 8x8 blocks are independent and every kernel is block-local, so a set of
+# same-width images is one taller image: a chunk costs one host-to-device
+# copy, one launch and one copy back, bit-identically to the per-image path
+# (image seams land on the row alignment, which is a multiple of 8).  The
+# inputs are host arrays, padded and stacked on the host with the per-image
+# helpers' own padding; each stacked chunk runs on :func:`default_device`.
+
+# Cap on pixels per stacked launch: 2x the 8192^2 working set.
+_STACK_MAX_PIXELS = 1 << 27
+
+
+def _stack_groups(keys) -> dict:
+    """Group item indices by stacking key, input order preserved."""
+    groups: dict = {}
+    for i, k in enumerate(keys):
+        groups.setdefault(k, []).append(i)
+    return groups
+
+
+def _chunk(indices, sizes, max_pixels: int) -> list:
+    out, cur, acc = [], [], 0
+    for i in indices:
+        if cur and acc + sizes[i] > max_pixels:
+            out.append(cur)
+            cur, acc = [], 0
+        cur.append(i)
+        acc += sizes[i]
+    if cur:
+        out.append(cur)
+    return out
+
+
+def _stacked(padded) -> torch.Tensor:
+    """One tall map of same-width host tensors, on :func:`default_device`."""
+    x = padded[0] if len(padded) == 1 else torch.cat(padded, dim=0)
+    return x.to(default_device())
+
+
+def encode_gray_batch_auto(p: Pipeline, imgs, cfg: CodecConfig,
+                           max_pixels: int = _STACK_MAX_PIXELS) -> list:
+    """Bulk gray encode: one launch per same-width chunk.
+
+    Takes a list of (H_i, W_i) host arrays; returns ``[(coeffs_np, (h, w)),
+    ...]`` in input order, each bit-identical to :func:`encode_gray_auto`
+    on that image alone.  Images group by (path, padded width, dtype)."""
+    metas = []  # (path, padded, h, w)
+    for img in imgs:
+        x = torch.as_tensor(np.asarray(img))
+        h, w = x.shape
+        path = _resolve_path(p, x, cfg)
+        metas.append((path, _pad_for(path, x)[0], h, w))
+    keys = [(path, x.shape[1], x.dtype) for path, x, _, _ in metas]
+    sizes = [x.numel() for _, x, _, _ in metas]
+    results: list = [None] * len(imgs)
+    for (path, _, _), indices in _stack_groups(keys).items():
+        for chunk in _chunk(indices, sizes, max_pixels):
+            stacked = _stacked([metas[i][1] for i in chunk])
+            rows = [metas[i][1].shape[0] for i in chunk]
+            c = p.encode_u8(stacked, cfg) if path == "u8" else p.encode(stacked, cfg)
+            del stacked
+            c = c.cpu().numpy()  # one transfer for the whole chunk
+            r0 = 0
+            for i, nrows in zip(chunk, rows):
+                _, _, h, w = metas[i]
+                h8, w8 = padded_shape(h, w)
+                results[i] = (c[r0 : r0 + h8, :w8].copy(), (h, w))
+                r0 += nrows
+    return results
+
+
+def decode_gray_batch_auto(p: Pipeline, items, max_pixels: int = _STACK_MAX_PIXELS) -> list:
+    """Bulk gray decode: one launch per same-width, same-config chunk.
+
+    Takes ``[(coeffs, cfg, (h, w)), ...]``; returns cropped uint8 numpy
+    planes in input order, each bit-identical to :func:`decode_gray_auto`
+    on that stream alone.  The config is part of the stacking key."""
+    metas = []  # (path, padded, cfg, h, w)
+    for coeffs, cfg, (h, w) in items:
+        c = torch.as_tensor(np.asarray(coeffs))
+        path = _decode_path(p, c, cfg)
+        metas.append((path, _pad_coeffs_for(path, c), cfg, h, w))
+    keys = [(path, x.shape[1], x.dtype, cfg) for path, x, cfg, _, _ in metas]
+    sizes = [x.numel() for _, x, _, _, _ in metas]
+    results: list = [None] * len(items)
+    for (path, _, _, cfg), indices in _stack_groups(keys).items():
+        for chunk in _chunk(indices, sizes, max_pixels):
+            stacked = _stacked([metas[i][1] for i in chunk])
+            shapes = [tuple(metas[i][1].shape) for i in chunk]
+            r = _decode_padded(p, path, stacked, cfg)
+            del stacked
+            r = r.cpu().numpy()
+            r0 = 0
+            for i, (ph, pw) in zip(chunk, shapes):
+                _, _, _, h, w = metas[i]
+                # clamp to this frame's slab, so an oversized orig_shape
+                # never reads its neighbour
+                results[i] = r[r0 : r0 + min(h, ph), : min(w, pw)].copy()
+                r0 += ph
+    return results
+
+
+def decode_gray_scaled_batch_auto(p: Pipeline, items, m: int,
+                                  max_pixels: int = _STACK_MAX_PIXELS) -> list:
+    """Bulk M/8 fractional-scale decode: one launch per same-width,
+    same-config chunk (the stacked twin of :func:`decode_gray_scaled_auto`).
+
+    Takes ``[(coeffs, cfg, (h, w)), ...]``; returns cropped uint8 numpy
+    planes in input order, each bit-identical to the per-stream helper.
+    Integer 8/M factors stack through the fused scaled kernel (windows are
+    f rows tall and frame slabs are 8f-row aligned), other numerators
+    through the area-resample einsum; streams failing the u8 gate decode
+    one by one."""
+    from tpudct_torch.ops.scaled import scaled_decode_m8, scaled_decode_u8, scaled_shape_m8
+
+    if m == 8:
+        return decode_gray_batch_auto(p, items, max_pixels)
+    results: list = [None] * len(items)
+    metas = []  # (idx, padded, cfg, h, w, kind) kind in {"u8", "m8"}
+    fac = None if 8 % m else 8 // m
+    for i, (coeffs, cfg, (h, w)) in enumerate(items):
+        c = torch.as_tensor(np.asarray(coeffs))
+        if fac is None:
+            # fractional numerator: blockwise einsum, stack-safe at the
+            # 8-aligned seams every stream already has
+            metas.append((i, c, cfg, h, w, "m8"))
+            continue
+        align = _scaled_u8_align(p, c, cfg, fac)
+        if align is not None:
+            metas.append((i, pad_coeffs_to_kernel(c.to(torch.int8), *align)[0], cfg, h, w, "u8"))
+        else:
+            results[i] = decode_gray_scaled_auto(p, c.to(default_device()), cfg, (h, w), m)
+    keys = [(kind, x.shape[1], x.dtype, cfg) for _, x, cfg, _, _, kind in metas]
+    sizes = [x.numel() for _, x, _, _, _, _ in metas]
+    for (kind, _, _, cfg), indices in _stack_groups(keys).items():
+        for chunk in _chunk(indices, sizes, max_pixels):
+            stacked = _stacked([metas[j][1] for j in chunk])
+            shapes = [tuple(metas[j][1].shape) for j in chunk]
+            if kind == "u8":
+                rec = scaled_decode_u8(p, stacked, cfg, fac, out_u8=True)
+            else:
+                rec = to_uint8(scaled_decode_m8(stacked, cfg, m))
+            del stacked
+            r = rec.cpu().numpy()
+            r0 = 0
+            for j, (xh, xw) in zip(chunk, shapes):
+                i, _, _, h, w, _ = metas[j]
+                slab, ws_max = (xh // fac, xw // fac) if kind == "u8" else (xh // 8 * m, xw // 8 * m)
+                hs, ws = scaled_shape_m8(h, m), scaled_shape_m8(w, m)
+                # clamp to the frame's scaled slab (see the full decode)
+                results[i] = r[r0 : r0 + min(hs, slab), : min(ws, ws_max)].copy()
+                r0 += slab
+    return results

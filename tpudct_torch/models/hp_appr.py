@@ -1,15 +1,9 @@
 """`hp`: the flagship pipeline, backed by the hand-written CUDA kernels.
 
 Counterpart of ``tpudct/models/hp_appr.py`` with the same gates, the same
-fallbacks to the `batched` einsum path and the same refusals.  On a CPU
-tensor each kernel wrapper runs its plain torch twin; on a CUDA tensor it
-launches the kernel (``tpudct_torch/kernels/hp.py``).
-
-Not ported yet, and refused with NotImplementedError on every device where
-the reference would run the missing kernel (ROADMAP.md A.3): ``dct`` at
-kernel shapes (B5), ``idct`` at kernel shapes (B6), the f32-literal core
-(``exact_int_core=False`` or ``transform="dct"``) and
-``decode_precision="high"``.
+demotions, the same fallbacks to the `batched` einsum path and the same
+refusals.  On a CPU tensor each kernel wrapper runs its plain torch twin; on
+a CUDA tensor it launches the kernel (``tpudct_torch/kernels/hp.py``).
 """
 
 from __future__ import annotations
@@ -26,20 +20,18 @@ from tpudct_torch.ops.transform import to_uint8
 _batched = BatchedPipeline()
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md A.3)")
+def _int_core(cfg: CodecConfig) -> bool:
+    """exact_int_core, demoted when the transform has no integer core
+    (e.g. the exact 'dct': the f32-literal core only)."""
+    return cfg.exact_int_core and get_transform(cfg.transform).has_integer_core
 
 
-def _require_int_core(cfg: CodecConfig, forward: bool = True) -> None:
-    """The ported kernels run the exact integer core only; a decode
-    ignores ``exact_int_core`` (a forward-transform choice), as in the
-    reference."""
-    if not get_transform(cfg.transform).has_integer_core:
-        raise _not_ported(
-            f"transform {cfg.transform!r} on the hp kernels (the f32-literal core)"
-        )
-    if forward and not cfg.exact_int_core:
-        raise _not_ported("exact_int_core=False (the f32-literal core of hp_roundtrip)")
+def _decode_prec(cfg: CodecConfig) -> str:
+    """butterfly needs the integer core's Ts; transforms without one decode
+    at 'highest' (the f32 tier on the literal T)."""
+    if cfg.decode_precision == "butterfly" and not get_transform(cfg.transform).has_integer_core:
+        return "highest"
+    return cfg.decode_precision
 
 
 class HpApprPipeline(Pipeline):
@@ -53,29 +45,42 @@ class HpApprPipeline(Pipeline):
             # deadzone quantization rides the einsum quantizer, as in the
             # reference; the fused kernels bake the 0.5 rule
             return _batched.dct(image, cfg)
-        raise _not_ported("the hp_dct kernel (B5)")
+        return hp.hp_dct(
+            image.to(torch.float32).contiguous(),
+            q_scale=cfg.q_scale,
+            q_table=cfg.q_table,
+            transform=cfg.transform,
+            int_core=_int_core(cfg),
+        )
 
     def idct(self, coeffs, cfg: CodecConfig):
         h, w = coeffs.shape
         if not hp.supports(h, w):
             return _batched.idct(coeffs, cfg)
-        raise _not_ported("the hp_idct kernel (B6)")
+        return hp.hp_idct(
+            coeffs.to(torch.float32).contiguous(),
+            q_scale=cfg.q_scale,
+            q_table=cfg.q_table,
+            decode_precision=_decode_prec(cfg),
+            transform=cfg.transform,
+        )
 
     def roundtrip(self, image, cfg: CodecConfig):
-        """One fused kernel (B4) where the reference's gate allows."""
+        """One fused kernel (B4, or B4' on the f32-literal core) where the
+        reference's gate allows."""
         if not image.dtype.is_floating_point:
             image = image.to(torch.float32)
         h, w = image.shape
         if not hp.supports(h, w) or cfg.deadzone != 0.5:
             return super().roundtrip(image, cfg)  # deadzone: einsum path
-        _require_int_core(cfg)
         c, r = hp.hp_roundtrip(
             image.to(torch.float32).contiguous(),
             q_scale=cfg.q_scale,
             q_table=cfg.q_table,
             retain_k=cfg.retain_k,
-            decode_precision=cfg.decode_precision,
+            decode_precision=_decode_prec(cfg),
             transform=cfg.transform,
+            int_core=_int_core(cfg),
         )
         return c, to_uint8(r)
 
@@ -108,10 +113,9 @@ class HpApprPipeline(Pipeline):
                 f"u8 decode path needs h%32==0 and w%128==0, got {h}x{w}; "
                 "use idct() + to_uint8 for other shapes"
             )
-        _require_int_core(cfg, forward=False)
         return hp.hp_decode_u8(
             coeffs_i8.contiguous(), q_scale=cfg.q_scale, q_table=cfg.q_table,
-            decode_precision=cfg.decode_precision, transform=cfg.transform,
+            decode_precision=_decode_prec(cfg), transform=cfg.transform,
         )
 
     def roundtrip_u8(self, image_u8, cfg: CodecConfig):
@@ -132,7 +136,7 @@ class HpApprPipeline(Pipeline):
             return c.to(torch.int8), r
         return hp.hp_roundtrip_u8(
             image_u8.contiguous(), q_scale=cfg.q_scale, q_table=cfg.q_table,
-            retain_k=cfg.retain_k, decode_precision=cfg.decode_precision,
+            retain_k=cfg.retain_k, decode_precision=_decode_prec(cfg),
             transform=cfg.transform,
         )
 

@@ -4,10 +4,12 @@
   inverse:  X_b = T.T @ Y_b @ T + 128
   output:   C-truncate, clamp to [0, 255], cast to uint8
 
-One f32 contraction over the in-block axes of the (H/8, 8, W/8, 8) view.
-On a GPU the contraction is a matmul, so TF32 must stay off
-(``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default) or
-coefficients lose about three decimal digits.
+One contraction over the in-block axes of the (H/8, 8, W/8, 8) view,
+carried out in float64 and rounded once to the input's dtype
+(:func:`einsum64`).  An f32 einsum is a matmul whose precision follows
+process-wide settings (TF32 on CUDA; bf16 on the CPU under
+``torch.set_float32_matmul_precision("medium")``), which would cost the
+coefficients about three decimal digits; a float64 one follows none.
 """
 
 from __future__ import annotations
@@ -36,6 +38,13 @@ def to_uint8(x: torch.Tensor) -> torch.Tensor:
     return x.trunc().clamp(0.0, 255.0).to(torch.uint8)
 
 
+def einsum64(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` carried out in float64 and rounded once to the
+    first operand's dtype, whatever the process's matmul precision."""
+    out = torch.einsum(equation, *(o.to(torch.float64) for o in operands))
+    return out.to(operands[0].dtype)
+
+
 def _t_for(t, transform: str, like: torch.Tensor) -> torch.Tensor:
     t = get_transform(transform).t if t is None else t
     return torch.as_tensor(t, dtype=like.dtype, device=like.device)
@@ -48,10 +57,10 @@ def dct2_blocks(x: torch.Tensor, t=None, transform: str = "haweel") -> torch.Ten
     selects a registry entry, an explicit `t` array overrides it.
     """
     t = _t_for(t, transform, x)
-    return from_block_grid(torch.einsum("ij,ajbk,lk->aibl", t, as_block_grid(x), t))
+    return from_block_grid(einsum64("ij,ajbk,lk->aibl", t, as_block_grid(x), t))
 
 
 def idct2_blocks(y: torch.Tensor, t=None, transform: str = "haweel") -> torch.Tensor:
     """Inverse blockwise transform: X_b = T.T @ Y_b @ T."""
     t = _t_for(t, transform, y)
-    return from_block_grid(torch.einsum("ji,ajbk,kl->aibl", t, as_block_grid(y), t))
+    return from_block_grid(einsum64("ji,ajbk,kl->aibl", t, as_block_grid(y), t))

@@ -1,6 +1,7 @@
-"""Correctness gate: the codec held against a float64 numpy golden model.
+"""Correctness gates: the codec held against a float64 numpy golden model.
 
-Port of the reference's ``bench.py`` ``correctness_gate``, with its own
+Port of the reference's ``bench.py`` ``correctness_gate`` and the gray
+kernel families of its ``family_gates`` (f32, scaled), with its own
 copy of the golden model (``tests/golden.py``), so it runs where neither
 JAX nor the test tree can be imported.  Tolerances are the reference's
 documented equivalence class: coefficients match the golden except at
@@ -14,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpudct_torch.constants import BLOCK_SIZE, Q, T, get_q_table
+from tpudct_torch.constants import BLOCK_SIZE, Q, T, get_q_table, get_transform
 
 
 def synthetic_image(size: int, seed: int = 42) -> np.ndarray:
@@ -71,7 +72,14 @@ def golden_roundtrip(img, q_scale=1.0, retain_k=None, t=None, q=None):
     return c, np.clip(np.trunc(r), 0, 255).astype(np.uint8)
 
 
-# ---- the gate --------------------------------------------------------------
+def golden_for(img, cfg):
+    """golden_roundtrip under `cfg`: its transform's T, its Q table, its
+    q_scale and retain_k (the default config gives golden_roundtrip(img))."""
+    return golden_roundtrip(img, cfg.q_scale, cfg.retain_k,
+                            t=get_transform(cfg.transform).t, q=get_q_table(cfg.q_table))
+
+
+# ---- the gates -------------------------------------------------------------
 
 
 def _check(cond, msg: str) -> None:
@@ -82,7 +90,7 @@ def _check(cond, msg: str) -> None:
 
 def correctness_gate(p, cfg, size: int = 512, force_f32: bool = False, device=None) -> dict:
     """One size x size seed-42 image through pipeline `p` on `device`,
-    held against the golden model.
+    held against the golden model under `cfg`.
 
     On the u8 path (the default config's), the standalone encode and
     decode must also agree with the fused roundtrip bit for bit.
@@ -91,7 +99,6 @@ def correctness_gate(p, cfg, size: int = 512, force_f32: bool = False, device=No
     from tpudct_torch.kernels import hp
 
     img = synthetic_image(size)
-    gc, gr = golden_roundtrip(img)
     u8_path = not force_f32 and hasattr(p, "roundtrip_u8") and hp.supports_u8(
         size, size, cfg.q_scale, cfg.transform, cfg.q_table
     )
@@ -104,7 +111,7 @@ def correctness_gate(p, cfg, size: int = 512, force_f32: bool = False, device=No
         _check(torch.equal(r_split, r), "standalone decode_u8 disagrees with the fused roundtrip")
     else:
         c, r = p.roundtrip(torch.as_tensor(img, device=device), cfg)
-    rep = check_against_golden(img, c, r, cfg, (gc, gr))
+    rep = check_against_golden(img, c, r, cfg)
     return {
         "gate": "pass", "size": size, "path": "u8" if u8_path else "f32",
         "device": str(torch.device(device or "cpu")), **rep,
@@ -113,11 +120,12 @@ def correctness_gate(p, cfg, size: int = 512, force_f32: bool = False, device=No
 
 def check_against_golden(img: np.ndarray, c, r, cfg, golden=None) -> dict:
     """Hold coefficients `c` and uint8 reconstruction `r` (tensors or
-    arrays) of the image `img` against the golden model's default codec
-    (haweel, standard Q, q_scale 1): the tie class, the per-block tie-flip
-    bound and MSE within 2%.  Raises AssertionError on a breach."""
+    arrays) of the image `img` against the golden model under `cfg`
+    (:func:`golden_for`, unless `golden` gives (coeffs, recon)): the tie
+    class, the per-block tie-flip bound and MSE within 2%.  Raises
+    AssertionError on a breach."""
     h, w = img.shape
-    gc, gr = golden_roundtrip(img) if golden is None else golden
+    gc, gr = golden_for(img, cfg) if golden is None else golden
     c = np.asarray(c.cpu() if isinstance(c, torch.Tensor) else c).astype(np.float64)
     r = np.asarray(r.cpu() if isinstance(r, torch.Tensor) else r)
     _check(c.shape == (h, w) and r.shape == (h, w), f"shapes {c.shape}, {r.shape} != {(h, w)}")
@@ -142,3 +150,42 @@ def check_against_golden(img: np.ndarray, c, r, cfg, golden=None) -> dict:
     gmse = float(((gr.astype(np.float64) - img) ** 2).mean())
     _check(abs(mse - gmse) <= 0.02 * gmse + 1e-9, f"MSE {mse} vs golden {gmse}: quality drifted >2%")
     return {"coeff_ties": ties, "recon_max_diff": int(rdiff.max()), "mse": mse, "golden_mse": gmse}
+
+
+def _np(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def family_gates(p, cfg, device=None) -> list:
+    """The gray kernel families of the reference's ``family_gates``, one
+    256^2 case each, on `device`:
+
+    - f32: the seed-42 image through ``p.dct`` and ``p.idct`` (hp_dct and
+      hp_idct at kernel shapes), held against the golden model;
+    - scaled: the 1/2 decode (``ops.scaled.scaled_decode``) within 1e-2 of
+      the box average of the full f32 decode; with u8 kernels, the fast
+      form ``scaled_decode_u8`` (hp_scaled_decode_u8) equal to
+      ``box_pool_u8(decode_u8)`` bit for bit."""
+    from tpudct_torch.ops.scaled import box_pool_u8, scaled_decode, scaled_decode_u8
+    from tpudct_torch.ops.transform import to_uint8
+
+    img = synthetic_image(256)
+    x = torch.as_tensor(img, device=device)
+    c = p.dct(x, cfg)
+    full = p.idct(c, cfg)
+    rep = check_against_golden(img, c, to_uint8(full), cfg)
+    reports = [{**rep, "gate": "pass", "family": "f32"}]
+
+    s = _np(scaled_decode(c, cfg, 2)).astype(np.float64)
+    box = _np(full).astype(np.float64).reshape(128, 2, 128, 2).mean(axis=(1, 3))
+    derr = float(np.abs(s - box).max())
+    _check(derr <= 1e-2, f"scaled 1/2 decode deviates from box average by {derr}")
+    rep = {"gate": "pass", "family": "scaled", "max_dev": derr}
+    if hasattr(p, "decode_u8"):
+        c8 = p.encode_u8(torch.as_tensor(img.astype(np.uint8), device=device), cfg)
+        fast = scaled_decode_u8(p, c8, cfg, 2)
+        _check(torch.equal(fast, box_pool_u8(p.decode_u8(c8, cfg), 2)),
+               "fast scaled decode diverged from pool(decode_u8) contract")
+        rep["fast_path"] = "pass"
+    reports.append(rep)
+    return reports
