@@ -3,26 +3,36 @@
 
     python3 chip_smoke.py
 
-Builds the hp CUDA kernels (B1-B7) from ``tpudct_torch/csrc`` and, in order:
+Builds the port's CUDA kernels (the hp codec B1-B7 and the YCbCr split and
+merge B8-B13) from ``tpudct_torch/csrc`` and, in order:
 
   1. prints the card (name, power limit), the torch version and nvcc's;
-  2. builds the kernels and prints nvcc's register/stack/spill lines;
+  2. builds the kernels (one nvcc per source, in parallel) and prints
+     nvcc's register/stack/spill lines;
   3. turns TF32 off and prints both flags;
   4. holds each kernel against its plain torch twin at 512^2 and 8192^2,
      q_scale 1 and 2.5, retain_k None and 6 (where the kernel takes it),
      every decode tier, both forward cores and the scaled decode at
-     fr = fc in {2, 4, 8} and (2, 4), both output types; the u8 kernels also
+     fr = fc in {1, 2, 4, 8} and (2, 4), both output types; the u8 kernels also
      at the padded 4000x3072 frame, the 32768x1024 batch and an off-grid
      40x136, the f32-literal roundtrip ("dct", highest) at the frame and
      the scaled decode at the batch, as the main path runs them
      (coefficients and f32 outputs bit-identical; u8 reconstructions within
      +-1 on at most 1e-4 of pixels, the count printed; the scaled decode
      also equal to box_pool_u8(hp_decode_u8)); and checks that TF32 does
-     not reach the plain contractions;
+     not reach the plain contractions; then each of the six color kernels
+     (split and merge at 4:2:0, 4:2:2, 4:4:4) bit for bit against its twin
+     at 512^2, 8192^2, the padded 4032x3072 camera frame and the 32768x1024
+     serving stack; at each of those shapes hp_encode_u8 and hp_decode_u8
+     on the split's luma plane and on its stacked chroma (chroma table),
+     and at 8192^2 4:2:0 the scaled decode of that stack at (1, 1) and
+     (2, 2), as the color path runs them; and the 4:4:4 merge over all
+     256^3 (y, cb, cr) triples against the compare-form round (0
+     mismatches);
   5. runs the float64 golden-model correctness gate at 512^2 (u8 path with
      the encode/decode/roundtrip bit-identity check, the f32 path, and the
-     f32-literal core under transform "dct") and the f32 and scaled family
-     gates at 256^2;
+     f32-literal core under transform "dct") and the color420_u8, f32 and
+     scaled family gates at 256^2;
   6. drives the main path through the library's entry points — with the
      default CodecConfig 8192^2 and a 4000x2992 frame through
      roundtrip_gray_auto, 8192^2 through encode_gray_auto/decode_gray_auto,
@@ -34,11 +44,20 @@ Builds the hp CUDA kernels (B1-B7) from ``tpudct_torch/csrc`` and, in order:
      the stacked scaled decode of the batch, and entry() — and checks that
      each step launched its kernel and that its output agrees with the
      golden model (under the step's config) on a band of whole blocks;
-  7. times each kernel against its twin with CUDA events (L2 flushed before
-     every repetition; order plain, kernel, kernel, plain).
+     then the color main path, its counters set to 0 just before it:
+     8192^2 RGB through roundtrip_color_auto at 4:2:0, 4:2:2 and 4:4:4, a
+     4032x3024 camera frame, 32 x 1024^2 frames through the bulk helpers,
+     the f32 path at q_scale 0.5 and decode_color_scaled at m = 4, 2, 6 --
+     each step moving exactly its own counters, its output held against the
+     same step on the CPU twins on its first 256 rows;
+  7. times each kernel against its twin with CUDA events (the median of
+     each batch of calls, L2 flushed before every call; order plain,
+     kernel, kernel, plain).
 
 Any failure ends the run with a non-zero exit.  The second-to-last line is
-a JSON summary of the kernels; the last line is
+a JSON summary of the kernels (launches on the main paths, max abs error
+against the twin, kernel and twin ms at 8192^2, the bound from the bytes
+and operations of that call, what bounds it); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device the script raises before printing any result.
 """
@@ -46,6 +65,7 @@ Without a CUDA device the script raises before printing any result.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import time
 
@@ -53,24 +73,43 @@ import numpy as np
 import torch
 
 _SRC, _REF = "tpudct_torch/csrc/hp_codec.cu", "tpudct/kernels/hp_pallas.py"
-# kernel -> (CUDA source, the TPU kernel it replaces, bytes moved per pixel)
+_CSRC, _CREF = "tpudct_torch/csrc/color_codec.cu", "tpudct/kernels/color_pallas.py"
+# kernel -> (CUDA source, the TPU kernel it replaces, bytes moved per pixel
+# (each input read once, each output written once), operations per pixel).
+# Operations: the value chain's arithmetic per pixel, a multiply-add counted
+# as 2; the integer core's products by Ts in {0, +-1, +-2} are adds and
+# shifts (one operation per term); the 8x8 literal core (dense f32 T) is 8
+# multiplies and 7 adds per output and pass; the color split counts its
+# integer luma and window sums per pixel and its chroma transform and
+# rounding per chroma sample.  Every kernel here is bound by its bytes at
+# these counts (see _bound).
 KERNELS = {
-    "hp_roundtrip_u8": (_SRC, f"{_REF}:678", 3),
-    "hp_encode_u8": (_SRC, f"{_REF}:627", 2),
-    "hp_decode_u8": (_SRC, f"{_REF}:651", 2),
-    "hp_roundtrip": (_SRC, f"{_REF}:576", 12),
-    "hp_roundtrip_f32core": (_SRC, f"{_REF}:445", 12),  # hp_roundtrip's _k_rt_f32_bf
-    "hp_dct": (_SRC, f"{_REF}:519", 8),
-    "hp_idct": (_SRC, f"{_REF}:550", 8),
-    "hp_scaled_decode_u8": (_SRC, f"{_REF}:824", 1 + 1 / 4),  # timed at fr = fc = 2, out_u8
+    "hp_roundtrip_u8": (_SRC, f"{_REF}:678", 3, 36),
+    "hp_encode_u8": (_SRC, f"{_REF}:627", 2, 17),
+    "hp_decode_u8": (_SRC, f"{_REF}:651", 2, 19),
+    "hp_roundtrip": (_SRC, f"{_REF}:576", 12, 36),
+    "hp_roundtrip_f32core": (_SRC, f"{_REF}:445", 12, 68),  # hp_roundtrip's _k_rt_f32_bf
+    "hp_dct": (_SRC, f"{_REF}:519", 8, 17),
+    "hp_idct": (_SRC, f"{_REF}:550", 8, 17),
+    "hp_scaled_decode_u8": (_SRC, f"{_REF}:824", 1 + 1 / 4, 20),  # timed at fr = fc = 2, out_u8
+    "color_split_420_u8": (_CSRC, f"{_CREF}:234", 4.5, 19),
+    "color_merge_420_u8": (_CSRC, f"{_CREF}:270", 4.5, 19),
+    "color_split_422_u8": (_CSRC, f"{_CREF}:381", 5, 26),
+    "color_merge_422_u8": (_CSRC, f"{_CREF}:417", 5, 19),
+    "color_split_444_u8": (_CSRC, f"{_CREF}:453", 6, 38),
+    "color_merge_444_u8": (_CSRC, f"{_CREF}:477", 6, 19),
 }
-SCALED_FACTORS = ((2, 2), (4, 4), (8, 8), (2, 4))
+COLOR_MODES = ("420", "422", "444")
+FP32_PEAK_OPS = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
+SCALED_FACTORS = ((1, 1), (2, 2), (4, 4), (8, 8), (2, 4))
 HBM_PEAK_BPS = 3.35e12  # H100 SXM data sheet
 RECON_DIFF_SHARE = 1e-4  # kernel vs twin: +-1 on at most this share of pixels
 # Main-path shapes: the largest square image, a camera frame, a serving
 # batch (images x side) folded into one tall image.
 SQUARE, FRAME, BATCH = 8192, (4000, 2992), (32, 1024)
 COMPARE_SIZES = (512, SQUARE)
+# the color path's camera frame (H x W, a 12-Mpix sensor on its side)
+COLOR_FRAME = (4032, 3024)
 
 
 def _fail(msg: str) -> None:
@@ -200,6 +239,7 @@ def phase_compare(dev) -> dict:
             _compare_f32_kernels(hp, h, w, qs, dev, errs)
     _compare_main_shapes(hp, dev, errs)
     _check_pinned_precision(dev)
+    _compare_color(dev, errs)
     torch.cuda.synchronize()
     return errs
 
@@ -293,6 +333,99 @@ def _compare_main_shapes(hp, dev, errs: dict) -> None:
           "scaled decode equals box_pool_u8(hp_decode_u8)")
 
 
+def _rgb_noise(h: int, w: int, seed: int, dev) -> torch.Tensor:
+    """(3, h, w) planar u8 noise."""
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, 256, size=(3, h, w), dtype=np.uint8), device=dev)
+
+
+def _camera_rgb(h: int, w: int) -> np.ndarray:
+    """A photo-like (h, w, 3) u8 RGB frame: three camera-like channels."""
+    return np.stack([_camera_frame(h, w, seed=s) for s in (7, 8, 9)], axis=-1)
+
+
+def _compare_color(dev, errs: dict) -> None:
+    """The six color kernels against their twins, bit for bit, at the
+    shapes the main path hands them (512^2, 8192^2, the padded camera
+    frame, the 32-frame serving stack), and the 4:4:4 merge over all 256^3
+    (y, cb, cr) triples."""
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.ops.padding import pad_to_kernel
+
+    cam = torch.as_tensor(_camera_rgb(*COLOR_FRAME), device=dev).movedim(-1, 0).contiguous()
+    cam, _ = pad_to_kernel(cam, 64, 256)
+    n_img, side = BATCH
+    inputs = [(f"{s}^2", _rgb_noise(s, s, seed=s + 1, dev=dev)) for s in COMPARE_SIZES]
+    inputs += [(f"{cam.shape[1]}x{cam.shape[2]} camera frame", cam),
+               (f"{n_img * side}x{side} serving stack", _rgb_noise(n_img * side, side, seed=45, dev=dev))]
+    for label, rgb in inputs:
+        for mode in COLOR_MODES:
+            split, merge = (f"color_{d}_{mode}_u8" for d in ("split", "merge"))
+            planes = getattr(ck, split)(rgb)
+            for plane, a, b in zip(("y", "cb", "cr"), planes, ck.split_plain(rgb, mode)):
+                errs[split] = max(errs[split], _same(f"{split} {label} {plane}", a, b))
+            out = getattr(ck, merge)(*planes)
+            errs[merge] = max(errs[merge], _same(f"{merge} {label}", out, ck.merge_plain(*planes, mode)))
+            _compare_color_codec(label, mode, planes, errs, scaled=(label == f"{SQUARE}^2" and mode == "420"))
+        print(f"  {label}: color split and merge at 4:2:0, 4:2:2 and 4:4:4 bit-identical to their twins")
+    _merge_sweep(ck, dev, errs)
+
+
+def _compare_color_codec(label: str, mode: str, planes, errs: dict, scaled: bool) -> None:
+    """hp_encode_u8 and hp_decode_u8 on the planes the color path hands
+    them: the luma plane (luma table, once per input) and the stacked chroma
+    ``cat([cb, cr])`` (chroma table); with `scaled`, hp_scaled_decode_u8 on
+    the stacked chroma at the factors decode_color_scaled gives it at
+    m = 4 and 2 on 4:2:0, (1, 1) and (2, 2)."""
+    from tpudct_torch.kernels import hp
+
+    y, cb, cr = planes
+    stacks = [("chroma stack", torch.cat([cb, cr]), "chroma")]
+    if mode == COLOR_MODES[0]:
+        stacks.insert(0, ("luma", y, "luma"))
+    counts = []
+    for plane, x, table in stacks:
+        tag = f"{label} {mode} {plane} {tuple(x.shape)}"
+        c = hp.hp_encode_u8(x, q_table=table)
+        e, _ = _cmp(f"hp_encode_u8 {tag}", c, hp.encode_u8_plain(x, q_table=table), recon=False)
+        errs["hp_encode_u8"] = max(errs["hp_encode_u8"], e)
+        e, n = _cmp(f"hp_decode_u8 {tag}", hp.hp_decode_u8(c, q_table=table),
+                    hp.decode_u8_plain(c, q_table=table), recon=True)
+        errs["hp_decode_u8"] = max(errs["hp_decode_u8"], e)
+        counts.append(f"{plane} {tuple(x.shape)} {n}")
+        if scaled and table == "chroma":
+            for fr in (1, 2):
+                for out_u8 in (False, True):
+                    s = hp.hp_scaled_decode_u8(c, fr, fr, q_table=table, out_u8=out_u8)
+                    e = _same(f"hp_scaled_decode_u8 {tag} ({fr}, {fr}) out_u8={out_u8}", s,
+                              hp.scaled_decode_u8_plain(c, fr, fr, q_table=table, out_u8=out_u8))
+                    errs["hp_scaled_decode_u8"] = max(errs["hp_scaled_decode_u8"], e)
+            counts.append("hp_scaled_decode_u8 (1, 1), (2, 2) (f32, u8) bit-identical")
+    print(f"    {mode}: hp_encode_u8 bit-identical, hp_decode_u8 pixels differing: {'; '.join(counts)}")
+
+
+def _merge_sweep(ck, dev, errs: dict) -> None:
+    """The merge's add-form round trunc(clip(z) + 0.5) against the compare
+    form clip(round_half_away(z)) over every (y, cb, cr) triple: one
+    4096x4096 4:4:4 merge whose planes enumerate them, on the card's own
+    arithmetic."""
+    from tpudct_torch.ops.rounding import round_half_away
+    from tpudct_torch.utils.color import rgb_from_ycbcr_planes
+
+    n = torch.arange(1 << 24, dtype=torch.int32, device=dev).reshape(4096, 4096)
+    y, cb, cr = (((n >> sh) & 255).to(torch.uint8).contiguous() for sh in (16, 8, 0))
+    out = ck.color_merge_444_u8(y, cb, cr)
+    e = _same("color_merge_444_u8 256^3 sweep", out, ck.merge_plain(y, cb, cr, "444"))
+    errs["color_merge_444_u8"] = max(errs["color_merge_444_u8"], e)
+    rgb = rgb_from_ycbcr_planes(*(c.to(torch.float32) for c in (y, cb, cr)))
+    ref = torch.stack([round_half_away(v).clamp(0.0, 255.0).to(torch.uint8) for v in rgb])
+    mismatches = int((out != ref).sum())
+    if mismatches:
+        _fail(f"color merge: {mismatches} of 3 x 256^3 outputs differ from the compare-form round")
+    print("  color_merge_444_u8 over all 256^3 (y, cb, cr) triples: 0 mismatches against the "
+          "compare-form round, bit-identical to its twin")
+
+
 def _check_pinned_precision(dev) -> None:
     """The plain contractions (the M/8 scaled decode, the blockwise
     transforms) give the same values with TF32 on as with it off."""
@@ -359,7 +492,9 @@ def phase_main_path(dev) -> dict:
     from tpudct_torch.kernels import hp
     from tpudct_torch.models.dispatch import decode_gray_auto, encode_gray_auto, roundtrip_gray_auto
 
-    _phase(6, "main path")
+    from tpudct_torch.kernels import color as ck
+
+    _phase(6, "main path (gray)")
     cfg, p = CodecConfig(), get_pipeline("hp")
 
     def step(label, kernel, fn):
@@ -385,6 +520,7 @@ def phase_main_path(dev) -> dict:
     torch.cuda.synchronize()
 
     hp.reset_launches()
+    ck.reset_launches()
     c, r = step(f"{sq} roundtrip_gray_auto", "hp_roundtrip_u8", lambda: roundtrip_gray_auto(p, x8k, cfg))
     _band_check(f"{sq} roundtrip_gray_auto", img, c, r)
     fr = "x".join(map(str, FRAME))
@@ -404,8 +540,8 @@ def phase_main_path(dev) -> dict:
     print(f"  {sq} f32 roundtrip bit-identical to the u8 roundtrip; MSE {_mse(rf, img):.4f}")
     _main_path_f32_and_scaled(p, step, img, frame, batch, x8k, xcam, xf32, ce, shape, rd, rb, dev)
     launches = dict(hp.LAUNCHES)
-    for name in KERNELS:
-        if launches[name] < 1:
+    for name in hp.LAUNCHES:
+        if name in KERNELS and launches[name] < 1:
             _fail(f"main path never launched {name}")
     print("  launches:", json.dumps(launches))
     return launches
@@ -494,10 +630,146 @@ def _main_path_f32_and_scaled(p, step, img, frame, batch, x8k, xcam, xf32, ce, s
     _band_check("entry() 512^2", ex.cpu().numpy(), c_e, r_e, rows=512)
 
 
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _color_band_check(label: str, rgb: np.ndarray, planes: dict, rec, sub, cfg, rows: int = 256) -> None:
+    """The step's planes and RGB reconstruction on the first `rows` rows
+    (whole blocks and chroma windows, so the band codes on its own) against
+    the same step run on the CPU twins: the color420_u8 gate's class
+    (planes +-1 on <= 0.5%, MSE within 2%, mean abs diff <= 0.5); kernel and
+    twin agree bit for bit, so 0 differences are expected."""
+    from tpudct_torch import get_pipeline
+    from tpudct_torch.models.color import roundtrip_color_auto
+
+    band = np.ascontiguousarray(rgb[:rows])
+    pt, _mt, rt = roundtrip_color_auto(get_pipeline("hp"), band, cfg, subsample=sub, device="cpu")
+    n_planes = []
+    for k in ("y", "cb", "cr"):
+        ref = pt[k].numpy()
+        mine = _host(planes[k])[: ref.shape[0], : ref.shape[1]].astype(np.float64)
+        d = np.abs(mine - ref)
+        if d.max() > 1 or (d > 0).mean() > 0.005:
+            _fail(f"{label}: plane {k} differs from the twins' (max {d.max()}, {int((d > 0).sum())} entries)")
+        n_planes.append(int((d > 0).sum()))
+    rec_np, rt = _host(rec), rt.numpy()
+    if not np.isfinite(rec_np).all() or rec_np.dtype != np.uint8:
+        _fail(f"{label}: reconstruction is not finite uint8")
+    mine, rt, band = (a.astype(np.float64) for a in (rec_np[:rows], rt, band))
+    m, m_t = float(((mine - band) ** 2).mean()), float(((rt - band) ** 2).mean())
+    dr = np.abs(mine - rt)
+    if abs(m - m_t) > 0.02 * m_t + 1e-9 or dr.mean() > 0.5:
+        _fail(f"{label}: reconstruction band MSE {m} vs twins {m_t}, mean diff {dr.mean()}")
+    print(f"    {tuple(rec_np.shape)} {rec_np.dtype}; band of {rows} rows vs the twins: plane entries "
+          f"differing {n_planes}, recon pixels differing {int((dr > 0).sum())}, MSE {m:.4f} vs {m_t:.4f}")
+
+
+def phase_color_main_path(dev) -> dict:
+    """The color main path at full width, its counters set to 0 just
+    before it and read just after; each step moves exactly its own."""
+    from tpudct_torch import CodecConfig, get_pipeline
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.kernels import hp
+    from tpudct_torch.models import color as mc
+    from tpudct_torch.ops.padding import padded_shape
+
+    _phase(6, "main path (color)")
+    cfg, p = CodecConfig(), get_pipeline("hp")
+
+    def counts() -> dict:
+        return {**hp.LAUNCHES, **ck.LAUNCHES}
+
+    def step(label, expected: dict, fn):
+        before = counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        moved = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+        if moved != expected:
+            _fail(f"{label}: launched {moved}, expected {expected}")
+        print(f"  {label}: launched {json.dumps(moved)}, {dt * 1e3:.1f} ms host wall (first call)")
+        return out
+
+    def codec(mode):
+        return {f"color_split_{mode}_u8": 1, "hp_encode_u8": 2, "hp_decode_u8": 2, f"color_merge_{mode}_u8": 1}
+
+    sq, (n_img, side) = f"{SQUARE}^2", BATCH
+    rng = np.random.default_rng(44)
+    rgb_np = rng.integers(0, 256, size=(SQUARE, SQUARE, 3), dtype=np.uint8)
+    cam_np = _camera_rgb(*COLOR_FRAME)
+    frames = [rng.integers(0, 256, size=(side, side, 3), dtype=np.uint8) for _ in range(n_img)]
+    rgb, cam = torch.as_tensor(rgb_np, device=dev), torch.as_tensor(cam_np, device=dev)
+    torch.cuda.synchronize()
+
+    hp.reset_launches()
+    ck.reset_launches()
+    planes420 = meta420 = None
+    for mode in COLOR_MODES:
+        sub = False if mode == "444" else mode
+        label = f"{sq} interleaved roundtrip_color_auto {mode}"
+        planes, meta, rec = step(label, codec(mode), lambda: mc.roundtrip_color_auto(p, rgb, cfg, subsample=sub))
+        _color_band_check(label, rgb_np, planes, rec, sub, cfg)
+        if mode == "420":
+            planes420, meta420 = planes, meta
+    label = "x".join(map(str, COLOR_FRAME)) + " camera frame roundtrip_color_auto 420"
+    planes, meta, rec = step(label, codec("420"), lambda: mc.roundtrip_color_auto(p, cam, cfg))
+    if tuple(rec.shape) != (*COLOR_FRAME, 3) or tuple(planes["y"].shape) != padded_shape(*COLOR_FRAME):
+        _fail(f"{label}: shapes {tuple(planes['y'].shape)}, {tuple(rec.shape)}")
+    _color_band_check(label, cam_np, planes, rec, "420", cfg)
+    label = f"{n_img}x{side}^2 encode_color_batch_auto"
+    enc = step(label, {"color_split_420_u8": 1, "hp_encode_u8": 2},
+               lambda: mc.encode_color_batch_auto(p, frames, cfg))
+    label = f"{n_img}x{side}^2 decode_color_batch_auto"
+    dec = step(label, {"hp_decode_u8": 2, "color_merge_420_u8": 1},
+               lambda: mc.decode_color_batch_auto(p, [(pl, m, cfg) for pl, m in enc]))
+    if len(dec) != n_img or any(r.shape != (side, side, 3) for r in dec):
+        _fail(f"{label}: {len(dec)} frames of shapes {sorted({r.shape for r in dec})}")
+    _color_band_check(f"{n_img}x{side}^2 bulk frame 0", frames[0], enc[0][0], dec[0], "420", cfg)
+    cfg_q = CodecConfig(q_scale=0.5)
+    label = f"{sq} roundtrip_color_auto q_scale=0.5 (f32 path)"
+    planes, meta, rec = step(label, {"hp_dct": 2, "hp_idct": 2},
+                             lambda: mc.roundtrip_color_auto(p, rgb, cfg_q))
+    _color_band_check(label, rgb_np, planes, rec, "420", cfg_q)
+    del planes, rec
+    # scaled decode of the 4:2:0 planes: m = 4 (luma (2, 2), chroma native
+    # (1, 1)) and m = 2 (luma (4, 4), chroma (2, 2)) on hp_scaled_decode_u8;
+    # m = 6 the plain M/8 einsum
+    band = {"y": planes420["y"][:256].cpu(), "cb": planes420["cb"][:128].cpu(), "cr": planes420["cr"][:128].cpu()}
+    band_meta = {"orig_shape": (256, SQUARE), "chroma_shape": (128, SQUARE // 2), "subsample": "420"}
+    for m, expected in ((4, {"hp_scaled_decode_u8": 2}), (2, {"hp_scaled_decode_u8": 2}), (6, {})):
+        label = f"{sq} decode_color_scaled m={m}"
+        out = step(label, expected, lambda: mc.decode_color_scaled(p, planes420, meta420, cfg, m=m))
+        ref = mc.decode_color_scaled(p, band, band_meta, cfg, m=m, device="cpu").numpy()
+        side_s = SQUARE * m // 8
+        mine = _host(out)
+        if mine.shape != (side_s, side_s, 3):
+            _fail(f"{label}: shape {mine.shape}")
+        d = np.abs(mine[: ref.shape[0]].astype(np.int64) - ref)
+        if d.max() > 1 or (d > 0).sum() > 1e-4 * d.size:
+            _fail(f"{label}: band differs from the twins' on {int((d > 0).sum())} outputs (max {d.max()})")
+        print(f"    {mine.shape}; band of {ref.shape[0]} rows vs the twins: {int((d > 0).sum())} outputs differ")
+    launches = counts()
+    for name in ck.LAUNCHES:
+        if launches[name] < 1:
+            _fail(f"color main path never launched {name}")
+    print("  launches:", json.dumps(launches))
+    return launches
+
+
+def _bound(name: str, h: int, w: int) -> tuple:
+    """(bound ms, "bytes" or "operations") of one call at h x w: the larger
+    of its bytes over the HBM rate and its operations over the f32 rate."""
+    _src, _ref, bpp, ops = KERNELS[name]
+    t_bytes, t_ops = bpp * h * w / HBM_PEAK_BPS * 1e3, ops * h * w / FP32_PEAK_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def _time(fn, flush: torch.Tensor, reps: int) -> float:
-    """Mean device ms per call; L2 flushed (and the flush left out of the
-    timed span) before every call."""
-    total = 0.0
+    """Median device ms per call (a stray slow call does not move it); L2
+    flushed (and the flush left out of the timed span) before every call."""
+    times = []
     for _ in range(reps):
         flush.zero_()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -505,11 +777,12 @@ def _time(fn, flush: torch.Tensor, reps: int) -> float:
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def phase_timing(dev, card: str) -> dict:
+    from tpudct_torch.kernels import color as ck
     from tpudct_torch.kernels import hp
 
     _phase(7, f"timing ({card})")
@@ -534,6 +807,15 @@ def phase_timing(dev, card: str) -> dict:
             "hp_scaled_decode_u8": (lambda: hp.hp_scaled_decode_u8(ci8, 2, 2, out_u8=True),
                                     lambda: hp.scaled_decode_u8_plain(ci8, 2, 2, out_u8=True)),
         }
+        if label == f"{SQUARE}^2":  # the color kernels at 8192^2 only
+            rgb = _rgb_noise(h, w, seed=6, dev=dev)
+            for mode in COLOR_MODES:
+                split, merge = (getattr(ck, f"color_{d}_{mode}_u8") for d in ("split", "merge"))
+                planes = split(rgb)
+                fns[f"color_split_{mode}_u8"] = (lambda f=split: f(rgb),
+                                                 lambda m=mode: ck.split_plain(rgb, m))
+                fns[f"color_merge_{mode}_u8"] = (lambda f=merge, pl=planes: f(*pl),
+                                                 lambda m=mode, pl=planes: ck.merge_plain(*pl, m))
         # variants off the main path's default (bytes per pixel, kernel, twin),
         # timed and printed beside it
         hi = dict(decode_precision="highest")
@@ -556,8 +838,9 @@ def phase_timing(dev, card: str) -> dict:
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
             gbps = bpp * h * w / (ms * 1e-3) / 1e9
             times[(name, label)] = (ms, plain_ms)
+            bound = f"; bound {_bound(name, h, w)[0]:.4f} ms" if name in KERNELS else ""
             print(f"  {label} {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; "
-                  f"kernel {gbps:.1f} GB/s = {gbps * 1e9 / HBM_PEAK_BPS:.1%} of 3.35 TB/s "
+                  f"kernel {gbps:.1f} GB/s = {gbps * 1e9 / HBM_PEAK_BPS:.1%} of 3.35 TB/s{bound} "
                   f"[{card}]")
     return times
 
@@ -573,16 +856,18 @@ def main() -> int:
     phase_tf32()
     errs = phase_compare(dev)
     phase_gate(dev)
-    launches = phase_main_path(dev)
+    gray = phase_main_path(dev)
+    color = phase_color_main_path(dev)
     times = phase_timing(dev, card)
-    kernels = [
-        {
+    kernels = []
+    for name, (src, replaces, _bpp, _ops) in KERNELS.items():
+        bound_ms, bound_by = _bound(name, SQUARE, SQUARE)
+        kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errs[name],
+            "launches": gray.get(name, 0) + color.get(name, 0), "max_abs_err": errs[name],
             "ms": times[(name, f"{SQUARE}^2")][0], "plain_ms": times[(name, f"{SQUARE}^2")][1],
-        }
-        for name, (src, replaces, _) in KERNELS.items()
-    ]
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        })
     print(_card())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -150,11 +150,12 @@ def _port_modules():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, imports without JAX or
+    """Every module of the port, chip_smoke.py and profile_steps.py import without JAX or
     the reference package (the card's machine has neither)."""
-    mods = _port_modules() + ["chip_smoke"]
+    mods = _port_modules() + ["chip_smoke", "profile_steps"]
     assert "tpudct_torch.kernels.hp" in mods and "tpudct_torch.models.dispatch" in mods
     assert "tpudct_torch.ops.scaled" in mods and "tpudct_torch.entry" in mods
+    assert {"tpudct_torch.kernels.color", "tpudct_torch.models.color", "tpudct_torch.utils.color"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -164,3 +165,29 @@ def test_port_imports_no_jax():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=root, env=env, check=True, timeout=120)
+
+
+_FAKE_NVCC = {
+    # every compile fails
+    "compile": 'echo "fake nvcc: compile refused" >&2; exit 2\n',
+    # compiles write their object; the link fails
+    "link": 'case "$*" in *-shared*) echo "fake nvcc: link refused" >&2; exit 1;; esac\n'
+            'while [ "$1" != "-o" ]; do shift; done; touch "$2"\n',
+}
+
+
+@pytest.mark.parametrize("stage", sorted(_FAKE_NVCC))
+def test_failed_build_raises_with_nvccs_stderr(stage, monkeypatch, tmp_path):
+    """A compile or link that nvcc refuses raises with its stderr, and leaves
+    no library behind to load."""
+    from tpudct_torch.kernels import _build
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\n" + _FAKE_NVCC[stage])
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
+    what = "hp_codec.cu" if stage == "compile" else "the link"
+    with pytest.raises(RuntimeError, match=f"nvcc failed .* on {what}:\n.*fake nvcc: {stage} refused"):
+        _build.build()
+    assert not list((tmp_path / "build").glob("*.so"))

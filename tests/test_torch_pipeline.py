@@ -95,7 +95,7 @@ def test_public_names_match_reference():
 def test_roundtrip_gray_auto_matches_reference(shape, dtype):
     (p, rp), (cfg, rcfg) = _pair(), _cfgs()
     img = _img(shape, seed=shape[0], dtype=dtype)
-    c, r = PD.roundtrip_gray_auto(p, img, cfg)
+    c, r = PD.roundtrip_gray_auto(p, img, cfg, device="cpu")
     c_ref, r_ref = RD.roundtrip_gray_auto(rp, img, rcfg)
     assert isinstance(r, np.ndarray) and r.dtype == np.uint8
     assert tuple(c.shape) == np.shape(c_ref) and c.numpy().dtype == np.asarray(c_ref).dtype
@@ -107,15 +107,15 @@ def test_roundtrip_gray_auto_matches_reference(shape, dtype):
 def test_encode_decode_gray_auto_match_reference(shape):
     (p, rp), (cfg, rcfg) = _pair(), _cfgs()
     img = _img(shape, seed=shape[1])
-    c, hw = PD.encode_gray_auto(p, img, cfg)
+    c, hw = PD.encode_gray_auto(p, img, cfg, device="cpu")
     c_ref, hw_ref = RD.encode_gray_auto(rp, img, rcfg)
     assert hw == hw_ref and c.dtype == torch.int8
     assert np.array_equal(c.numpy(), np.asarray(c_ref))
-    r = PD.decode_gray_auto(p, c.numpy(), cfg, hw)
+    r = PD.decode_gray_auto(p, c.numpy(), cfg, hw, device="cpu")
     r_ref = RD.decode_gray_auto(rp, np.asarray(c_ref), rcfg, hw_ref)
     _assert_recon(r, r_ref)
     # split path == fused path, bit for bit
-    c2, r2 = PD.roundtrip_gray_auto(p, img, cfg)
+    c2, r2 = PD.roundtrip_gray_auto(p, img, cfg, device="cpu")
     assert torch.equal(c2, c) and np.array_equal(PD.decode_gray_auto(p, c, cfg, hw), r2)
 
 
@@ -228,18 +228,18 @@ def test_gray_auto_f32_paths_match_reference(kw):
     helpers, and split == fused."""
     (p, rp), (cfg, rcfg) = _pair(), _cfgs(**kw)
     img = _img((100, 200), seed=17)
-    c, hw = PD.encode_gray_auto(p, img, cfg)
+    c, hw = PD.encode_gray_auto(p, img, cfg, device="cpu")
     c_ref, hw_ref = RD.encode_gray_auto(rp, img, rcfg)
     assert hw == hw_ref and tuple(c.shape) == np.shape(c_ref)
     assert c.numpy().dtype == np.asarray(c_ref).dtype
     _assert_ties(c.numpy(), c_ref)
-    r = PD.decode_gray_auto(p, c.numpy(), cfg, hw)
+    r = PD.decode_gray_auto(p, c.numpy(), cfg, hw, device="cpu")
     r_ref = RD.decode_gray_auto(rp, np.asarray(c_ref), rcfg, hw_ref)
     assert r.shape == r_ref.shape and r.dtype == np.uint8
     if cfg.transform != "dct":  # the same coefficients
         assert np.array_equal(c.numpy(), np.asarray(c_ref))
         _assert_recon(r, r_ref)
-    c2, r2 = PD.roundtrip_gray_auto(p, img, cfg)
+    c2, r2 = PD.roundtrip_gray_auto(p, img, cfg, device="cpu")
     assert torch.equal(c2, c) and np.array_equal(r2, r)
 
 
@@ -250,8 +250,8 @@ def test_decode_gray_scaled_auto_matches_reference(shape, m):
     einsum, m = 8 the full decode: the cropped u8 plane matches the
     reference's +-1 on at most 1e-4 of pixels (seen: 0)."""
     (p, rp), (cfg, rcfg) = _pair(), _cfgs()
-    c, hw = PD.encode_gray_auto(p, _img(shape, seed=m), cfg)
-    r = PD.decode_gray_scaled_auto(p, c.numpy(), cfg, hw, m)
+    c, hw = PD.encode_gray_auto(p, _img(shape, seed=m), cfg, device="cpu")
+    r = PD.decode_gray_scaled_auto(p, c.numpy(), cfg, hw, m, device="cpu")
     r_ref = RD.decode_gray_scaled_auto(rp, c.numpy(), rcfg, hw, m)
     assert r.dtype == np.uint8 and r.shape == r_ref.shape
     _assert_recon(r, r_ref)
@@ -270,15 +270,16 @@ def test_encode_gray_batch_auto_matches_per_image_and_reference(kw):
     (p, rp), (cfg, rcfg) = _pair(), _cfgs(**kw)
     imgs = _batch_inputs()
     imgs[2] = imgs[2].astype(np.float32)  # an f32 image joins its own group
-    out = PD.encode_gray_batch_auto(p, imgs, cfg)
+    out = PD.encode_gray_batch_auto(p, imgs, cfg, device="cpu")
     ref = RD.encode_gray_batch_auto(rp, imgs, rcfg)
     for img, (c, hw), (c_ref, hw_ref) in zip(imgs, out, ref):
-        c1, hw1 = PD.encode_gray_auto(p, img, cfg)
+        c1, hw1 = PD.encode_gray_auto(p, img, cfg, device="cpu")
         assert isinstance(c, np.ndarray) and hw == hw1 == hw_ref
         assert np.array_equal(c, c1.numpy())
         _assert_ties(c, c_ref)
     # chunking splits the stacks and changes nothing
-    for (c, _), (c2, _) in zip(out, PD.encode_gray_batch_auto(p, imgs, cfg, max_pixels=30000)):
+    for (c, _), (c2, _) in zip(out, PD.encode_gray_batch_auto(p, imgs, cfg, max_pixels=30000,
+                                                                    device="cpu")):
         assert np.array_equal(c, c2)
 
 
@@ -288,13 +289,13 @@ def test_decode_gray_batch_auto_matches_per_image_and_reference():
     items, ritems = [], []
     for i, img in enumerate(_batch_inputs()):
         cfg, rcfg = cfgs[i % 3]
-        c, hw = PD.encode_gray_auto(p, img, cfg)
+        c, hw = PD.encode_gray_auto(p, img, cfg, device="cpu")
         items.append((c.numpy(), cfg, hw))
         ritems.append((c.numpy(), rcfg, hw))
-    out = PD.decode_gray_batch_auto(p, items)
+    out = PD.decode_gray_batch_auto(p, items, device="cpu")
     ref = RD.decode_gray_batch_auto(rp, ritems)
     for (c, cfg, hw), r, r_ref in zip(items, out, ref):
-        assert np.array_equal(r, PD.decode_gray_auto(p, c, cfg, hw))
+        assert np.array_equal(r, PD.decode_gray_auto(p, c, cfg, hw, device="cpu"))
         _assert_recon(r, r_ref, 5e-3)
 
 
@@ -305,33 +306,50 @@ def test_decode_gray_scaled_batch_auto_matches_per_image_and_reference(m):
     items, ritems = [], []
     for i, img in enumerate(_batch_inputs()):
         cfg, rcfg = cfgs[i % 3]
-        c, hw = PD.encode_gray_auto(p, img, cfg)
+        c, hw = PD.encode_gray_auto(p, img, cfg, device="cpu")
         items.append((c.numpy(), cfg, hw))
         ritems.append((c.numpy(), rcfg, hw))
-    out = PD.decode_gray_scaled_batch_auto(p, items, m)
+    out = PD.decode_gray_scaled_batch_auto(p, items, m, device="cpu")
     ref = RD.decode_gray_scaled_batch_auto(rp, ritems, m)
     for (c, cfg, hw), r, r_ref in zip(items, out, ref):
-        assert np.array_equal(r, PD.decode_gray_scaled_auto(p, c, cfg, hw, m))
+        assert np.array_equal(r, PD.decode_gray_scaled_auto(p, c, cfg, hw, m, device="cpu"))
         _assert_recon(r, r_ref, 5e-3)
 
 
 @pytest.mark.parametrize("cuda", [False, True])
 def test_host_arrays_run_on_the_default_device(cuda, monkeypatch):
+    """Host arrays run on the first card; without one they raise unless the
+    caller names the CPU; a tensor stays where it is."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: cuda)
-    assert PD.default_device() == (torch.device("cuda", 0) if cuda else torch.device("cpu"))
+    if cuda:
+        assert PD.default_device() == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            PD.default_device()
+        p, cfg = _pair()[0], _cfgs()[0]
+        img = _batch_inputs()[0]
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            PD.encode_gray_auto(p, img, cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            PD.encode_gray_batch_auto(p, [img], cfg)
+        from tpudct_torch.entry import entry
+
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+    assert PD.default_device("cpu") == torch.device("cpu")
     monkeypatch.undo()
     # every stacked chunk and every host array goes through default_device()
     calls = []
-    monkeypatch.setattr(PD, "default_device", lambda: calls.append(1) or torch.device("cpu"))
+    monkeypatch.setattr(PD, "default_device", lambda device=None: calls.append(device) or torch.device("cpu"))
     p, cfg = _pair()[0], _cfgs()[0]
     imgs = _batch_inputs()
-    out = PD.encode_gray_batch_auto(p, imgs, cfg, max_pixels=30000)
+    out = PD.encode_gray_batch_auto(p, imgs, cfg, max_pixels=30000, device="cpu")
     n_chunks = len(calls)
-    assert n_chunks >= 3
+    assert n_chunks >= 3 and set(calls) == {"cpu"}
     calls.clear()
     for img, (c, _) in zip(imgs, out):
-        assert np.array_equal(PD.encode_gray_auto(p, img, cfg)[0].numpy(), c)
-    assert len(calls) == len(imgs)
+        assert np.array_equal(PD.encode_gray_auto(p, img, cfg, device="cpu")[0].numpy(), c)
+    assert calls == ["cpu"] * len(imgs)
     calls.clear()
     PD.encode_gray_auto(p, torch.as_tensor(imgs[0]), cfg)  # a tensor stays where it is
     assert not calls
@@ -341,7 +359,7 @@ def test_entry_matches_reference_entry():
     import __graft_entry__
     from tpudct_torch.entry import entry
 
-    fn, (x,) = entry()
+    fn, (x,) = entry("cpu")
     rfn, (rx,) = __graft_entry__.entry()
     assert x.dtype == torch.float32 and x.device.type == "cpu"
     assert np.array_equal(x.numpy(), np.asarray(rx))
@@ -407,11 +425,12 @@ def test_batch_and_channels_match_reference():
 
 def test_selftest_gate_passes_on_cpu():
     p, cfg = tpudct_torch.get_pipeline("hp"), tpudct_torch.CodecConfig()
-    u8 = selftest.correctness_gate(p, cfg)
+    u8 = selftest.correctness_gate(p, cfg, device="cpu")
     assert u8["gate"] == "pass" and u8["path"] == "u8" and u8["device"] == "cpu"
-    f32 = selftest.correctness_gate(p, cfg, size=256, force_f32=True)
+    f32 = selftest.correctness_gate(p, cfg, size=256, force_f32=True, device="cpu")
     assert f32["path"] == "f32"
-    assert selftest.correctness_gate(tpudct_torch.get_pipeline("batched"), cfg, size=256)["gate"] == "pass"
+    assert selftest.correctness_gate(tpudct_torch.get_pipeline("batched"), cfg, size=256,
+                                    device="cpu")["gate"] == "pass"
 
 
 def test_selftest_gate_fails_a_wrong_codec():
@@ -421,15 +440,17 @@ def test_selftest_gate_fails_a_wrong_codec():
             return c, r ^ 4  # flip a bit of every pixel
 
     with pytest.raises(AssertionError):
-        selftest.correctness_gate(Broken(), tpudct_torch.CodecConfig(), size=128)
+        selftest.correctness_gate(Broken(), tpudct_torch.CodecConfig(), size=128, device="cpu")
 
 
 def test_family_gates_pass_on_cpu():
     for name in ("hp", "batched"):
-        reps = selftest.family_gates(tpudct_torch.get_pipeline(name), tpudct_torch.CodecConfig())
-        assert [r["family"] for r in reps] == ["f32", "scaled"]
-        assert all(r["gate"] == "pass" for r in reps)
-        assert reps[1]["max_dev"] <= 1e-2 and ("fast_path" in reps[1]) == (name == "hp")
+        reps = selftest.family_gates(tpudct_torch.get_pipeline(name), tpudct_torch.CodecConfig(),
+                                     device="cpu")
+        assert [r["family"] for r in reps] == ["color420_u8", "f32", "scaled"]
+        assert reps[0]["gate"] == ("pass" if name == "hp" else "skip")
+        assert all(r["gate"] == "pass" for r in reps[1:])
+        assert reps[2]["max_dev"] <= 1e-2 and ("fast_path" in reps[2]) == (name == "hp")
 
 
 @pytest.mark.parametrize("kw", [{"transform": "dct"}, {"q_scale": 0.5}, {"exact_int_core": False},
@@ -447,7 +468,8 @@ def test_selftest_gate_follows_config(kw):
                              q=get_q_table(cfg.q_table))
     for a, b in zip(mine, ref):
         assert a.dtype == b.dtype and np.array_equal(a, b)
-    rep = selftest.correctness_gate(tpudct_torch.get_pipeline("hp"), cfg, size=128, force_f32=True)
+    rep = selftest.correctness_gate(tpudct_torch.get_pipeline("hp"), cfg, size=128, force_f32=True,
+                                   device="cpu")
     assert rep["gate"] == "pass"
 
 

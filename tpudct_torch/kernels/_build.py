@@ -1,15 +1,18 @@
-"""Build and load the CUDA library of the hp kernels.
+"""Build and load the CUDA library of the port's kernels.
 
-``tpudct_torch/csrc/hp_codec.cu`` (kernels B1-B7) is compiled by nvcc into a shared library
-with a plain C interface and loaded with ctypes.  The library lives in
+``tpudct_torch/csrc/hp_codec.cu`` (kernels B1-B7) and
+``tpudct_torch/csrc/color_codec.cu`` (B8-B13) are compiled by nvcc, one
+process per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ctypes.  The library lives in
 ``build/tpudct_torch/`` at the root of the checkout (listed in .gitignore),
-named by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one loads at once.  Nothing is built at import: the first
+named by a hash of the sources and the flags, so an edited source rebuilds
+and unchanged ones load at once.  Nothing is built at import: the first
 kernel launch builds.  A failed build raises with nvcc's stderr.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -20,11 +23,11 @@ import subprocess
 import tempfile
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "hp_codec.cu"
+SOURCES = (_PKG / "csrc" / "hp_codec.cu", _PKG / "csrc" / "color_codec.cu")
 BUILD_DIR = _PKG.parent / "build" / "tpudct_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -37,6 +40,8 @@ _SIGNATURES = {
     "hp_dct_launch": (_P, _P, _I, _I, _I, _P, _P, _I),
     "hp_idct_launch": (_P, _P, _I, _I, _P, _P, _I),
     "hp_scaled_decode_u8_launch": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _I),
+    "color_split_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I),
+    "color_merge_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I),
 }
 
 
@@ -49,39 +54,46 @@ def nvcc_path() -> str:
 
     if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
         return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the hp CUDA kernels need the CUDA toolkit")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
 def library_path() -> pathlib.Path:
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libhp_codec-{key}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"libtpudct_torch-{h.hexdigest()[:16]}.so"
+
+
+def _nvcc(*args: str) -> subprocess.CompletedProcess:
+    return subprocess.run([nvcc_path(), *args], capture_output=True, text=True, check=False)
+
+
+def _check(run: subprocess.CompletedProcess, what: str) -> None:
+    if run.returncode:
+        raise RuntimeError(f"nvcc failed ({run.returncode}) on {what}:\n{run.stderr}")
 
 
 def build() -> pathlib.Path:
-    """Compile the library unless this source's build exists; return its path.
+    """Compile the library unless this build exists; return its path.
 
-    The compiler's output (``-Xptxas -v``: registers, stack, spills per
-    kernel) is kept beside the library as ``<name>.log``."""
+    Each source compiles in its own nvcc process, all at once, then one
+    link.  The compilers' output (``-Xptxas -v``: registers, stack, spills
+    per kernel) is kept beside the library as ``<name>.log``."""
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True, check=False,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {SOURCE.name}:\n{proc.stderr}"
-            )
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in SOURCES]
+        with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+            runs = list(pool.map(lambda src, obj: _nvcc(*NVCC_FLAGS, "-c", "-o", obj, str(src)),
+                                 SOURCES, objs))
+        for src, run in zip(SOURCES, runs):
+            _check(run, src.name)
+        so = os.path.join(tmp, lib.name)
+        _check(_nvcc(*NVCC_FLAGS[:2], "-shared", "-o", so, *objs), "the link")
+        lib.with_suffix(".log").write_text("".join(run.stdout + run.stderr for run in runs))
+        os.replace(so, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
 
 

@@ -346,6 +346,13 @@ def _check(x, dtype: torch.dtype, name: str) -> tuple:
     h, w = x.shape
     if h == 0 or w == 0 or h % 8 or w % 8:
         raise ValueError(f"{name} needs h % 8 == 0 and w % 8 == 0, got {h}x{w}")
+    check_placement(x, name)
+    return h, w
+
+
+def check_placement(x: torch.Tensor, name: str) -> None:
+    """A kernel operand lies on the CPU (the twin) or on a CUDA card, and
+    there contiguous and 16-byte aligned (the kernels' vector accesses)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cpu or cuda tensors, got {x.device}")
     if x.device.type == "cuda":
@@ -353,18 +360,20 @@ def _check(x, dtype: torch.dtype, name: str) -> tuple:
             raise ValueError(f"{name} needs a contiguous tensor")
         if x.data_ptr() % 16:
             raise ValueError(f"{name} needs a 16-byte aligned tensor")
-    return h, w
 
 
-def _launch(fn_name: str, tensors, h: int, w: int, k: _Args, *ints: int) -> None:
-    """Call ``fn_name(*pointers, h, w, *ints, consts, stream, device)``."""
+def launch(fn_name: str, tensors, h: int, w: int, consts: np.ndarray, *ints: int) -> None:
+    """Call ``fn_name(*pointers, h, w, *ints, consts, stream, device)``, where
+    ``consts`` is the packed f32 constant array the kernel reads."""
     from tpudct_torch.kernels._build import library
 
     lib = library()
     dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{fn_name}: operands on more than one device")
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = getattr(lib, fn_name)(
-        *[t.data_ptr() for t in tensors], h, w, *ints, k.packed.ctypes.data, stream, dev.index
+        *[t.data_ptr() for t in tensors], h, w, *ints, consts.ctypes.data, stream, dev.index
     )
     if err:
         raise RuntimeError(f"{fn_name}: CUDA error {err}: {lib.hp_error_string(err).decode()}")
@@ -379,7 +388,7 @@ def hp_roundtrip_u8(image_u8, q_scale: float = 1.0, q_table: str = "luma", retai
     k = _args(transform, q_table, q_scale, retain_k, decode_precision, True)
     c = torch.empty((h, w), dtype=torch.int8, device=image_u8.device)
     r = torch.empty((h, w), dtype=torch.uint8, device=image_u8.device)
-    _launch("hp_rt_u8_launch", (image_u8, c, r), h, w, k)
+    launch("hp_rt_u8_launch", (image_u8, c, r), h, w, k.packed)
     LAUNCHES["hp_roundtrip_u8"] += 1
     return c, r
 
@@ -392,7 +401,7 @@ def hp_encode_u8(image_u8, q_scale: float = 1.0, q_table: str = "luma", retain_k
         return encode_u8_plain(image_u8, q_scale, q_table, retain_k, transform)
     k = _args(transform, q_table, q_scale, retain_k, "butterfly", True)
     c = torch.empty((h, w), dtype=torch.int8, device=image_u8.device)
-    _launch("hp_encode_u8_launch", (image_u8, c), h, w, k)
+    launch("hp_encode_u8_launch", (image_u8, c), h, w, k.packed)
     LAUNCHES["hp_encode_u8"] += 1
     return c
 
@@ -406,7 +415,7 @@ def hp_decode_u8(coeffs_i8, q_scale: float = 1.0, q_table: str = "luma",
         return decode_u8_plain(coeffs_i8, q_scale, q_table, decode_precision, transform)
     k = _args(transform, q_table, q_scale, None, decode_precision, False)
     r = torch.empty((h, w), dtype=torch.uint8, device=coeffs_i8.device)
-    _launch("hp_decode_u8_launch", (coeffs_i8, r), h, w, k)
+    launch("hp_decode_u8_launch", (coeffs_i8, r), h, w, k.packed)
     LAUNCHES["hp_decode_u8"] += 1
     return r
 
@@ -426,7 +435,7 @@ def hp_roundtrip(image, q_scale: float = 1.0, q_table: str = "luma", retain_k=No
     k = _args(transform, q_table, q_scale, retain_k, decode_precision, int_core)
     c = torch.empty((h, w), dtype=torch.float32, device=image.device)
     r = torch.empty((h, w), dtype=torch.float32, device=image.device)
-    _launch("hp_rt_f32_launch", (image, c, r), h, w, k, int(not int_core))
+    launch("hp_rt_f32_launch", (image, c, r), h, w, k.packed, int(not int_core))
     LAUNCHES["hp_roundtrip" if int_core else "hp_roundtrip_f32core"] += 1
     return c, r
 
@@ -442,7 +451,7 @@ def hp_dct(image, q_scale: float = 1.0, q_table: str = "luma", transform: str = 
         return dct_plain(image, q_scale, q_table, transform, int_core)
     k = _args(transform, q_table, q_scale, None, "highest", int_core)
     c = torch.empty((h, w), dtype=torch.float32, device=image.device)
-    _launch("hp_dct_launch", (image, c), h, w, k, int(not int_core))
+    launch("hp_dct_launch", (image, c), h, w, k.packed, int(not int_core))
     LAUNCHES["hp_dct"] += 1
     return c
 
@@ -456,7 +465,7 @@ def hp_idct(coeffs, q_scale: float = 1.0, q_table: str = "luma",
         return idct_plain(coeffs, q_scale, q_table, decode_precision, transform)
     k = _args(transform, q_table, q_scale, None, decode_precision, False)
     r = torch.empty((h, w), dtype=torch.float32, device=coeffs.device)
-    _launch("hp_idct_launch", (coeffs, r), h, w, k)
+    launch("hp_idct_launch", (coeffs, r), h, w, k.packed)
     LAUNCHES["hp_idct"] += 1
     return r
 
@@ -475,6 +484,6 @@ def hp_scaled_decode_u8(coeffs_i8, fr: int, fc: int, q_scale: float = 1.0,
     k = _args(transform, q_table, q_scale, None, "butterfly", False)
     out = torch.empty((h // fr, w // fc), dtype=torch.uint8 if out_u8 else torch.float32,
                       device=coeffs_i8.device)
-    _launch("hp_scaled_decode_u8_launch", (coeffs_i8, out), h, w, k, fr, fc, int(out_u8))
+    launch("hp_scaled_decode_u8_launch", (coeffs_i8, out), h, w, k.packed, fr, fc, int(out_u8))
     LAUNCHES["hp_scaled_decode_u8"] += 1
     return out

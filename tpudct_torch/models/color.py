@@ -1,0 +1,562 @@
+"""JPEG-style color codec on top of a gray pipeline: the counterpart of
+``tpudct/models/color.py``.
+
+  RGB -> full-range BT.601 YCbCr (``utils/color.py``)
+  Y     : full resolution, luminance table Q
+  Cb, Cr: 4:2:0 (default) / 4:2:2 / 4:4:4, chrominance table QC, both
+          planes coded through one launch (stacked vertically)
+
+Two paths, chosen as the reference chooses them:
+
+- f32 (``encode_color``/``decode_color``): float planes through the
+  pipeline's ``encode``/``idct`` (on ``hp``: the ``hp_dct``/``hp_idct``
+  kernels at kernel shapes), torch resampling and conversion;
+- u8 (``encode_color_u8``/``decode_color_u8``): one split kernel (B8, B10
+  or B12), one luma and one stacked-chroma launch of ``hp_encode_u8``, and
+  back through two ``hp_decode_u8`` launches and one merge kernel (B9, B11
+  or B13), padded to the (64, 256) kernel grid and cropped back.
+
+The ``_auto`` helpers pick the u8 path where the input and the geometry
+allow it, the bulk helpers stack same-width frames into one pass.  Host
+(numpy) inputs run on ``dispatch.default_device(device)``: the first CUDA
+card, or the device named (``device="cpu"`` runs the plain twins); a tensor
+stays where it is.  Per-image functions return tensors on the device (the
+interleaved RGB is a ``movedim`` view, as the reference's ``moveaxis``); the
+bulk helpers return numpy arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tpudct_torch.config import CodecConfig
+from tpudct_torch.kernels import color as ck
+from tpudct_torch.kernels import hp
+from tpudct_torch.models.base import Pipeline
+from tpudct_torch.models.dispatch import (
+    _STACK_MAX_PIXELS,
+    _abs_bound,
+    _chunk,
+    _is_u8,
+    _stack_groups,
+    _tensor,
+    default_device,
+)
+from tpudct_torch.ops.padding import (
+    crop,
+    kernel_padded_shape,
+    pad_coeffs_to_kernel,
+    pad_to_blocks,
+    pad_to_kernel,
+    padded_shape,
+)
+from tpudct_torch.ops.rounding import round_half_away
+from tpudct_torch.utils.color import (
+    downsample_420,
+    downsample_422,
+    rgb_to_ycbcr,
+    upsample_420,
+    upsample_422,
+    ycbcr_to_rgb,
+)
+
+PLANES = ("y", "cb", "cr")
+
+# The u8 path's kernel grid: rows by 64, columns by 256 (kernels.color.supports).
+_GRID = (64, 256)
+
+
+def _fits_i8(v) -> bool:
+    """Whether a coefficient plane's values fit int8: int8/uint8 planes by
+    their dtype, float planes by a value scan (array or tensor)."""
+    if isinstance(v, torch.Tensor):
+        if v.dtype in (torch.int8, torch.uint8):
+            return True
+    else:
+        v = np.asarray(v)
+        if v.dtype in (np.dtype(np.int8), np.dtype(np.uint8)):
+            return True
+    return bool(_abs_bound(v) <= 127)
+
+
+def normalize_subsample(subsample) -> "str | bool":
+    """True/'420' -> '420', '422' -> '422', False/None/'444' -> False."""
+    if subsample in (True, "420", 420):
+        return "420"
+    if subsample in ("422", 422):
+        return "422"
+    if subsample in (False, None, "444", 444):
+        return False
+    raise ValueError(f"unknown chroma subsampling {subsample!r}; use 420|422|444")
+
+
+_DOWN = {"420": downsample_420, "422": downsample_422}
+_UP = {"420": upsample_420, "422": upsample_422}
+
+
+def _luma_cfg(cfg: CodecConfig, name: str = "luma") -> CodecConfig:
+    """The color codec owns table assignment (Y against Q, Cb/Cr against
+    QC): a caller's cfg.q_table is replaced."""
+    return dataclasses.replace(cfg, q_table=name)
+
+
+def _chroma_cfg(cfg: CodecConfig, name: str = "chroma") -> CodecConfig:
+    return dataclasses.replace(cfg, q_table=name)
+
+
+def _to_rgb_u8(y, cb, cr) -> torch.Tensor:
+    """(H, W, 3) uint8 of f32 YCbCr planes: round half away, clip."""
+    return round_half_away(ycbcr_to_rgb(y, cb, cr)).clamp(0.0, 255.0).to(torch.uint8)
+
+
+def _f32_planes(planes: dict, device) -> dict:
+    return {k: _tensor(planes[k], device).to(torch.float32) for k in PLANES}
+
+
+def encode_color(p: Pipeline, rgb, cfg: CodecConfig, subsample=True,
+                 device=None) -> Tuple[dict, dict]:
+    """(H, W, 3) RGB -> ({plane: coefficient map}, meta), the f32 path.
+
+    Coefficient maps keep the block-padded plane shapes; ``meta`` holds the
+    RGB size, the true chroma plane size and the subsampling mode."""
+    mode = normalize_subsample(subsample)
+    y, cb, cr = rgb_to_ycbcr(_tensor(rgb, device))
+    h, w = y.shape
+    if mode:
+        cb, cr = _DOWN[mode](cb), _DOWN[mode](cr)
+    ch, cw = cb.shape
+    yp, _ = pad_to_blocks(y)
+    cy = p.encode(yp, _luma_cfg(cfg))
+    cbp, _ = pad_to_blocks(cb)
+    crp, _ = pad_to_blocks(cr)
+    cc = p.encode(torch.cat([cbp, crp], dim=0), _chroma_cfg(cfg))
+    ph = cbp.shape[0]
+    meta = {"orig_shape": (h, w), "chroma_shape": (ch, cw), "subsample": mode}
+    return {"y": cy, "cb": cc[:ph], "cr": cc[ph:]}, meta
+
+
+def decode_color(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig, device=None):
+    """Inverse of :func:`encode_color`: coefficient planes -> (H, W, 3) u8."""
+    h, w = meta["orig_shape"]
+    ch, cw = meta["chroma_shape"]
+    pl = _f32_planes(planes, device)
+    y = crop(p.idct(pl["y"], _luma_cfg(cfg, meta.get("y_q_table", "luma"))), h, w)
+    cc = p.idct(torch.cat([pl["cb"], pl["cr"]], dim=0),
+                _chroma_cfg(cfg, meta.get("c_q_table", "chroma")))
+    ph = pl["cb"].shape[0]
+    cb, cr = crop(cc[:ph], ch, cw), crop(cc[ph:], ch, cw)
+    mode = normalize_subsample(meta["subsample"])
+    if mode:
+        cb, cr = _UP[mode](cb, h, w), _UP[mode](cr, h, w)
+    return _to_rgb_u8(y, cb, cr)
+
+
+def decode_color_scaled(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig,
+                        factor: int | None = None, *, m: int | None = None, device=None):
+    """Fractional-scale color decode: coefficient planes -> (H/f, W/f, 3) u8.
+
+    Pass ``factor`` (1/f, f in 1, 2, 4, 8) or ``m`` (M/8, M = 1..16).  Chroma
+    planes scale anisotropically, so subsampling composes with the scale
+    (a 4:2:0 plane at 1/f luma scale is the 1/(f/2) decode of the stored
+    plane; at f = 2 the stored grid itself).  Integer factors take the fused
+    u8 scaled decode (``hp_scaled_decode_u8``) where every plane fits int8
+    and the padded planes pass the u8 gate, else the f32 scaled decode; M/8
+    takes the area-resample einsum, doubling the numerator on subsampled
+    axes (so subsampled modes take M <= 8)."""
+    from tpudct_torch.ops.scaled import (
+        scaled_decode,
+        scaled_decode_m8,
+        scaled_decode_u8,
+        scaled_shape,
+        scaled_shape_m8,
+    )
+
+    if factor is not None and m is not None:
+        raise ValueError("pass either factor or m, not both")
+    if factor is None and m is None:
+        raise ValueError("pass factor (1/f) or m (M/8)")
+    if m is not None and 8 % m == 0:
+        factor, m = 8 // m, None
+    h, w = meta["orig_shape"]
+    mode = normalize_subsample(meta["subsample"])
+    lcfg = _luma_cfg(cfg, meta.get("y_q_table", "luma"))
+    ccfg = _chroma_cfg(cfg, meta.get("c_q_table", "chroma"))
+    if m is not None:
+        m_r = 2 * m if mode == "420" else m
+        m_c = 2 * m if mode in ("420", "422") else m
+        if max(m_r, m_c) > 16:
+            raise ValueError(
+                f"M/8 color decode with {mode} chroma supports M <= 8 "
+                f"(chroma numerator {max(m_r, m_c)} > 16); use a 4:4:4 "
+                "stream for upscale numerators"
+            )
+        pl = _f32_planes(planes, device)
+        hs, ws = scaled_shape_m8(h, m), scaled_shape_m8(w, m)
+        y = scaled_decode_m8(pl["y"], lcfg, m)[:hs, :ws]
+        cc = scaled_decode_m8(torch.cat([pl["cb"], pl["cr"]], dim=0), ccfg, m_r, m_cols=m_c)
+        phs = pl["cb"].shape[0] * m_r // 8
+        return _to_rgb_u8(y, cc[:phs][:hs, :ws], cc[phs:][:hs, :ws])
+    if factor == 1:
+        return decode_color(p, planes, meta, cfg, device)
+    hs, ws = scaled_shape(h, factor), scaled_shape(w, factor)
+    f_r = factor // 2 if mode == "420" else factor
+    f_c = factor // 2 if mode in ("420", "422") else factor
+    y_al, c_al = hp.scaled_pad_align(factor, factor), hp.scaled_pad_align(f_r, f_c)
+    pl = {k: _tensor(planes[k], device) for k in PLANES}
+
+    def u8_ok(plane, pcfg, al):
+        return (
+            hasattr(p, "decode_u8")
+            and hp.supports_u8(*kernel_padded_shape(*plane.shape, *al),
+                               pcfg.q_scale, pcfg.transform, pcfg.q_table)
+            and _fits_i8(plane)
+        )
+
+    if u8_ok(pl["y"], lcfg, y_al) and all(u8_ok(pl[k], ccfg, c_al) for k in ("cb", "cr")):
+        ypad, _ = pad_coeffs_to_kernel(pl["y"].to(torch.int8), *y_al)
+        y = scaled_decode_u8(p, ypad, lcfg, factor)[:hs, :ws]
+        cbpad, _ = pad_coeffs_to_kernel(pl["cb"].to(torch.int8), *c_al)
+        crpad, _ = pad_coeffs_to_kernel(pl["cr"].to(torch.int8), *c_al)
+        cc = scaled_decode_u8(p, torch.cat([cbpad, crpad], dim=0), ccfg, f_r, f_c)
+        phs = cbpad.shape[0] // f_r
+    else:
+        f32 = {k: v.to(torch.float32) for k, v in pl.items()}
+        y = scaled_decode(f32["y"], lcfg, factor)[:hs, :ws]
+        cc = scaled_decode(torch.cat([f32["cb"], f32["cr"]], dim=0), ccfg, f_r, f_cols=f_c)
+        phs = pl["cb"].shape[0] // f_r
+    return _to_rgb_u8(y, cc[:phs][:hs, :ws], cc[phs:][:hs, :ws])
+
+
+def roundtrip_color(p: Pipeline, rgb, cfg: CodecConfig, subsample=True, device=None):
+    """Full color pass: returns (coefficient planes, meta, RGB u8 recon)."""
+    planes, meta = encode_color(p, rgb, cfg, subsample=subsample, device=device)
+    return planes, meta, decode_color(p, planes, meta, cfg, device)
+
+
+# ---- u8-native path ---------------------------------------------------------
+
+
+def _layout(rgb) -> tuple:
+    """("planar" | "interleaved", h, w) of a 3-channel image, from its shape
+    alone; an ambiguous (3, W, 3) reads as interleaved (channels last)."""
+    shape = tuple(rgb.shape)
+    if len(shape) != 3:
+        raise ValueError(f"expected a 3-channel image, got shape {shape}")
+    if shape[-1] == 3:
+        return "interleaved", shape[0], shape[1]
+    if shape[0] == 3:
+        return "planar", shape[1], shape[2]
+    raise ValueError(f"expected 3 channels, got shape {shape}")
+
+
+def _planar_u8(rgb, device=None) -> torch.Tensor:
+    """(H, W, 3) interleaved or (3, H, W) planar uint8 -> contiguous planar
+    (an interleaved input costs one copy)."""
+    layout, _h, _w = _layout(rgb)
+    if not _is_u8(rgb):
+        dt = str(rgb.dtype).removeprefix("torch.")
+        raise ValueError(f"u8 color path needs uint8 input, got {dt}")
+    x = _tensor(rgb, device)
+    return (x if layout == "planar" else x.movedim(-1, 0)).contiguous()
+
+
+def _interleaved_f32(rgb, device=None) -> torch.Tensor:
+    """Either layout -> (H, W, 3) f32 for the general path."""
+    layout, _h, _w = _layout(rgb)
+    x = _tensor(rgb, device).to(torch.float32)
+    return x if layout == "interleaved" else x.movedim(0, -1)
+
+
+# stacked-chroma (cb over cr) codec geometry per mode, from the luma (h, w)
+_CHROMA_STACK = {
+    "420": lambda h, w: (h, w // 2),
+    "422": lambda h, w: (2 * h, w // 2),
+    False: lambda h, w: (2 * h, w),
+}
+
+
+def supports_color_u8(p: Pipeline, cfg: CodecConfig, h: int, w: int, subsample="420") -> bool:
+    """Gate of the u8 color path: a pipeline with the u8 codec, the 0.5
+    deadzone the kernels bake in, the (64, 256) grid, and int8 coefficients
+    against both tables (the chroma planes stacked)."""
+    ch, cw = _CHROMA_STACK[normalize_subsample(subsample)](h, w)
+    return (
+        hasattr(p, "encode_u8")
+        and cfg.deadzone == 0.5
+        and h % 64 == 0
+        and w % 256 == 0
+        and hp.supports_u8(h, w, cfg.q_scale, cfg.transform, "luma")
+        and hp.supports_u8(ch, cw, cfg.q_scale, cfg.transform, "chroma")
+    )
+
+
+def _u8_kernels(mode):
+    return {
+        "420": (ck.color_split_420_u8, ck.color_merge_420_u8),
+        "422": (ck.color_split_422_u8, ck.color_merge_422_u8),
+        False: (ck.color_split_444_u8, ck.color_merge_444_u8),
+    }[mode]
+
+
+def _chroma_plane_shape(mode, h, w):
+    """True chroma plane dims for a luma (h, w) (ceil-division)."""
+    return {
+        "420": (-(-h // 2), -(-w // 2)),
+        "422": (h, -(-w // 2)),
+        False: (h, w),
+    }[mode]
+
+
+def color_kernel_shape(h: int, w: int):
+    """The u8 color path's padding: H to 64-multiples, W to 256-multiples
+    (a 4032x3024 camera frame pads to 4032x3072)."""
+    return kernel_padded_shape(h, w, *_GRID)
+
+
+def _zero_pad(c: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    h, w = c.shape
+    return c if (h, w) == (ph, pw) else F.pad(c, (0, pw - w, 0, ph - h))
+
+
+def encode_color_u8(p: Pipeline, rgb_u8, cfg: CodecConfig, subsample=True, device=None):
+    """u8 color encode: uint8 RGB (either layout) -> int8 coefficient planes.
+
+    Edge-pads to :func:`color_kernel_shape`, splits (one kernel), codes luma
+    and the stacked chroma (one ``hp_encode_u8`` launch each), and crops the
+    planes to the 8-aligned true plane shapes, so a ragged frame's planes
+    have the f32 path's shapes."""
+    x = _planar_u8(rgb_u8, device)
+    _c, h, w = x.shape
+    mode = normalize_subsample(subsample)
+    hk, wk = color_kernel_shape(h, w)
+    if not supports_color_u8(p, cfg, hk, wk, mode):
+        raise ValueError(
+            f"u8 color path unsupported for {h}x{w} subsample={subsample} "
+            "(needs hp pipeline and an int8-safe q_scale); use encode_color"
+        )
+    x, _ = pad_to_kernel(x, *_GRID)
+    split, _merge = _u8_kernels(mode)
+    y, cb, cr = split(x)
+    cy = p.encode_u8(y, _luma_cfg(cfg))
+    cc = p.encode_u8(torch.cat([cb, cr], dim=0), _chroma_cfg(cfg))
+    ph = cb.shape[0]
+    ch, cw = _chroma_plane_shape(mode, h, w)
+    y8, c8 = padded_shape(h, w), padded_shape(ch, cw)
+    meta = {"orig_shape": (h, w), "chroma_shape": (ch, cw), "subsample": mode}
+    return {
+        "y": cy[: y8[0], : y8[1]],
+        "cb": cc[:ph][: c8[0], : c8[1]],
+        "cr": cc[ph:][: c8[0], : c8[1]],
+    }, meta
+
+
+def decode_color_u8(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig, device=None):
+    """Inverse of :func:`encode_color_u8` -> (H, W, 3) uint8 interleaved.
+
+    Takes planes at the 8-aligned true plane shapes (what both encode paths
+    give), zero-pads them to the kernel grid (zero blocks decode to the
+    neutral 128), decodes luma and the stacked chroma (one ``hp_decode_u8``
+    launch each), merges (one kernel) and crops to ``orig_shape``."""
+    h, w = meta["orig_shape"]
+    mode = normalize_subsample(meta["subsample"])
+    y8 = padded_shape(h, w)
+    c8 = padded_shape(*_chroma_plane_shape(mode, h, w))
+    shapes = {k: tuple(planes[k].shape) for k in PLANES}
+    if shapes["y"] != y8 or shapes["cb"] != c8 or shapes["cr"] != c8:
+        raise ValueError(
+            f"u8 decode expects 8-aligned planes: y is {shapes['y']} (want {y8}), "
+            f"cb/cr are {shapes['cb']}/{shapes['cr']} (want {c8}); "
+            "use decode_color for other paddings"
+        )
+    hk, wk = color_kernel_shape(h, w)
+    chk, cwk = _chroma_plane_shape(mode, hk, wk)  # exact: hk, wk are aligned
+    pl = {k: _tensor(planes[k], device).to(torch.int8) for k in PLANES}
+    y = p.decode_u8(_zero_pad(pl["y"], hk, wk), _luma_cfg(cfg))
+    cc = p.decode_u8(
+        torch.cat([_zero_pad(pl["cb"], chk, cwk), _zero_pad(pl["cr"], chk, cwk)], dim=0),
+        _chroma_cfg(cfg),
+    )
+    _split, merge = _u8_kernels(mode)
+    return merge(y, cc[:chk], cc[chk:]).movedim(0, -1)[:h, :w]
+
+
+def roundtrip_color_u8(p: Pipeline, rgb_u8, cfg: CodecConfig, subsample=True, device=None):
+    """u8 color pass: uint8 RGB -> (int8 coefficient planes, meta, uint8
+    RGB reconstruction); any chroma mode (default 4:2:0)."""
+    planes, meta = encode_color_u8(p, rgb_u8, cfg, subsample=subsample, device=device)
+    return planes, meta, decode_color_u8(p, planes, meta, cfg)
+
+
+# ---- auto dispatch -----------------------------------------------------------
+
+
+def _u8_eligible(p: Pipeline, rgb, cfg: CodecConfig, subsample) -> bool:
+    """uint8 pixels of either layout whose kernel-padded dims pass the gate
+    (dtype and shape read without a transfer)."""
+    if getattr(rgb, "dtype", None) is None or not _is_u8(rgb):
+        return False
+    try:
+        _layout_name, h, w = _layout(rgb)
+    except ValueError:
+        return False
+    return supports_color_u8(p, cfg, *color_kernel_shape(h, w), normalize_subsample(subsample))
+
+
+def encode_color_auto(p: Pipeline, rgb, cfg: CodecConfig, subsample=True, device=None):
+    """Encode through the u8 path where the input and geometry allow it,
+    else the f32 path; either layout."""
+    if _u8_eligible(p, rgb, cfg, subsample):
+        return encode_color_u8(p, rgb, cfg, subsample=subsample, device=device)
+    return encode_color(p, _interleaved_f32(rgb, device), cfg, subsample=subsample)
+
+
+def _u8_decodable(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig) -> bool:
+    """The standard tables, the u8 gate on the kernel grid, the 8-aligned
+    true plane shapes, and values that fit int8 (the f32 path's planes of
+    out-of-range pixels may not)."""
+    h, w = meta["orig_shape"]
+    mode = normalize_subsample(meta["subsample"])
+    c8 = padded_shape(*_chroma_plane_shape(mode, h, w))
+    return (
+        meta.get("y_q_table", "luma") == "luma"
+        and meta.get("c_q_table", "chroma") == "chroma"
+        and supports_color_u8(p, cfg, *color_kernel_shape(h, w), mode)
+        and tuple(planes["y"].shape) == padded_shape(h, w)
+        and tuple(planes["cb"].shape) == c8
+        and tuple(planes["cr"].shape) == c8
+        and all(_fits_i8(planes[k]) for k in PLANES)
+    )
+
+
+def decode_color_auto(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig, device=None):
+    """Decode through the u8 path where the stream allows it (see
+    :func:`_u8_decodable`), else the f32 path."""
+    if _u8_decodable(p, planes, meta, cfg):
+        return decode_color_u8(p, planes, meta, cfg, device)
+    return decode_color(p, planes, meta, cfg, device)
+
+
+def roundtrip_color_auto(p: Pipeline, rgb, cfg: CodecConfig, subsample=True, device=None):
+    """Roundtrip whose decode takes the path the encode took.  Returns
+    (planes, meta, rgb u8 interleaved)."""
+    if _u8_eligible(p, rgb, cfg, subsample):
+        return roundtrip_color_u8(p, rgb, cfg, subsample=subsample, device=device)
+    return roundtrip_color(p, _interleaved_f32(rgb, device), cfg, subsample=subsample)
+
+
+# ---- stacked bulk dispatch ---------------------------------------------------
+#
+# 8x8 blocks are independent and the chroma windows are at most 2 rows tall,
+# so same-padded-width frames stack as one taller planar image through one
+# split, one luma and one chroma codec launch and one merge (every padded
+# height is a 64-multiple: no seam splits a window or a block).  Frames are
+# padded and stacked on the host; each chunk runs on default_device(device).
+
+
+def _host(x) -> torch.Tensor:
+    return x.cpu() if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+
+
+def _np_planes(planes: dict) -> dict:
+    return {k: v.cpu().numpy() for k, v in planes.items()}
+
+
+def encode_color_batch_auto(p: Pipeline, rgbs, cfg: CodecConfig, subsample=True,
+                            max_pixels: int = _STACK_MAX_PIXELS, device=None) -> list:
+    """Bulk color encode: one split, one luma and one chroma codec launch
+    per same-width chunk of u8-eligible frames.
+
+    Takes RGB images (either layout); returns ``[(planes, meta), ...]``
+    (numpy planes) in input order, each bit-identical to
+    :func:`encode_color_auto` on that frame alone; ineligible frames go
+    through it one by one."""
+    mode = normalize_subsample(subsample)
+    results: list = [None] * len(rgbs)
+    metas = []  # (idx, padded planar host tensor, h, w)
+    for i, rgb in enumerate(rgbs):
+        if not _u8_eligible(p, rgb, cfg, subsample):
+            planes, meta = encode_color_auto(p, rgb, cfg, subsample=subsample, device=device)
+            results[i] = (_np_planes(planes), meta)
+            continue
+        layout, h, w = _layout(rgb)
+        x = _host(rgb)
+        x = (x if layout == "planar" else x.movedim(-1, 0)).contiguous()
+        metas.append((i, pad_to_kernel(x, *_GRID)[0], h, w))
+    split, _merge = _u8_kernels(mode)
+    keys = [x.shape[2] for _, x, _, _ in metas]
+    sizes = [x.numel() for _, x, _, _ in metas]
+    for _wk, indices in _stack_groups(keys).items():
+        for chunk in _chunk(indices, sizes, max_pixels):
+            frames = [metas[j][1] for j in chunk]
+            stacked = frames[0] if len(frames) == 1 else torch.cat(frames, dim=1)
+            y, cb, cr = split(stacked.to(default_device(device)))
+            del stacked
+            cy = p.encode_u8(y, _luma_cfg(cfg)).cpu().numpy()
+            ph = cb.shape[0]
+            cc = p.encode_u8(torch.cat([cb, cr], dim=0), _chroma_cfg(cfg)).cpu().numpy()
+            ccb, ccr = cc[:ph], cc[ph:]
+            y0 = c0 = 0
+            for j in chunk:
+                i, x, h, w = metas[j]
+                hk, wk = x.shape[1], x.shape[2]
+                chk, _cwk = _chroma_plane_shape(mode, hk, wk)
+                ch, cw = _chroma_plane_shape(mode, h, w)
+                y8, c8 = padded_shape(h, w), padded_shape(ch, cw)
+                meta = {"orig_shape": (h, w), "chroma_shape": (ch, cw), "subsample": mode}
+                results[i] = ({
+                    "y": cy[y0 : y0 + y8[0], : y8[1]].copy(),
+                    "cb": ccb[c0 : c0 + c8[0], : c8[1]].copy(),
+                    "cr": ccr[c0 : c0 + c8[0], : c8[1]].copy(),
+                }, meta)
+                y0 += hk
+                c0 += chk
+    return results
+
+
+def decode_color_batch_auto(p: Pipeline, items, max_pixels: int = _STACK_MAX_PIXELS,
+                            device=None) -> list:
+    """Bulk color decode: one luma and one chroma codec launch and one merge
+    per same-width, same-config chunk of u8-decodable streams.
+
+    Takes ``[(planes, meta, cfg), ...]``; returns interleaved (H, W, 3)
+    uint8 numpy frames in input order, each bit-identical to
+    :func:`decode_color_auto` on that stream alone."""
+    results: list = [None] * len(items)
+    metas = []  # (idx, ypad, cbpad, crpad, mode, cfg, h, w), host tensors
+    for i, (planes, meta, cfg) in enumerate(items):
+        if not _u8_decodable(p, planes, meta, cfg):
+            results[i] = decode_color_auto(p, planes, meta, cfg, device).cpu().numpy()
+            continue
+        h, w = meta["orig_shape"]
+        mode = normalize_subsample(meta["subsample"])
+        hk, wk = color_kernel_shape(h, w)
+        chk, cwk = _chroma_plane_shape(mode, hk, wk)
+        yp = _zero_pad(_host(planes["y"]).to(torch.int8), hk, wk)
+        cbp, crp = (_zero_pad(_host(planes[k]).to(torch.int8), chk, cwk) for k in ("cb", "cr"))
+        metas.append((i, yp, cbp, crp, mode, cfg, h, w))
+    if not metas:
+        return results
+    dev = default_device(device)
+    keys = [(yp.shape[1], mode, cfg) for _, yp, _, _, mode, cfg, _, _ in metas]
+    sizes = [yp.numel() * 3 for _, yp, _, _, _, _, _, _ in metas]
+    for (_wk, mode, cfg), indices in _stack_groups(keys).items():
+        _split, merge = _u8_kernels(mode)
+        for chunk in _chunk(indices, sizes, max_pixels):
+            ys = torch.cat([metas[j][1] for j in chunk], dim=0).to(dev)
+            cc = torch.cat([metas[j][2] for j in chunk] + [metas[j][3] for j in chunk], dim=0)
+            y = p.decode_u8(ys, _luma_cfg(cfg))
+            cc = p.decode_u8(cc.to(dev), _chroma_cfg(cfg))
+            ph = cc.shape[0] // 2
+            # interleave on the device: a strided host copy per frame costs more
+            rgb = merge(y, cc[:ph], cc[ph:]).movedim(0, -1).contiguous().cpu().numpy()
+            y0 = 0
+            for j in chunk:
+                i, yp, _, _, _, _, h, w = metas[j]
+                results[i] = rgb[y0 : y0 + h, :w].copy()
+                y0 += yp.shape[0]
+    return results

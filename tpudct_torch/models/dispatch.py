@@ -15,7 +15,10 @@ shape down the same path:
 Inputs may be numpy arrays or tensors.  A tensor stays on its device (a
 CUDA tensor runs the CUDA kernels, a CPU tensor their plain twins); a numpy
 array goes to :func:`default_device`, as the reference's host arrays go to
-its default accelerator.
+its default accelerator: the first CUDA card, or the device the caller
+names with ``device=`` (``device="cpu"`` runs the plain twins).  Without a
+card and without ``device=``, a host array raises: nothing falls back to
+the CPU unasked.
 """
 
 from __future__ import annotations
@@ -41,17 +44,24 @@ _F32_ROWS = 8
 _LANE = 128
 
 
-def default_device() -> torch.device:
-    """Where host arrays run: the first CUDA card when there is one, else
-    the CPU."""
-    return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+def default_device(device=None) -> torch.device:
+    """Where host arrays run: ``device`` where the caller names one, else
+    the first CUDA card.  Raises where there is no card and no ``device``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: host arrays run on the first card; pass device='cpu' "
+            "to run the plain twins on the CPU"
+        )
+    return torch.device("cuda", 0)
 
 
-def _tensor(a) -> torch.Tensor:
+def _tensor(a, device=None) -> torch.Tensor:
     """A tensor as it is; anything else on :func:`default_device`."""
     if isinstance(a, torch.Tensor):
         return a
-    return torch.as_tensor(np.asarray(a), device=default_device())
+    return torch.as_tensor(np.asarray(a), device=default_device(device))
 
 
 def _abs_bound(a) -> float:
@@ -116,11 +126,11 @@ def _crop8(c: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return crop(c, *padded_shape(h, w))
 
 
-def encode_gray_auto(p: Pipeline, img, cfg: CodecConfig):
+def encode_gray_auto(p: Pipeline, img, cfg: CodecConfig, device=None):
     """Gray encode through the fastest eligible path.  Returns (coeffs,
     (h, w)) with `coeffs` at the 8-aligned padded shape (int8 when the u8
     kernels ran, f32 otherwise)."""
-    img = _tensor(img)
+    img = _tensor(img, device)
     h, w = tuple(img.shape)
     path = _resolve_path(p, img, cfg)
     x, _ = _pad_for(path, img)
@@ -128,12 +138,13 @@ def encode_gray_auto(p: Pipeline, img, cfg: CodecConfig):
     return _crop8(c, h, w), (h, w)
 
 
-def decode_gray_auto(p: Pipeline, coeffs, cfg: CodecConfig, orig_shape) -> np.ndarray:
+def decode_gray_auto(p: Pipeline, coeffs, cfg: CodecConfig, orig_shape,
+                     device=None) -> np.ndarray:
     """Decode a quantized-coefficient map to a cropped uint8 numpy plane,
     on the int8 kernel whenever the values fit int8 and the zero-padded
     map meets the grid."""
     h, w = orig_shape
-    coeffs = _tensor(coeffs)
+    coeffs = _tensor(coeffs, device)
     path = _decode_path(p, coeffs, cfg)
     return _decode_padded(p, path, _pad_coeffs_for(path, coeffs), cfg)[:h, :w].cpu().numpy()
 
@@ -193,7 +204,7 @@ def _scaled_u8_align(p: Pipeline, coeffs, cfg: CodecConfig, fac: int):
 
 
 def decode_gray_scaled_auto(p: Pipeline, coeffs, cfg: CodecConfig, orig_shape,
-                            m: int) -> np.ndarray:
+                            m: int, device=None) -> np.ndarray:
     """M/8 fractional-scale decode of a quantized map -> cropped uint8 numpy
     plane.  Integer 8/M factors pad to ``hp.scaled_pad_align`` and ride
     ``ops.scaled.scaled_decode_u8`` (the fused kernel, or its bit-identical
@@ -204,7 +215,7 @@ def decode_gray_scaled_auto(p: Pipeline, coeffs, cfg: CodecConfig, orig_shape,
     )
 
     h, w = orig_shape
-    coeffs = _tensor(coeffs)
+    coeffs = _tensor(coeffs, device)
     if m == 8:
         return decode_gray_auto(p, coeffs, cfg, orig_shape)
     hs, ws = scaled_shape_m8(h, m), scaled_shape_m8(w, m)
@@ -221,10 +232,10 @@ def decode_gray_scaled_auto(p: Pipeline, coeffs, cfg: CodecConfig, orig_shape,
     return to_uint8(rec)[:hs, :ws].cpu().numpy()
 
 
-def roundtrip_gray(p: Pipeline, img, cfg: CodecConfig):
+def roundtrip_gray(p: Pipeline, img, cfg: CodecConfig, device=None):
     """Core of :func:`roundtrip_gray_auto`: returns tensors (coeffs at the
     8-aligned shape, uint8 reconstruction cropped to (h, w))."""
-    img = _tensor(img)
+    img = _tensor(img, device)
     h, w = tuple(img.shape)
     path = _resolve_path(p, img, cfg)
     x, _ = _pad_for(path, img)
@@ -232,11 +243,11 @@ def roundtrip_gray(p: Pipeline, img, cfg: CodecConfig):
     return _crop8(c, h, w), r[:h, :w]
 
 
-def roundtrip_gray_auto(p: Pipeline, img, cfg: CodecConfig):
+def roundtrip_gray_auto(p: Pipeline, img, cfg: CodecConfig, device=None):
     """Gray roundtrip through the fastest eligible path.  Returns (coeffs
     tensor at the 8-aligned shape, uint8 reconstruction cropped to (h, w)
     as a numpy array)."""
-    c, r = roundtrip_gray(p, img, cfg)
+    c, r = roundtrip_gray(p, img, cfg, device)
     return c, r.cpu().numpy()
 
 
@@ -274,14 +285,14 @@ def _chunk(indices, sizes, max_pixels: int) -> list:
     return out
 
 
-def _stacked(padded) -> torch.Tensor:
+def _stacked(padded, device=None) -> torch.Tensor:
     """One tall map of same-width host tensors, on :func:`default_device`."""
     x = padded[0] if len(padded) == 1 else torch.cat(padded, dim=0)
-    return x.to(default_device())
+    return x.to(default_device(device))
 
 
 def encode_gray_batch_auto(p: Pipeline, imgs, cfg: CodecConfig,
-                           max_pixels: int = _STACK_MAX_PIXELS) -> list:
+                           max_pixels: int = _STACK_MAX_PIXELS, device=None) -> list:
     """Bulk gray encode: one launch per same-width chunk.
 
     Takes a list of (H_i, W_i) host arrays; returns ``[(coeffs_np, (h, w)),
@@ -298,7 +309,7 @@ def encode_gray_batch_auto(p: Pipeline, imgs, cfg: CodecConfig,
     results: list = [None] * len(imgs)
     for (path, _, _), indices in _stack_groups(keys).items():
         for chunk in _chunk(indices, sizes, max_pixels):
-            stacked = _stacked([metas[i][1] for i in chunk])
+            stacked = _stacked([metas[i][1] for i in chunk], device)
             rows = [metas[i][1].shape[0] for i in chunk]
             c = p.encode_u8(stacked, cfg) if path == "u8" else p.encode(stacked, cfg)
             del stacked
@@ -312,7 +323,8 @@ def encode_gray_batch_auto(p: Pipeline, imgs, cfg: CodecConfig,
     return results
 
 
-def decode_gray_batch_auto(p: Pipeline, items, max_pixels: int = _STACK_MAX_PIXELS) -> list:
+def decode_gray_batch_auto(p: Pipeline, items, max_pixels: int = _STACK_MAX_PIXELS,
+                           device=None) -> list:
     """Bulk gray decode: one launch per same-width, same-config chunk.
 
     Takes ``[(coeffs, cfg, (h, w)), ...]``; returns cropped uint8 numpy
@@ -328,7 +340,7 @@ def decode_gray_batch_auto(p: Pipeline, items, max_pixels: int = _STACK_MAX_PIXE
     results: list = [None] * len(items)
     for (path, _, _, cfg), indices in _stack_groups(keys).items():
         for chunk in _chunk(indices, sizes, max_pixels):
-            stacked = _stacked([metas[i][1] for i in chunk])
+            stacked = _stacked([metas[i][1] for i in chunk], device)
             shapes = [tuple(metas[i][1].shape) for i in chunk]
             r = _decode_padded(p, path, stacked, cfg)
             del stacked
@@ -344,7 +356,7 @@ def decode_gray_batch_auto(p: Pipeline, items, max_pixels: int = _STACK_MAX_PIXE
 
 
 def decode_gray_scaled_batch_auto(p: Pipeline, items, m: int,
-                                  max_pixels: int = _STACK_MAX_PIXELS) -> list:
+                                  max_pixels: int = _STACK_MAX_PIXELS, device=None) -> list:
     """Bulk M/8 fractional-scale decode: one launch per same-width,
     same-config chunk (the stacked twin of :func:`decode_gray_scaled_auto`).
 
@@ -357,7 +369,7 @@ def decode_gray_scaled_batch_auto(p: Pipeline, items, m: int,
     from tpudct_torch.ops.scaled import scaled_decode_m8, scaled_decode_u8, scaled_shape_m8
 
     if m == 8:
-        return decode_gray_batch_auto(p, items, max_pixels)
+        return decode_gray_batch_auto(p, items, max_pixels, device)
     results: list = [None] * len(items)
     metas = []  # (idx, padded, cfg, h, w, kind) kind in {"u8", "m8"}
     fac = None if 8 % m else 8 // m
@@ -372,12 +384,12 @@ def decode_gray_scaled_batch_auto(p: Pipeline, items, m: int,
         if align is not None:
             metas.append((i, pad_coeffs_to_kernel(c.to(torch.int8), *align)[0], cfg, h, w, "u8"))
         else:
-            results[i] = decode_gray_scaled_auto(p, c.to(default_device()), cfg, (h, w), m)
+            results[i] = decode_gray_scaled_auto(p, c.to(default_device(device)), cfg, (h, w), m)
     keys = [(kind, x.shape[1], x.dtype, cfg) for _, x, cfg, _, _, kind in metas]
     sizes = [x.numel() for _, x, _, _, _, _ in metas]
     for (kind, _, _, cfg), indices in _stack_groups(keys).items():
         for chunk in _chunk(indices, sizes, max_pixels):
-            stacked = _stacked([metas[j][1] for j in chunk])
+            stacked = _stacked([metas[j][1] for j in chunk], device)
             shapes = [tuple(metas[j][1].shape) for j in chunk]
             if kind == "u8":
                 rec = scaled_decode_u8(p, stacked, cfg, fac, out_u8=True)

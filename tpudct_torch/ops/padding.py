@@ -19,12 +19,12 @@ def padded_shape(h: int, w: int, bs: int = BLOCK_SIZE):
 
 
 def _edge_pad(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
-    """Edge-replicate pad (H, W) -> (ph, pw) for any dtype (F.pad's
-    replicate mode takes floating tensors only)."""
-    h, w = x.shape
+    """Edge-replicate pad the last two dims (..., H, W) -> (..., ph, pw) for
+    any dtype (F.pad's replicate mode takes floating tensors only)."""
+    h, w = x.shape[-2:]
     rows = torch.arange(ph, device=x.device).clamp_(max=h - 1)
     cols = torch.arange(pw, device=x.device).clamp_(max=w - 1)
-    return x[rows[:, None], cols[None, :]]
+    return x[..., rows[:, None], cols[None, :]]
 
 
 def pad_to_blocks(x: torch.Tensor, bs: int = BLOCK_SIZE):
@@ -50,9 +50,9 @@ def kernel_padded_shape(h: int, w: int, row_align: int, lane: int = 128):
 
 
 def pad_to_kernel(x: torch.Tensor, row_align: int, lane: int = 128):
-    """Edge-replicate pad an (H, W) image up to the dispatch grid.
-    Returns (padded, (h, w))."""
-    h, w = x.shape
+    """Edge-replicate pad an (H, W) image, or the planes of a (C, H, W)
+    one, up to the dispatch grid.  Returns (padded, (h, w))."""
+    h, w = x.shape[-2:]
     ph, pw = kernel_padded_shape(h, w, row_align, lane)
     if (ph, pw) == (h, w):
         return x, (h, w)

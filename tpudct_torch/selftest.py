@@ -1,13 +1,13 @@
 """Correctness gates: the codec held against a float64 numpy golden model.
 
-Port of the reference's ``bench.py`` ``correctness_gate`` and the gray
-kernel families of its ``family_gates`` (f32, scaled), with its own
+Port of the reference's ``bench.py`` ``correctness_gate`` and the kernel
+families of its ``family_gates`` (color420_u8, f32, scaled), with its own
 copy of the golden model (``tests/golden.py``), so it runs where neither
 JAX nor the test tree can be imported.  Tolerances are the reference's
 documented equivalence class: coefficients match the golden except at
 exact .5 quantizer ties (+-1 on <= 0.5% of entries); the reconstruction
 differs only where a tie flipped (the per-block bound below); MSE within 2%
-of the golden's.
+of the golden's; color planes within +-1 on <= 0.5%.
 """
 
 from __future__ import annotations
@@ -95,9 +95,12 @@ def correctness_gate(p, cfg, size: int = 512, force_f32: bool = False, device=No
     On the u8 path (the default config's), the standalone encode and
     decode must also agree with the fused roundtrip bit for bit.
     ``force_f32`` takes the f32 roundtrip instead (the hp_roundtrip kernel).
+    ``device`` None is the first CUDA card (see ``dispatch.default_device``).
     """
     from tpudct_torch.kernels import hp
+    from tpudct_torch.models.dispatch import default_device
 
+    device = default_device(device)
     img = synthetic_image(size)
     u8_path = not force_f32 and hasattr(p, "roundtrip_u8") and hp.supports_u8(
         size, size, cfg.q_scale, cfg.transform, cfg.q_table
@@ -114,7 +117,7 @@ def correctness_gate(p, cfg, size: int = 512, force_f32: bool = False, device=No
     rep = check_against_golden(img, c, r, cfg)
     return {
         "gate": "pass", "size": size, "path": "u8" if u8_path else "f32",
-        "device": str(torch.device(device or "cpu")), **rep,
+        "device": str(device), **rep,
     }
 
 
@@ -156,25 +159,69 @@ def _np(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def family_gates(p, cfg, device=None) -> list:
-    """The gray kernel families of the reference's ``family_gates``, one
-    256^2 case each, on `device`:
+def color_gate(p, cfg, device=None) -> dict:
+    """The reference's ``color420_u8`` family gate: an RGB made from the
+    256^2 seed-42 image and two rolls of it through ``roundtrip_color_u8``
+    on `device` (the color kernels and the u8 codec kernels on a card),
+    held against the same pass on the CPU twins: every plane within +-1 on
+    at most 0.5% of entries, reconstruction MSE within 2%, mean absolute
+    difference at most 0.5.  Kernel and twin agree bit for bit, so a card
+    should show 0 differences.  Skipped for a pipeline without u8 kernels.
+    ``device`` None is the first CUDA card."""
+    from tpudct_torch.models.color import roundtrip_color_u8
+    from tpudct_torch.models.dispatch import default_device
 
+    if not hasattr(p, "roundtrip_u8"):
+        return {"gate": "skip", "family": "color420_u8",
+                "reason": f"pipeline {p.name!r} has no u8 kernels"}
+    device = default_device(device)
+    g = synthetic_image(256)
+    rgb = np.stack([g, np.roll(g, 3, 0), np.roll(g, 5, 1)], -1).astype(np.uint8)
+    pl_k, _meta, rec_k = roundtrip_color_u8(p, rgb, cfg, device=device)
+    pl_t, _meta2, rec_t = roundtrip_color_u8(p, rgb, cfg, device="cpu")
+    plane_diffs = {}
+    for k in ("y", "cb", "cr"):
+        d = np.abs(_np(pl_k[k]).astype(np.int32) - _np(pl_t[k]).astype(np.int32))
+        _check(d.max() <= 1 and (d > 0).mean() <= 0.005,
+               f"color420_u8 plane {k}: kernels vs twins differ beyond the tie class "
+               f"(max {d.max()}, frac {(d > 0).mean():.4f})")
+        plane_diffs[k] = int((d > 0).sum())
+    rec_k, rec_t = _np(rec_k), _np(rec_t)
+    m_k = float(((rec_k.astype(np.float64) - rgb) ** 2).mean())
+    m_t = float(((rec_t.astype(np.float64) - rgb) ** 2).mean())
+    _check(abs(m_k - m_t) <= 0.02 * m_t + 1e-9, f"color420_u8 recon MSE drifted: {m_k} vs {m_t}")
+    rd = np.abs(rec_k.astype(np.int32) - rec_t.astype(np.int32))
+    _check(rd.mean() <= 0.5, "color420_u8 recon: kernels vs twins mean diff > 0.5")
+    return {"gate": "pass", "family": "color420_u8", "mse": m_k, "twin_mse": m_t,
+            "plane_diffs": plane_diffs, "recon_diff_pixels": int((rd > 0).sum()),
+            "device": str(device)}
+
+
+def family_gates(p, cfg, device=None) -> list:
+    """The kernel families of the reference's ``family_gates``, one 256^2
+    case each, on `device`:
+
+    - color420_u8: :func:`color_gate`;
     - f32: the seed-42 image through ``p.dct`` and ``p.idct`` (hp_dct and
       hp_idct at kernel shapes), held against the golden model;
     - scaled: the 1/2 decode (``ops.scaled.scaled_decode``) within 1e-2 of
       the box average of the full f32 decode; with u8 kernels, the fast
       form ``scaled_decode_u8`` (hp_scaled_decode_u8) equal to
-      ``box_pool_u8(decode_u8)`` bit for bit."""
+      ``box_pool_u8(decode_u8)`` bit for bit.
+
+    ``device`` None is the first CUDA card."""
+    from tpudct_torch.models.dispatch import default_device
     from tpudct_torch.ops.scaled import box_pool_u8, scaled_decode, scaled_decode_u8
     from tpudct_torch.ops.transform import to_uint8
 
+    device = default_device(device)
+    reports = [color_gate(p, cfg, device)]
     img = synthetic_image(256)
     x = torch.as_tensor(img, device=device)
     c = p.dct(x, cfg)
     full = p.idct(c, cfg)
     rep = check_against_golden(img, c, to_uint8(full), cfg)
-    reports = [{**rep, "gate": "pass", "family": "f32"}]
+    reports.append({**rep, "gate": "pass", "family": "f32"})
 
     s = _np(scaled_decode(c, cfg, 2)).astype(np.float64)
     box = _np(full).astype(np.float64).reshape(128, 2, 128, 2).mean(axis=(1, 3))
