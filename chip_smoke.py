@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (the hp codec B1-B7 and the YCbCr split and
-merge B8-B13) from ``tpudct_torch/csrc`` and, in order:
+Builds the port's CUDA kernels (the hp codec B1-B7, the YCbCr split and
+merge B8-B13 and the ring hops B14-B16) from ``tpudct_torch/csrc`` and, in
+order:
 
   1. prints the card (name, power limit), the torch version and nvcc's;
   2. builds the kernels (one nvcc per source, in parallel) and prints
@@ -28,7 +29,14 @@ merge B8-B13) from ``tpudct_torch/csrc`` and, in order:
      and at 8192^2 4:2:0 the scaled decode of that stack at (1, 1) and
      (2, 2), as the color path runs them; and the 4:4:4 merge over all
      256^3 (y, cb, cr) triples against the compare-form round (0
-     mismatches);
+     mismatches); then the three ring kernels at 512^2 (n = 8) and 8192^2
+     (n = 1, 2, 4, 8 virtual ranks on the card): one slot of each against
+     its twin, and every rank's outputs of ring_all_gather,
+     ring_decode_gather and ring_decode_color_gather bit-identical to the
+     gathered truth (the coefficients; hp_decode_u8 and its twin on the
+     whole map; decode_color_u8 and the twins' decode and merge), which
+     also holds B3 and B9 against their twins after their chains moved
+     into the shared headers;
   5. runs the float64 golden-model correctness gate at 512^2 (u8 path with
      the encode/decode/roundtrip bit-identity check, the f32 path, and the
      f32-literal core under transform "dct") and the color420_u8, f32 and
@@ -49,15 +57,28 @@ merge B8-B13) from ``tpudct_torch/csrc`` and, in order:
      4032x3024 camera frame, 32 x 1024^2 frames through the bulk helpers,
      the f32 path at q_scale 0.5 and decode_color_scaled at m = 4, 2, 6 --
      each step moving exactly its own counters, its output held against the
-     same step on the CPU twins on its first 256 rows;
+     same step on the CPU twins on its first 256 rows; then the
+     multi-device main path, its counters set to 0 just before it:
+     band_mesh() (the card alone, n = 1) and 8 virtual ranks on the card
+     through sharded_codec_step at 8192^2, gather_recon, both decode rings,
+     the color step and encode on 8192^2 RGB, the serving step on 32 x
+     1024^2 frames, the grid codec and color steps on a (2, 2) grid,
+     sharded_idct, sharded_scaled_decode at factor 2 and
+     dryrun_multichip(8) -- each step moving exactly its counters (n B4 per
+     codec step, n + n(n-1) B14 per all-gather, n B14 + n^2 B15 per decode
+     ring, 2n B14 + n^2 B16 per color ring), its output held against the
+     same step on a CPU mesh of the twins on its first 256 rows;
   7. times each kernel against its twin with CUDA events (the median of
      each batch of calls, L2 flushed before every call; order plain,
-     kernel, kernel, plain).
+     kernel, kernel, plain); the ring kernels once over a whole 8192^2
+     slot with its forward (B14 beside Tensor.copy_), then per launch and
+     per whole ring at n = 1, 2, 4, 8.
 
 Any failure ends the run with a non-zero exit.  The second-to-last line is
 a JSON summary of the kernels (launches on the main paths, max abs error
 against the twin, kernel and twin ms at 8192^2, the bound from the bytes
-and operations of that call, what bounds it); the last line is
+and operations of that call, what bounds it, Tensor.copy_'s ms beside
+B14); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device the script raises before printing any result.
 """
@@ -74,6 +95,7 @@ import torch
 
 _SRC, _REF = "tpudct_torch/csrc/hp_codec.cu", "tpudct/kernels/hp_pallas.py"
 _CSRC, _CREF = "tpudct_torch/csrc/color_codec.cu", "tpudct/kernels/color_pallas.py"
+_RSRC, _RREF = "tpudct_torch/csrc/ring.cu", "tpudct/parallel/ring.py"
 # kernel -> (CUDA source, the TPU kernel it replaces, bytes moved per pixel
 # (each input read once, each output written once), operations per pixel).
 # Operations: the value chain's arithmetic per pixel, a multiply-add counted
@@ -81,8 +103,10 @@ _CSRC, _CREF = "tpudct_torch/csrc/color_codec.cu", "tpudct/kernels/color_pallas.
 # shifts (one operation per term); the 8x8 literal core (dense f32 T) is 8
 # multiplies and 7 adds per output and pass; the color split counts its
 # integer luma and window sums per pixel and its chroma transform and
-# rounding per chroma sample.  Every kernel here is bound by its bytes at
-# these counts (see _bound).
+# rounding per chroma sample; a ring launch is counted over a whole slot with
+# its forward, per luma pixel (B16: the luma decode, two quarter-size chroma
+# decodes and the merge).  Every kernel here is bound by its bytes at these
+# counts (see _bound).
 KERNELS = {
     "hp_roundtrip_u8": (_SRC, f"{_REF}:678", 3, 36),
     "hp_encode_u8": (_SRC, f"{_REF}:627", 2, 17),
@@ -98,6 +122,9 @@ KERNELS = {
     "color_merge_422_u8": (_CSRC, f"{_CREF}:417", 5, 19),
     "color_split_444_u8": (_CSRC, f"{_CREF}:453", 6, 38),
     "color_merge_444_u8": (_CSRC, f"{_CREF}:477", 6, 19),
+    "ring_forward": (_RSRC, f"{_RREF}:124", 2, 0),
+    "ring_forward_decode": (_SRC, f"{_RREF}:303", 3, 19),  # B3's k_decode_u8 with a forward pointer
+    "ring_forward_decode_color": (_RSRC, f"{_RREF}:568", 6, 48),
 }
 COLOR_MODES = ("420", "422", "444")
 FP32_PEAK_OPS = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
@@ -110,6 +137,8 @@ SQUARE, FRAME, BATCH = 8192, (4000, 2992), (32, 1024)
 COMPARE_SIZES = (512, SQUARE)
 # the color path's camera frame (H x W, a 12-Mpix sensor on its side)
 COLOR_FRAME = (4032, 3024)
+# the rings: (side, virtual rank counts on the card)
+RING_CASES = ((512, (8,)), (SQUARE, (1, 2, 4, 8)))
 
 
 def _fail(msg: str) -> None:
@@ -240,6 +269,7 @@ def phase_compare(dev) -> dict:
     _compare_main_shapes(hp, dev, errs)
     _check_pinned_precision(dev)
     _compare_color(dev, errs)
+    _compare_ring(dev, errs)
     torch.cuda.synchronize()
     return errs
 
@@ -424,6 +454,107 @@ def _merge_sweep(ck, dev, errs: dict) -> None:
         _fail(f"color merge: {mismatches} of 3 x 256^3 outputs differ from the compare-form round")
     print("  color_merge_444_u8 over all 256^3 (y, cb, cr) triples: 0 mismatches against the "
           "compare-form round, bit-identical to its twin")
+
+
+def _color_planes(rgb):
+    """int8 4:2:0 coefficient planes (y, cb, cr) of a planar RGB image, coded
+    by the u8 kernels as the color path codes them."""
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.kernels import hp
+
+    y, cb, cr = ck.color_split_420_u8(rgb)
+    cc = hp.hp_encode_u8(torch.cat([cb, cr]), q_table="chroma")
+    return hp.hp_encode_u8(y), cc[: cb.shape[0]], cc[cb.shape[0] :]
+
+
+def _ring_slots(side: int, n: int, dev) -> tuple:
+    """Inputs of one slot (rows of rank 0's band at n ranks) of each ring
+    kernel at `side`^2: (u8 image slot, int8 luma slot, int8 chroma pack
+    slot)."""
+    from tpudct_torch.parallel import chroma_band_pack
+
+    br = side // n
+    x = _noise(side, side, seed=side + n, dev=dev)[:br]
+    cy, ccb, ccr = _color_planes(_rgb_noise(br, side, seed=side + n, dev=dev))
+    return x, cy, chroma_band_pack(ccb, ccr, 1)
+
+
+def _compare_ring_slot(side: int, n: int, dev, errs: dict) -> None:
+    """Each ring kernel on one slot against its twin on the same inputs:
+    forwards and decodes bit-identical."""
+    from tpudct_torch.kernels import ring as rk
+
+    x, y, pack = _ring_slots(side, n, dev)
+    e = torch.empty_like
+    d_k, d_p = e(x), e(x)
+    rk.ring_forward(x, d_k)
+    rk.forward_plain(x, d_p)
+    errs["ring_forward"] = max(errs["ring_forward"], _same(f"ring_forward {tuple(x.shape)}", d_k, d_p))
+    outs = [(e(y), torch.empty(y.shape, dtype=torch.uint8, device=dev)) for _ in range(2)]
+    rk.ring_forward_decode(y, *outs[0])
+    rk.forward_decode_plain(y, *outs[1])
+    for k, p in zip(*outs):
+        errs["ring_forward_decode"] = max(errs["ring_forward_decode"],
+                                          _same(f"ring_forward_decode {tuple(y.shape)}", k, p))
+    outs = [(e(y), e(pack), torch.empty((3, *y.shape), dtype=torch.uint8, device=dev)) for _ in range(2)]
+    rk.ring_forward_decode_color(y, pack, *outs[0])
+    rk.forward_decode_color_plain(y, pack, *outs[1])
+    for k, p in zip(*outs):
+        errs["ring_forward_decode_color"] = max(errs["ring_forward_decode_color"],
+                                                _same(f"ring_forward_decode_color {tuple(y.shape)}", k, p))
+
+
+def _equal(label: str, got, want) -> None:
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+        n = int((got != want).sum()) if got.shape == want.shape else -1
+        _fail(f"{label}: {got.dtype}{tuple(got.shape)} differs from the truth on {n} values")
+
+
+def _compare_ring(dev, errs: dict) -> None:
+    """The three ring kernels (B14-B16): one slot of each against its twin,
+    and whole rings on virtual ranks of the card against the gathered
+    truth, every rank."""
+    from tpudct_torch import CodecConfig, get_pipeline
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.kernels import hp
+    from tpudct_torch.models.color import decode_color_u8
+    from tpudct_torch.parallel import (
+        band_mesh, chroma_band_pack, ring_all_gather, ring_decode_color_gather, ring_decode_gather,
+        shard_image,
+    )
+
+    for side, ns in RING_CASES:
+        x = _noise(side, side, seed=side + 7, dev=dev)
+        c = hp.hp_encode_u8(x)
+        gray = hp.hp_decode_u8(c)
+        _equal(f"hp_decode_u8 {side}^2 vs its twin", gray, hp.decode_u8_plain(c))
+        cy, ccb, ccr = _color_planes(_rgb_noise(side, side, seed=side + 8, dev=dev))
+        meta = {"orig_shape": (side, side), "chroma_shape": (side // 2, side // 2), "subsample": "420"}
+        rgb = decode_color_u8(get_pipeline("hp"), {"y": cy, "cb": ccb, "cr": ccr}, meta, CodecConfig())
+        rgb = rgb.movedim(-1, 0)
+        cu = hp.decode_u8_plain(torch.cat([ccb, ccr]), q_table="chroma")
+        _equal(f"decode_color_u8 {side}^2 vs the twins' decode and merge", rgb,
+               ck.merge_plain(hp.decode_u8_plain(cy), cu[: side // 2], cu[side // 2 :]))
+        for n in ns:
+            _compare_ring_slot(side, n, dev, errs)
+            mesh = band_mesh(devices=[dev] * n)
+            full = ring_all_gather(shard_image(x, mesh), mesh)
+            crep, rec = ring_decode_gather(shard_image(c, mesh), mesh)
+            pack = chroma_band_pack(ccb, ccr, n)
+            yrep, prep, out = ring_decode_color_gather(shard_image(cy, mesh), shard_image(pack, mesh), mesh)
+            for r in range(n):
+                tag = f"{side}^2 n={n} rank {r}"
+                _equal(f"ring_all_gather {tag}", full.shards[r], x)
+                _equal(f"ring_decode_gather coefficients {tag}", crep.shards[r], c)
+                _equal(f"ring_decode_gather reconstruction {tag}", rec.shards[r], gray)
+                _equal(f"ring_decode_color_gather luma {tag}", yrep.shards[r], cy)
+                _equal(f"ring_decode_color_gather chroma pack {tag}", prep.shards[r], pack)
+                _equal(f"ring_decode_color_gather RGB {tag}", out.shards[r], rgb)
+            del full, crep, rec, yrep, prep, out
+            print(f"  {side}^2 n={n}: ring kernels bit-identical to their twins on a {side // n}x{side} "
+                  "slot; every rank's ring_all_gather, ring_decode_gather (coefficients, hp_decode_u8 of "
+                  "the map) and ring_decode_color_gather (planes, decode_color_u8) equal the truth")
+    torch.cuda.synchronize()
 
 
 def _check_pinned_precision(dev) -> None:
@@ -758,6 +889,201 @@ def phase_color_main_path(dev) -> dict:
     return launches
 
 
+# what dryrun_multichip(8) launches on 8 virtual ranks of the card: B4 per
+# rank in the codec step, the color step's luma and the grid color step's
+# luma tiles (chroma and the grid codec tiles are narrower than 128: the
+# batched fallback); B1 per rank in the serving step; the coefficients of the
+# decode ring (B2) and the color roundtrip feeding the color ring (B8, 2 B2,
+# 2 B3, B9); both rings; B6 per rank in sharded_idct
+DRYRUN_LAUNCHES = {
+    "hp_roundtrip": 24, "hp_roundtrip_u8": 8, "hp_encode_u8": 3, "hp_decode_u8": 2, "hp_idct": 8,
+    "color_split_420_u8": 1, "color_merge_420_u8": 1,
+    "ring_forward": 24, "ring_forward_decode": 64, "ring_forward_decode_color": 64,
+}
+
+
+def _head(t, spec: str, rows: int):
+    """The first `rows` rows (of each plane of planar RGB; of the first
+    image of a batch)."""
+    if spec == "batch":
+        t = t[0]
+    return t[:, :rows] if t.ndim == 3 else t[:rows]
+
+
+def _vs_cpu(label: str, mine, twin, rows: int = 256, exact: bool = True) -> None:
+    """A step's output on the card against the same step on a CPU mesh of
+    the twins, over its first `rows` rows (on the card, read from the
+    ranks that hold them): bit-identical, or (`exact` False, the plain f32
+    color transforms) +-1 on at most 0.5%, the count printed."""
+    from tpudct_torch.parallel import gather
+
+    nc = mine.mesh.shape[1] if mine.spec in ("grid", "rgb-grid") else 1
+    first = torch.cat(mine.shards[:nc], dim=-1) if nc > 1 else mine.shards[0]
+    a = _head(first, mine.spec, rows).cpu().numpy().astype(np.float64)
+    rows = a.shape[-2] if a.ndim == 3 else a.shape[0]  # fewer where the first band is shorter
+    b = _head(gather(twin), twin.spec, rows).astype(np.float64)
+    if a.shape != b.shape:
+        _fail(f"{label}: shapes {a.shape} vs the CPU twins' {b.shape}")
+    d = np.abs(a - b)
+    n = int((d > 0).sum())
+    if (exact and n) or d.max() > 1 or n > 0.005 * d.size:
+        _fail(f"{label}: {n} of {d.size} values differ from the CPU twins' (max {d.max()})")
+    print(f"    first {rows} rows vs the CPU twins: {n} of {d.size} values differ")
+
+
+def phase_multi_main_path(dev) -> dict:
+    """The multi-device main path: band_mesh() (every card) and 8 virtual
+    ranks on the card, its counters set to 0 just before it and read just
+    after; each step moves exactly its own, and its output is held against
+    the same step on a CPU mesh of the twins."""
+    from tpudct_torch import CodecConfig, get_pipeline
+    from tpudct_torch.entry import dryrun_multichip
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.kernels import hp
+    from tpudct_torch.kernels import ring as rk
+    from tpudct_torch import parallel as P
+
+    _phase(6, "main path (multi-device)")
+    cfg, p = CodecConfig(), get_pipeline("hp")
+
+    def counts() -> dict:
+        return {**hp.LAUNCHES, **ck.LAUNCHES, **rk.LAUNCHES}
+
+    def step(label, expected: dict, fn):
+        before = counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        moved = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+        if moved != expected:
+            _fail(f"{label}: launched {moved}, expected {expected}")
+        print(f"  {label}: launched {json.dumps(moved)}, {dt * 1e3:.1f} ms host wall (first call)")
+        return out
+
+    def cpu(n, grid=False):
+        return P.grid_mesh((2, 2), ["cpu"] * 4) if grid else P.band_mesh(devices=["cpu"] * n)
+
+    sq, (n_img, side) = f"{SQUARE}^2", BATCH
+    rng = np.random.default_rng(46)
+    img = rng.integers(0, 256, size=(SQUARE, SQUARE), dtype=np.uint8)
+    rgb_np = rng.integers(0, 256, size=(3, SQUARE, SQUARE), dtype=np.uint8)
+    batch = rng.integers(0, 256, size=(n_img, side, side), dtype=np.uint8)
+    xf = torch.as_tensor(img, device=dev).to(torch.float32)
+    rgb = torch.as_tensor(rgb_np, device=dev)
+    c8 = hp.hp_encode_u8(xf.to(torch.uint8))
+    cy, ccb, ccr = _color_planes(rgb)
+    xf_cpu, c8_cpu = xf[:256].cpu(), c8[:256].cpu()
+    torch.cuda.synchronize()
+
+    hp.reset_launches()
+    ck.reset_launches()
+    rk.reset_launches()
+    m8 = P.band_mesh(devices=[dev] * 8)
+    for mesh in (P.band_mesh(), m8):
+        n = mesh.size
+        label = f"{sq} sharded_codec_step n={n}"
+        (c, r), m = step(label, {"hp_roundtrip": n},
+                         lambda: P.sharded_codec_step(p, cfg, mesh)(P.shard_image(xf, mesh)))
+        (tc, tr), _tm = P.sharded_codec_step(p, cfg, cpu(n))(P.shard_image(xf_cpu, cpu(n)))
+        _vs_cpu(label + " coefficients", c, tc)
+        _vs_cpu(label + " reconstruction", r, tr)
+        mse = float(((torch.cat(r.shards).double() - xf.double()) ** 2).mean())
+        if abs(float(m["mse"]) - mse) > 1e-4 * mse:
+            _fail(f"{label}: metrics mse {float(m['mse'])} vs {mse} recomputed")
+        print(f"    metrics {json.dumps({k: round(float(v), 6) for k, v in m.items()})}; mse recomputed in f64 {mse:.6f}")
+        label = f"{sq} ring_decode_gather n={n}"
+        crep, rec = step(label, {"ring_forward": n, "ring_forward_decode": n * n},
+                         lambda: P.ring_decode_gather(P.shard_image(c8, mesh), mesh))
+        tcrep, trec = P.ring_decode_gather(P.shard_image(c8_cpu, cpu(n)), cpu(n))
+        truth = hp.decode_u8_plain(c8)
+        for k in range(n):
+            _equal(f"{label} rank {k} coefficients", crep.shards[k], c8)
+            _equal(f"{label} rank {k} reconstruction", rec.shards[k], truth)
+        _vs_cpu(label + " reconstruction", rec, trec)
+        del c, r, crep, rec, truth
+    label = f"{sq} gather_recon n=8"
+    _c, full = step(label, {"hp_roundtrip": 8, "ring_forward": 64},
+                    lambda: P.gather_recon(p, cfg, m8)(P.shard_image(xf, m8)))
+    _tc, tfull = P.gather_recon(p, cfg, cpu(8))(P.shard_image(xf_cpu, cpu(8)))
+    for k in range(1, 8):
+        _equal(f"{label} rank {k}", full.shards[k], full.shards[0])
+    _vs_cpu(label, full, tfull)
+    del _c, full
+    label = f"{sq} ring_decode_color_gather n=8"
+    pack = P.chroma_band_pack(ccb, ccr, 8)
+    yrep, prep, out = step(label, {"ring_forward": 16, "ring_forward_decode_color": 64},
+                           lambda: P.ring_decode_color_gather(P.shard_image(cy, m8), P.shard_image(pack, m8), m8))
+    tpack = P.chroma_band_pack(ccb[:128].cpu(), ccr[:128].cpu(), 8)
+    _ty, _tp, tout = P.ring_decode_color_gather(P.shard_image(cy[:256].cpu(), cpu(8)),
+                                                P.shard_image(tpack, cpu(8)), cpu(8))
+    for k in range(1, 8):
+        _equal(f"{label} rank {k}", out.shards[k], out.shards[0])
+    _vs_cpu(label, out, tout)
+    del yrep, prep, out, pack
+    label = f"{sq} RGB sharded_color_step n=8"
+    crec, cm = step(label, {"hp_roundtrip": 16}, lambda: P.sharded_color_step(p, cfg, m8)(P.shard_rgb(rgb, m8)))
+    tcrec, _tcm = P.sharded_color_step(p, cfg, cpu(8))(P.shard_rgb(rgb_np[:, :256], cpu(8)))
+    _vs_cpu(label, crec, tcrec, exact=False)
+    print(f"    metrics mse {float(cm['mse']):.6f}")
+    del crec
+    label = f"{sq} RGB sharded_color_encode n=8"
+    enc, _meta_fn = P.sharded_color_encode(p, cfg, m8)
+    planes = step(label, {"hp_dct": 16}, lambda: enc(P.shard_rgb(rgb, m8)))
+    tenc, _ = P.sharded_color_encode(p, cfg, cpu(8))
+    tplanes = tenc(P.shard_rgb(rgb_np[:, :256], cpu(8)))
+    _vs_cpu(label + " y", planes[0], tplanes[0], exact=False)
+    _vs_cpu(label + " cb", planes[1], tplanes[1], rows=128, exact=False)
+    del planes
+    label = f"{n_img}x{side}^2 sharded_serving_step n=8"
+    (bc, br), bm = step(label, {"hp_roundtrip_u8": 8},
+                        lambda: P.sharded_serving_step(p, cfg, m8)(P.shard_batch(batch, m8)))
+    (tbc, tbr), _tbm = P.sharded_serving_step(p, cfg, cpu(8))(P.shard_batch(batch[:8], cpu(8)))
+    if float(bm["images"]) != n_img:
+        _fail(f"{label}: {float(bm['images'])} images")
+    _vs_cpu(label + " coefficients", bc, tbc)
+    _vs_cpu(label + " reconstruction", br, tbr)
+    del bc, br
+    g4 = P.grid_mesh((2, 2), [dev] * 4)
+    label = f"{sq} sharded_codec_step_grid (2, 2)"
+    (gc, gr), _gm = step(label, {"hp_roundtrip": 4},
+                         lambda: P.sharded_codec_step_grid(p, cfg, g4)(P.shard_image_grid(xf, g4)))
+    (tgc, tgr), _ = P.sharded_codec_step_grid(p, cfg, cpu(4, True))(P.shard_image_grid(xf_cpu, cpu(4, True)))
+    _vs_cpu(label + " coefficients", gc, tgc)
+    _vs_cpu(label + " reconstruction", gr, tgr)
+    del gc, gr
+    label = f"{sq} RGB sharded_color_step_grid (2, 2)"
+    gcrec, _ = step(label, {"hp_roundtrip": 8},
+                    lambda: P.sharded_color_step_grid(p, cfg, g4)(P.shard_rgb_grid(rgb, g4)))
+    tgcrec, _ = P.sharded_color_step_grid(p, cfg, cpu(4, True))(P.shard_rgb_grid(rgb_np[:, :256], cpu(4, True)))
+    _vs_cpu(label, gcrec, tgcrec, exact=False)
+    del gcrec
+    cmap = P.shard_image(hp.dct_plain(xf), m8)
+    tmap = P.shard_image(hp.dct_plain(xf_cpu), cpu(8))
+    label = f"{sq} sharded_idct n=8"
+    rid = step(label, {"hp_idct": 8}, lambda: P.sharded_idct(p, cfg, m8)(cmap))
+    _vs_cpu(label, rid, P.sharded_idct(p, cfg, cpu(8))(tmap))
+    label = f"{sq} sharded_scaled_decode factor 2 n=8"
+    half = step(label, {}, lambda: P.sharded_scaled_decode(cfg, m8, 2)(cmap))
+    if half.shape != (SQUARE // 2, SQUARE // 2):
+        _fail(f"{label}: shape {half.shape}")
+    thalf = P.sharded_scaled_decode(cfg, cpu(8), 2)(tmap)
+    a = half.shards[0][:128].cpu().numpy()
+    err = float(np.abs(a - P.gather(thalf)[: a.shape[0]]).max())
+    if err > 1e-3:
+        _fail(f"{label}: {err} from the CPU twins")
+    print(f"    first {a.shape[0]} rows within {err:.2e} of the CPU run (a float64 basis, rounded once)")
+    del rid, half, cmap
+    step("dryrun_multichip(8) on 8 virtual ranks", DRYRUN_LAUNCHES,
+         lambda: dryrun_multichip(8, [dev] * 8))
+    launches = counts()
+    for name in rk.LAUNCHES:
+        if launches[name] < 1:
+            _fail(f"multi-device main path never launched {name}")
+    print("  launches:", json.dumps(launches))
+    return launches
+
+
 def _bound(name: str, h: int, w: int) -> tuple:
     """(bound ms, "bytes" or "operations") of one call at h x w: the larger
     of its bytes over the HBM rate and its operations over the f32 rate."""
@@ -842,7 +1168,84 @@ def phase_timing(dev, card: str) -> dict:
             print(f"  {label} {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; "
                   f"kernel {gbps:.1f} GB/s = {gbps * 1e9 / HBM_PEAK_BPS:.1%} of 3.35 TB/s{bound} "
                   f"[{card}]")
+    ring_times, copy_ms = _time_rings(dev, card, flush)
+    times.update(ring_times)
+    times["library"] = {"ring_forward": copy_ms}
     return times
+
+
+def _ring_bytes(n: int, side: int) -> dict:
+    """Bytes each whole ring moves at n ranks on a side^2 map (each launch's
+    inputs read once and outputs written once, summed over its launches)."""
+    px = side * side // n  # pixels of one slot
+    return {
+        "ring_all_gather": n * n * 2 * px,
+        "ring_decode_gather": (2 * n + 3 * n * (n - 1) + 2 * n) * px,
+        "ring_decode_color_gather": (3 * n + 6 * n * (n - 1) + 4.5 * n) * px,
+    }
+
+
+def _time_rings(dev, card: str, flush: torch.Tensor) -> tuple:
+    """B14-B16 over a whole SQUARE^2 slot with its forward (kernel and twin,
+    Tensor.copy_ beside B14), then per launch and per whole ring at each
+    rank count.  Returns (times, B14's library ms)."""
+    from tpudct_torch import parallel as P
+    from tpudct_torch.kernels import hp
+    from tpudct_torch.kernels import ring as rk
+
+    x = _noise(SQUARE, SQUARE, seed=9, dev=dev)
+    c = hp.hp_encode_u8(x)
+    cy, ccb, ccr = _color_planes(_rgb_noise(SQUARE, SQUARE, seed=10, dev=dev))
+    pack = P.chroma_band_pack(ccb, ccr, 1)
+    e = torch.empty_like
+    dst, fwd, rec, fy, fc = e(x), e(c), e(x), e(cy), e(pack)
+    rgb = torch.empty((3, SQUARE, SQUARE), dtype=torch.uint8, device=dev)
+    fns = {
+        "ring_forward": (lambda: rk.ring_forward(x, dst), lambda: rk.forward_plain(x, dst)),
+        "ring_forward_decode": (lambda: rk.ring_forward_decode(c, fwd, rec),
+                                lambda: rk.forward_decode_plain(c, fwd, rec)),
+        "ring_forward_decode_color": (lambda: rk.ring_forward_decode_color(cy, pack, fy, fc, rgb),
+                                      lambda: rk.forward_decode_color_plain(cy, pack, fy, fc, rgb)),
+    }
+    times = {}
+    for name, (kern, plain) in fns.items():
+        kern(), plain()  # warm up
+        p1 = _time(plain, flush, 3)
+        k1 = _time(kern, flush, 20)
+        k2 = _time(kern, flush, 20)
+        p2 = _time(plain, flush, 3)
+        ms = (k1 + k2) / 2
+        times[(name, f"{SQUARE}^2")] = (ms, (p1 + p2) / 2)
+        gbps = KERNELS[name][2] * SQUARE * SQUARE / (ms * 1e-3) / 1e9
+        print(f"  {SQUARE}^2 slot with its forward, {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+              f"{p2:.4f} ms; {gbps:.1f} GB/s = {gbps * 1e9 / HBM_PEAK_BPS:.1%} of 3.35 TB/s; bound "
+              f"{_bound(name, SQUARE, SQUARE)[0]:.4f} ms [{card}]")
+    copy = [_time(lambda: dst.copy_(x), flush, 20) for _ in range(2)]
+    print(f"  {SQUARE}^2 Tensor.copy_ (B14's library call): {copy[0]:.4f} / {copy[1]:.4f} ms [{card}]")
+    for n in (1, 2, 4, 8):
+        mesh, br = P.band_mesh(devices=[dev] * n), SQUARE // n
+        pack_n = P.chroma_band_pack(ccb, ccr, n)
+        launch = {
+            "B14": lambda: rk.ring_forward(x[:br], dst[:br]),
+            "B15": lambda: rk.ring_forward_decode(c[:br], fwd[:br], rec[:br]),
+            "B16": lambda: rk.ring_forward_decode_color(cy[:br], pack_n[:br], fy[:br], fc[:br], rgb[:, :br]),
+        }
+        args = {
+            "ring_all_gather": (P.shard_image(x, mesh), mesh),
+            "ring_decode_gather": (P.shard_image(c, mesh), mesh),
+            "ring_decode_color_gather": (P.shard_image(cy, mesh), P.shard_image(pack_n, mesh), mesh),
+        }
+        per = {k: _time(f, flush, 20) for k, f in launch.items()}
+        whole = {}
+        for name, a in args.items():
+            getattr(P, name)(*a)  # warm up (allocations)
+            whole[name] = _time(lambda: getattr(P, name)(*a), flush, 5)
+        times[("rings", n)] = (per, whole)
+        bounds = {k: b / HBM_PEAK_BPS * 1e3 for k, b in _ring_bytes(n, SQUARE).items()}
+        print(f"  n={n} ({br}x{SQUARE} slots): per launch with forward B14 {per['B14']:.4f}, B15 "
+              f"{per['B15']:.4f}, B16 {per['B16']:.4f} ms; whole ring "
+              + ", ".join(f"{k} {whole[k]:.4f} ms (bound {bounds[k]:.4f})" for k in whole) + f" [{card}]")
+    return times, (copy[0] + copy[1]) / 2
 
 
 def main() -> int:
@@ -858,15 +1261,16 @@ def main() -> int:
     phase_gate(dev)
     gray = phase_main_path(dev)
     color = phase_color_main_path(dev)
+    multi = phase_multi_main_path(dev)
     times = phase_timing(dev, card)
     kernels = []
     for name, (src, replaces, _bpp, _ops) in KERNELS.items():
         bound_ms, bound_by = _bound(name, SQUARE, SQUARE)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": gray.get(name, 0) + color.get(name, 0), "max_abs_err": errs[name],
+            "launches": sum(run.get(name, 0) for run in (gray, color, multi)), "max_abs_err": errs[name],
             "ms": times[(name, f"{SQUARE}^2")][0], "plain_ms": times[(name, f"{SQUARE}^2")][1],
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": times["library"].get(name),
         })
     print(_card())
     print(json.dumps({"kernels": kernels}))

@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's main-path steps (gray and color), on
-one CUDA card.
+"""Where the time goes in the port's main-path steps (gray, color and
+multi-device), on one CUDA card.
 
     python3 profile_steps.py
 
 Each step runs once to warm up, then REPS (5) times under
 ``torch.profiler``; per call it prints the host wall time (the calls end
 in ``torch.cuda.synchronize()``), the device busy time (the sum of the
-device-side events: kernels, copies, memsets), the idle share
-(1 - busy / wall) and the four largest device items.  Inputs are made from
-seeds, as in ``chip_smoke.py``; the card's name and power limit head the
-output.  Needs a CUDA device.
+device-side events: kernels, copies, memsets; summed over the streams of
+virtual ranks, so it may exceed the wall), the idle share (1 - busy / wall)
+and the four largest device items.  For the ring all-gather on 8 virtual
+ranks it also prints the host functions with the most own time per call
+(``cProfile``, which slows every Python call, so read the shares).  Inputs
+are made from seeds, as in ``chip_smoke.py``; the card's name and power
+limit head the output.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import cProfile
+import os
+import pstats
 import subprocess
 import time
 
@@ -93,6 +99,52 @@ def _gray_steps(p, cfg, dev) -> None:
         _profile(label, step)
 
 
+def _host_top(fn, k: int = 6) -> str:
+    """The k functions with the most own host time per call of fn."""
+    fn()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(REPS):
+        fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: kv[1][2], reverse=True)[:k]
+    return "; ".join(f"{name} ({os.path.basename(path)}:{line}) {tt / REPS * 1e3:.4f} ms"
+                     for (path, line, name), (_cc, _nc, tt, _ct, _callers) in rows)
+
+
+def _multi_steps(p, cfg, dev) -> None:
+    """The multi-device steps on 8 virtual ranks of the card, at 8192^2."""
+    from tpudct_torch import parallel as P
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.kernels import hp
+
+    rng = np.random.default_rng(46)
+    x = torch.as_tensor(rng.integers(0, 256, size=(8192, 8192), dtype=np.uint8), device=dev)
+    rgb = torch.as_tensor(rng.integers(0, 256, size=(3, 8192, 8192), dtype=np.uint8), device=dev)
+    batch = torch.as_tensor(rng.integers(0, 256, size=(32, 1024, 1024), dtype=np.uint8), device=dev)
+    y, cb, cr = ck.color_split_420_u8(rgb)
+    cc = hp.hp_encode_u8(torch.cat([cb, cr]), q_table="chroma")
+    mesh = P.band_mesh(devices=[dev] * 8)
+    xf, xs = P.shard_image(x.to(torch.float32), mesh), P.shard_image(x, mesh)
+    cs = P.shard_image(hp.hp_encode_u8(x), mesh)
+    ys = P.shard_image(hp.hp_encode_u8(y), mesh)
+    ps = P.shard_image(P.chroma_band_pack(cc[:4096], cc[4096:], 8), mesh)
+    bs = P.shard_batch(batch, mesh)
+    steps = [
+        ("8192^2 sharded_codec_step, 8 virtual ranks", lambda: P.sharded_codec_step(p, cfg, mesh)(xf)),
+        ("8192^2 ring_all_gather, 8 virtual ranks", lambda: P.ring_all_gather(xs, mesh)),
+        ("8192^2 ring_decode_gather, 8 virtual ranks", lambda: P.ring_decode_gather(cs, mesh)),
+        ("8192^2 ring_decode_color_gather, 8 virtual ranks", lambda: P.ring_decode_color_gather(ys, ps, mesh)),
+        ("32x1024^2 sharded_serving_step, 8 virtual ranks", lambda: P.sharded_serving_step(p, cfg, mesh)(bs)),
+    ]
+    for label, step in steps:
+        _profile(label, step)
+    print("8192^2 ring_all_gather, 8 virtual ranks, host functions by own time per call (cProfile):",
+          _host_top(lambda: P.ring_all_gather(xs, mesh)), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_steps.py needs a CUDA device")
@@ -126,6 +178,7 @@ def main() -> int:
     for m in (4, 2, 6):
         _profile(f"8192^2 decode_color_scaled m={m} (device)",
                  lambda m=m: mc.decode_color_scaled(p, planes, meta, cfg, m=m))
+    _multi_steps(p, cfg, dev)
     return 0
 
 

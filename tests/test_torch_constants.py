@@ -8,6 +8,8 @@ the same codec.
 
 import os
 import pkgutil
+import re
+import shutil
 import subprocess
 import sys
 
@@ -156,6 +158,8 @@ def test_port_imports_no_jax():
     assert "tpudct_torch.kernels.hp" in mods and "tpudct_torch.models.dispatch" in mods
     assert "tpudct_torch.ops.scaled" in mods and "tpudct_torch.entry" in mods
     assert {"tpudct_torch.kernels.color", "tpudct_torch.models.color", "tpudct_torch.utils.color"} <= set(mods)
+    assert {"tpudct_torch.kernels.ring", "tpudct_torch.parallel", "tpudct_torch.parallel.mesh",
+            "tpudct_torch.parallel.sharding", "tpudct_torch.parallel.ring"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -191,3 +195,58 @@ def test_failed_build_raises_with_nvccs_stderr(stage, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match=f"nvcc failed .* on {what}:\n.*fake nvcc: {stage} refused"):
         _build.build()
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_library_name_follows_the_shared_headers(monkeypatch, tmp_path):
+    """The library is named by a hash of the sources AND the headers they
+    include, so an edited header rebuilds (the ring kernels share the block
+    decode and the 4:2:0 merge with B3 and B9 through csrc/*.cuh)."""
+    from tpudct_torch.kernels import _build
+
+    names = {p.name for p in _build.headers()}
+    assert {"hp_block.cuh", "color_px.cuh"} <= names
+    assert {p.name for p in _build.SOURCES} == {"hp_codec.cu", "color_codec.cu", "ring.cu"}
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.SOURCES[0].parent, csrc)
+    monkeypatch.setattr(_build, "SOURCES", tuple(csrc / p.name for p in _build.SOURCES))
+    before = _build.library_path()
+    assert before == _build.library_path()
+    header = csrc / "hp_block.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = _build.library_path()
+    assert after != before and after.parent == before.parent
+
+
+def _c_interface() -> dict:
+    """name -> argument kinds ('p' pointer, 'l' long long, 'i' int) of every
+    function in the sources' ``extern "C"`` blocks."""
+    from tpudct_torch.kernels import _build
+
+    found = {}
+    for src in _build.SOURCES:
+        text = src.read_text()
+        block = text[text.index('extern "C" {'):]
+        for name, params in re.findall(r"^(?:int|const char\*) (\w+)\(([^)]*)\)", block, re.M):
+            found[name] = "".join(
+                "p" if "*" in a else "l" if "long long" in a else "i" for a in params.split(",")
+            )
+    return found
+
+
+def test_ctypes_signatures_match_the_c_interface():
+    """Every function the library declares to ctypes exists in the sources'
+    C interface with the same arguments, so a changed launcher (B3's gained
+    the ring's forward pointer) cannot be called with a stale signature; the
+    launchers end with (stream, device)."""
+    import ctypes
+
+    from tpudct_torch.kernels import _build
+
+    kind = {ctypes.c_void_p: "p", ctypes.c_longlong: "l", ctypes.c_int: "i"}
+    c = _c_interface()
+    for name, argtypes in _build._SIGNATURES.items():
+        assert c.get(name) == "".join(kind[t] for t in argtypes), name
+        if name.endswith("_launch"):
+            assert c[name].endswith("pi"), name
+    assert set(c) - set(_build._SIGNATURES) == {"hp_error_string"}
+    assert c["hp_decode_u8_launch"] == "ppiipppi"  # coef, rec, h, w, fwd, consts, stream, device

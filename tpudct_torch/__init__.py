@@ -11,6 +11,7 @@ Public API
 - config:     CodecConfig
 - models:     get_pipeline("batched" | "cublas2" | "hp")
 - ops:        blockify / deblockify / dct2 / idct2 / quantize / dequantize
+- parallel:   band_mesh / grid_mesh, shard_* and the sharded steps, the rings
 """
 
 from tpudct_torch.constants import BLOCK_SIZE, T, Q, haweel_integer_core, haweel_row_norms

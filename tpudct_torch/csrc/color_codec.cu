@@ -55,57 +55,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "color_px.cuh"  // ColorConsts, byte access, the roundings, merge_px
 
-struct ColorConsts {
-  float kr, kg, kb;  // BT.601 luma weights, f32
-  float kcb, kcr;    // 0.5 / (1 - KB), 0.5 / (1 - KR): forward chroma scales
-  float kr2, kb2;    // 2 - 2 KR, 2 - 2 KB: inverse chroma scales
-};
+namespace {
 
 constexpr int kCols = 16;  // luma columns per thread
 constexpr int kThreads = 256;
-
-// N bytes at p (N in 4, 8, 16; p aligned to N) as N/4 little-endian words.
-template <int N>
-__device__ __forceinline__ void load_bytes(const uint8_t* p, uint32_t (&v)[N / 4]) {
-  if constexpr (N == 16) {
-    const uint4 q = *reinterpret_cast<const uint4*>(p);
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-  } else if constexpr (N == 8) {
-    const uint2 q = *reinterpret_cast<const uint2*>(p);
-    v[0] = q.x; v[1] = q.y;
-  } else {
-    v[0] = *reinterpret_cast<const uint32_t*>(p);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_bytes(uint8_t* p, const uint32_t (&v)[N / 4]) {
-  if constexpr (N == 16) {
-    *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (N == 8) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(v[0], v[1]);
-  } else {
-    *reinterpret_cast<uint32_t*>(p) = v[0];
-  }
-}
-
-__device__ __forceinline__ int byte_at(const uint32_t* v, int e) {
-  return static_cast<int>((v[e >> 2] >> (8 * (e & 3))) & 0xffu);
-}
-
-// clip(round_half_away(z), 0, 255), clip first: _to_u8 of color_pallas.py.
-__device__ __forceinline__ uint32_t round_u8(float z) {
-  const float zp = fminf(fmaxf(z, 0.0f), 255.0f);
-  const float f = floorf(zp);
-  return static_cast<uint32_t>(__fadd_rn(f, __fsub_rn(zp, f) >= 0.5f ? 1.0f : 0.0f));
-}
-
-// trunc(clip(z) + 0.5): _to_u8_trunc of color_pallas.py.
-__device__ __forceinline__ uint32_t trunc_u8(float z) {
-  return static_cast<uint32_t>(__float2int_rz(__fadd_rn(fminf(fmaxf(z, 0.0f), 255.0f), 0.5f)));
-}
 
 // Thread -> (luma offset of its window's top-left, its chroma offset), or
 // false past the last window.
@@ -194,14 +149,12 @@ __global__ void k_color_merge(const uint8_t* __restrict__ y, const uint8_t* __re
     uint32_t rv[4] = {0u, 0u, 0u, 0u}, gv[4] = {0u, 0u, 0u, 0u}, bv[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
     for (int e = 0; e < kCols; ++e) {
-      const float yf = static_cast<float>(byte_at(yw, e));
-      const float r = __fadd_rn(yf, __fmul_rn(crc[e / RW], k.kr2));
-      const float b = __fadd_rn(yf, __fmul_rn(cbc[e / RW], k.kb2));
-      const float g = __fdiv_rn(__fsub_rn(__fsub_rn(yf, __fmul_rn(r, k.kr)), __fmul_rn(b, k.kb)), k.kg);
+      uint32_t r, g, b;
+      merge_px(static_cast<float>(byte_at(yw, e)), cbc[e / RW], crc[e / RW], k, r, g, b);
       const int sh = 8 * (e & 3);
-      rv[e >> 2] |= trunc_u8(r) << sh;
-      gv[e >> 2] |= trunc_u8(g) << sh;
-      bv[e >> 2] |= trunc_u8(b) << sh;
+      rv[e >> 2] |= r << sh;
+      gv[e >> 2] |= g << sh;
+      bv[e >> 2] |= b << sh;
     }
     store_bytes<16>(out + ro, rv);
     store_bytes<16>(out + plane + ro, gv);

@@ -6,7 +6,9 @@
 // (tpudct/kernels/hp_pallas.py):
 //   hp_rt_u8_launch             B1  hp_roundtrip_u8  (_k_rt_u8_bf, _k_rt_u8)
 //   hp_encode_u8_launch         B2  hp_encode_u8     (_k_encode_u8)
-//   hp_decode_u8_launch         B3  hp_decode_u8     (_k_decode_u8_bf, _k_decode_u8)
+//   hp_decode_u8_launch         B3  hp_decode_u8     (_k_decode_u8_bf, _k_decode_u8);
+//                               B15 with a forward pointer: ring_decode_gather's
+//                                   hop (tpudct/parallel/ring.py _ring_decode_kernel)
 //   hp_rt_f32_launch            B4  hp_roundtrip     (_k_rt_int_bf, _k_rt_int;
 //                               B4' with literal=1:   _k_rt_f32_bf, _k_rt_f32)
 //   hp_dct_launch               B5  hp_dct           (_k_dct_int, _k_dct_f32)
@@ -62,16 +64,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "hp_block.cuh"  // HpConsts, the block decode chain, block_origin, ROWS
 
-struct HpConsts {
-  float fwd[64];   // forward matrix: Ts (integer core) or T (f32-literal core)
-  float fq[64];    // integer core: scale = d_i d_l / (Q q_scale) * mask;
-                   // f32-literal core: the divisor Q q_scale
-  float mask[64];  // f32-literal core: zonal mask applied after rounding
-  float a[64];     // inverse transform matrix (Ts or T)
-  float s[64];     // dequantization multiplier per position
-};
+namespace {
 
 __device__ __forceinline__ float round_away(float z) {
   return truncf(__fadd_rn(z, copysignf(0.5f, z)));
@@ -127,33 +122,6 @@ __device__ __forceinline__ void fwd_block_literal(float x[64], const HpConsts& k
     }
 }
 
-__device__ __forceinline__ void inv_block(float c[64], const HpConsts& k) {
-  // c: quantized coefficients in, reconstruction + 128 (f32) out.
-  float m[64], u[64];
-#pragma unroll
-  for (int e = 0; e < 64; ++e) m[e] = __fmul_rn(c[e], k.s[e]);
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int l = 0; l < 8; ++l) {
-      float acc = __fmul_rn(k.a[i], m[l]);
-#pragma unroll
-      for (int kk = 1; kk < 8; ++kk)
-        acc = __fadd_rn(acc, __fmul_rn(k.a[kk * 8 + i], m[kk * 8 + l]));
-      u[i * 8 + l] = acc;
-    }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float acc = __fmul_rn(u[i * 8], k.a[j]);
-#pragma unroll
-      for (int l = 1; l < 8; ++l)
-        acc = __fadd_rn(acc, __fmul_rn(u[i * 8 + l], k.a[l * 8 + j]));
-      c[i * 8 + j] = __fadd_rn(acc, 128.0f);
-    }
-}
-
 // ---- 8-wide row loads and stores -------------------------------------------
 
 __device__ __forceinline__ void load_u8_shifted(const uint8_t* p, float* x) {
@@ -162,15 +130,6 @@ __device__ __forceinline__ void load_u8_shifted(const uint8_t* p, float* x) {
   for (int e = 0; e < 4; ++e) {
     x[e] = static_cast<float>(static_cast<int>((v.x >> (8 * e)) & 0xffu) - 128);
     x[4 + e] = static_cast<float>(static_cast<int>((v.y >> (8 * e)) & 0xffu) - 128);
-  }
-}
-
-__device__ __forceinline__ void load_i8(const int8_t* p, float* x) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    x[e] = static_cast<float>(static_cast<int8_t>((v.x >> (8 * e)) & 0xffu));
-    x[4 + e] = static_cast<float>(static_cast<int8_t>((v.y >> (8 * e)) & 0xffu));
   }
 }
 
@@ -201,38 +160,6 @@ __device__ __forceinline__ void store_i8(int8_t* p, const float* c) {
   *reinterpret_cast<uint2*>(p) = v;
 }
 
-__device__ __forceinline__ float clamp_trunc(float x) {
-  return fminf(fmaxf(truncf(x), 0.0f), 255.0f);
-}
-
-__device__ __forceinline__ uint32_t to_u8(float x) {
-  return static_cast<uint32_t>(clamp_trunc(x));
-}
-
-// N values of one output row: u8 with one 8/4/2/1-byte store.  The values
-// are exact integers in [0, 255], so the cast is the truncation.
-template <int N>
-__device__ __forceinline__ void store_row_u8(uint8_t* p, const float* x) {
-  if constexpr (N == 8) {
-    uint2 v = {0u, 0u};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      v.x |= to_u8(x[e]) << (8 * e);
-      v.y |= to_u8(x[4 + e]) << (8 * e);
-    }
-    *reinterpret_cast<uint2*>(p) = v;
-  } else if constexpr (N == 4) {
-    uint32_t v = 0u;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) v |= to_u8(x[e]) << (8 * e);
-    *reinterpret_cast<uint32_t*>(p) = v;
-  } else if constexpr (N == 2) {
-    *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(to_u8(x[0]) | (to_u8(x[1]) << 8));
-  } else {
-    *p = static_cast<uint8_t>(to_u8(x[0]));
-  }
-}
-
 template <int N>
 __device__ __forceinline__ void store_row_f32(float* p, const float* x) {
   if constexpr (N == 8) {
@@ -247,28 +174,9 @@ __device__ __forceinline__ void store_row_f32(float* p, const float* x) {
   }
 }
 
-__device__ __forceinline__ void store_u8(uint8_t* p, const float* x) { store_row_u8<8>(p, x); }
 __device__ __forceinline__ void store_f32(float* p, const float* x) { store_row_f32<8>(p, x); }
 
 // ---- kernels ---------------------------------------------------------------
-
-__device__ __forceinline__ long long block_index() {
-  return static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-}
-
-// Element offset of this thread's block (row 0), or -1 past the last block.
-__device__ __forceinline__ long long block_origin(int h, int w) {
-  const long long nbw = w / 8;
-  const long long b = block_index();
-  if (b >= (h / 8) * nbw) return -1;
-  return (b / nbw) * 8 * static_cast<long long>(w) + (b % nbw) * 8;
-}
-
-#define ROWS(stmt)                                                \
-  _Pragma("unroll") for (int r = 0; r < 8; ++r) {                 \
-    const long long ro = o + r * static_cast<long long>(w);       \
-    stmt;                                                         \
-  }
 
 __global__ void k_rt_u8(const uint8_t* __restrict__ img, int8_t* __restrict__ coef,
                         uint8_t* __restrict__ rec, int h, int w, const HpConsts k) {
@@ -292,12 +200,14 @@ __global__ void k_encode_u8(const uint8_t* __restrict__ img, int8_t* __restrict_
   ROWS(store_i8(coef + ro, x + 8 * r));
 }
 
-__global__ void k_decode_u8(const int8_t* __restrict__ coef, uint8_t* __restrict__ rec,
-                            int h, int w, const HpConsts k) {
+// With fwd, each int8 row is also copied to fwd as it is read: the decode
+// ring's hop (B15), forwarding the slot to the next rank while decoding it.
+__global__ void k_decode_u8(const int8_t* __restrict__ coef, int8_t* __restrict__ fwd,
+                            uint8_t* __restrict__ rec, int h, int w, const HpConsts k) {
   const long long o = block_origin(h, w);
   if (o < 0) return;
   float x[64];
-  ROWS(load_i8(coef + ro, x + 8 * r));
+  ROWS(load_forward_i8(coef, fwd, ro, x + 8 * r));
   inv_block(x, k);
   ROWS(store_u8(rec + ro, x + 8 * r));
 }
@@ -419,7 +329,9 @@ int launch_scaled_fc(int fc, const void* coef, void* out, int h, int w, int out_
 
 // ---- C interface -------------------------------------------------------------
 // Pointers are device pointers except `consts`, a host pointer to 320 floats
-// laid out as HpConsts.  Each function returns a cudaError_t value (0 = ok)
+// laid out as HpConsts.  hp_decode_u8_launch's `fwd` is null, or where to copy
+// the int8 map as it is read (another card's memory once ring_enable_peer in
+// ring.cu has given this card access to it).  Each function returns a cudaError_t value (0 = ok)
 // after checking the launch; it neither synchronizes nor allocates.
 
 extern "C" {
@@ -443,12 +355,13 @@ int hp_encode_u8_launch(const void* img, void* coef, int h, int w, const void* c
   return static_cast<int>(cudaGetLastError());
 }
 
-int hp_decode_u8_launch(const void* coef, void* rec, int h, int w, const void* consts,
-                        void* stream, int device) {
+int hp_decode_u8_launch(const void* coef, void* rec, int h, int w, void* fwd,
+                        const void* consts, void* stream, int device) {
   int err = prologue(device, h, w);
   if (err) return err;
   k_decode_u8<<<grid_for(h, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(coef), static_cast<uint8_t*>(rec), h, w, consts_of(consts));
+      static_cast<const int8_t*>(coef), static_cast<int8_t*>(fwd), static_cast<uint8_t*>(rec), h,
+      w, consts_of(consts));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,0 +1,215 @@
+// Ring collective kernels for NVIDIA Hopper (sm_90a): the hops of the band
+// ring (tpudct_torch/parallel/ring.py), built with hp_codec.cu and
+// color_codec.cu by tpudct_torch/kernels/_build.py into one shared library
+// with a plain C interface (loaded with ctypes).
+//
+// Entry points and the Pallas TPU kernels they replace
+// (tpudct/parallel/ring.py):
+//   ring_forward_launch               B14  k_ring_forward
+//                                          (_ring_all_gather_kernel)
+//   ring_forward_decode_color_launch  B16  k_ring_forward_decode_color
+//                                          (_ring_decode_color_kernel)
+// B15 (_ring_decode_kernel) is hp_codec.cu's B3 kernel, k_decode_u8, given a
+// forward pointer: hp_decode_u8_launch with a non-null fwd.
+//
+// What they compute.  A ring gathers n row bands so that every rank ends
+// with the whole map.  One launch handles one slot (one band's rows) on
+// one rank: B14 copies it to the same rows of rank r + 1's replica (or
+// places the rank's own band); B15 forwards an int8 coefficient slot and
+// decodes it into the rank's u8 reconstruction; B16 forwards a luma slot
+// and its chroma pack slot (cb rows over cr rows, half the width) and
+// decodes both and merges them into the rank's (3, H, W) RGB.  A null
+// forward pointer skips the forward (a rank's last slot).
+//
+// Value chain: B16 is hp_decode_u8's (B3) block chain with the luma and the
+// chroma tables and then color_merge_420_u8's (B9) pixel chain, taken from
+// the same headers (hp_block.cuh, color_px.cuh), so the color ring decodes
+// bit for bit as decode_color_u8 of the gathered planes does.  Like the reference, the rings run the butterfly
+// tier whatever the caller's decode_precision.
+//
+// Design.  On the TPU a ring hop is an RDMA whose wait the decode of the
+// band already held hides.  Here the hop and the decode read the same
+// bytes, so one pass does both: a thread reads each 8-byte row of its
+// block once, writes it to the next rank's replica (a peer card's memory
+// where the ranks lie on two cards, through NVLink) and decodes it from
+// registers.  The ordering of hops across ranks is the host's (CUDA events
+// between the ranks' streams); no kernel waits on another.  B14 is a
+// grid-stride copy, 16 bytes per access where both pointers allow it.  B15
+// is B3 itself, one thread per 8x8 block.  B16 runs one thread block per
+// 16 x 256 luma strip: each thread decodes one luma or chroma block (as B3,
+// one block of f32 live) into shared memory as u8, then the block merges the
+// strip from shared memory (as B9).  One thread per 16x16 window, decoding
+// its two chroma blocks and then its four luma blocks in turn, needs 255
+// registers (8 warps per SM) and runs 4x slower.
+//
+// Bound: memory.  Bytes per luma pixel of one launch with its forward (each
+// input read once, each output written once): B14 2, B15 3 (read int8,
+// forward int8, write u8), B16 6 (luma 1 + 1, pack 0.5 + 0.5, RGB 3); at
+// 8192^2 and 3.35 TB/s 0.040, 0.060 and 0.120 ms.  The arithmetic is B3's
+// (B15) or B3's twice plus B9's (B16), under that at the f32 rate.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "color_px.cuh"  // ColorConsts, byte_at, merge_px
+#include "hp_block.cuh"  // HpConsts, inv_block, load_forward_i8, to_u8, block_index, ROWS
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr long long kMaxCopyBlocks = 132 * 16;  // a few waves of the H100's 132 SMs
+
+__global__ void k_ring_forward(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
+                               long long nbytes, int vec) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long t = block_index();
+  long long done = 0;
+  if (vec) {
+    const long long n16 = nbytes / 16;
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    for (long long i = t; i < n16; i += stride) d[i] = s[i];
+    done = n16 * 16;
+  }
+  for (long long i = done + t; i < nbytes; i += stride) dst[i] = src[i];
+}
+
+// One 8x8 int8 block at element offset o of a map with rows of w: loaded,
+// forwarded (when fwd is given) and decoded with the table k into x (f32,
+// + 128, not yet clamped).
+__device__ __forceinline__ void decode_block(const int8_t* __restrict__ src,
+                                             int8_t* __restrict__ fwd, long long o, int w,
+                                             const HpConsts& k, float (&x)[64]) {
+  ROWS(load_forward_i8(src, fwd, ro, x + 8 * r));
+  inv_block(x, k);
+}
+
+// The u8 of 8 decoded values as two little-endian words.
+__device__ __forceinline__ uint2 pack_u8(const float* x) {
+  uint2 v = {0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    v.x |= to_u8(x[e]) << (8 * e);
+    v.y |= to_u8(x[4 + e]) << (8 * e);
+  }
+  return v;
+}
+
+constexpr int kStripRows = 16, kStripCols = 256;  // the luma strip of one thread block
+constexpr int kLumaBlocks = (kStripRows / 8) * (kStripCols / 8);  // 64
+constexpr int kColorThreads = kLumaBlocks + 2 * (kStripCols / 16);  // + 16 cb + 16 cr blocks = 96
+
+// One thread block per 16 x 256 luma strip (its chroma: one 8-row block row
+// of cb and of cr, 128 wide).  Each thread first decodes one block, as B3
+// does: threads 0-63 a luma block, 64-95 a chroma block (warp-uniform), each
+// forwarding its block's bytes, into shared memory as u8; then all threads
+// merge the strip 8 pixels at a time, as B9 does.
+__global__ void __launch_bounds__(kColorThreads)
+    k_ring_forward_decode_color(const int8_t* __restrict__ y, const int8_t* __restrict__ c,
+                                int8_t* __restrict__ fy, int8_t* __restrict__ fc,
+                                uint8_t* __restrict__ rgb, long long plane, int h, int w,
+                                const HpConsts kl, const HpConsts kc, const ColorConsts kk) {
+  __shared__ __align__(16) uint8_t ys[kStripRows][kStripCols];
+  __shared__ __align__(16) uint8_t cs[2][kStripRows / 2][kStripCols / 2];  // cb, cr
+  const int strips = w / kStripCols;
+  const long long r0 = static_cast<long long>(blockIdx.x / strips) * kStripRows;
+  const long long c0 = static_cast<long long>(blockIdx.x % strips) * kStripCols;
+  const int t = threadIdx.x, cw = w / 2;
+  float x[64];
+  if (t < kLumaBlocks) {
+    const int by = t / (kStripCols / 8), bx = t % (kStripCols / 8);
+    decode_block(y, fy, (r0 + by * 8) * w + c0 + bx * 8, w, kl, x);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) *reinterpret_cast<uint2*>(&ys[by * 8 + i][bx * 8]) = pack_u8(x + 8 * i);
+  } else {
+    // pack rows: cb of this band's strip at r0 / 2, cr h / 2 rows lower
+    const int q = t - kLumaBlocks, pl = q / (kStripCols / 16), bx = q % (kStripCols / 16);
+    decode_block(c, fc, (pl * (h / 2) + r0 / 2) * cw + c0 / 2 + bx * 8, cw, kc, x);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) *reinterpret_cast<uint2*>(&cs[pl][i][bx * 8]) = pack_u8(x + 8 * i);
+  }
+  __syncthreads();
+  constexpr int kSegs = kStripRows * kStripCols / 8;  // 8-pixel row segments of the strip
+  for (int s = t; s < kSegs; s += kColorThreads) {
+    const int row = s / (kStripCols / 8), col = (s % (kStripCols / 8)) * 8;
+    uint32_t yw[2], cbw[1], crw[1];
+    const uint2 yv = *reinterpret_cast<const uint2*>(&ys[row][col]);
+    yw[0] = yv.x;
+    yw[1] = yv.y;
+    cbw[0] = *reinterpret_cast<const uint32_t*>(&cs[0][row / 2][col / 2]);
+    crw[0] = *reinterpret_cast<const uint32_t*>(&cs[1][row / 2][col / 2]);
+    uint32_t rv[2] = {0u, 0u}, gv[2] = {0u, 0u}, bv[2] = {0u, 0u};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t r, g, b;
+      merge_px(static_cast<float>(byte_at(yw, j)), static_cast<float>(byte_at(cbw, j / 2) - 128),
+               static_cast<float>(byte_at(crw, j / 2) - 128), kk, r, g, b);
+      const int sh = 8 * (j & 3);
+      rv[j >> 2] |= r << sh;
+      gv[j >> 2] |= g << sh;
+      bv[j >> 2] |= b << sh;
+    }
+    const long long o = (r0 + row) * w + c0 + col;
+    *reinterpret_cast<uint2*>(rgb + o) = make_uint2(rv[0], rv[1]);
+    *reinterpret_cast<uint2*>(rgb + plane + o) = make_uint2(gv[0], gv[1]);
+    *reinterpret_cast<uint2*>(rgb + 2 * plane + o) = make_uint2(bv[0], bv[1]);
+  }
+}
+
+}  // namespace
+
+// ---- C interface -------------------------------------------------------------
+// Pointers are device pointers except the consts, host pointers to 320 floats
+// laid out as HpConsts (luma, chroma) or 7 floats laid out as ColorConsts.
+// The forward pointers may be null, and may point into another card's memory
+// once ring_enable_peer has given this card access to it.  The kernel runs on
+// `device` in `stream`.  Each function returns a cudaError_t value (0 = ok;
+// hp_error_string in hp_codec.cu names it) after checking the launch; it
+// neither synchronizes nor allocates.
+
+extern "C" {
+
+int ring_forward_launch(const void* src, void* dst, long long nbytes, void* stream, int device) {
+  if (nbytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  int err = static_cast<int>(cudaSetDevice(device));
+  if (err || nbytes == 0) return err;
+  const int vec = (reinterpret_cast<uintptr_t>(src) % 16 == 0) && (reinterpret_cast<uintptr_t>(dst) % 16 == 0);
+  const long long items = vec ? (nbytes + 15) / 16 : nbytes;
+  const long long blocks = (items + kThreads - 1) / kThreads;
+  k_ring_forward<<<dim3(static_cast<unsigned>(blocks < kMaxCopyBlocks ? blocks : kMaxCopyBlocks)),
+                   kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), nbytes, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int ring_forward_decode_color_launch(const void* y, const void* c, void* fy, void* fc, void* rgb,
+                                     long long plane, int h, int w, const void* consts_luma,
+                                     const void* consts_chroma, const void* color_consts,
+                                     void* stream, int device) {
+  if (h <= 0 || w <= 0 || h % kStripRows || w % kStripCols || plane < static_cast<long long>(h) * w)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = static_cast<int>(cudaSetDevice(device));
+  if (err) return err;
+  const long long strips = static_cast<long long>(h / kStripRows) * (w / kStripCols);
+  k_ring_forward_decode_color<<<dim3(static_cast<unsigned>(strips)), kColorThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(y), static_cast<const int8_t*>(c), static_cast<int8_t*>(fy),
+      static_cast<int8_t*>(fc), static_cast<uint8_t*>(rgb), plane, h, w,
+      *static_cast<const HpConsts*>(consts_luma), *static_cast<const HpConsts*>(consts_chroma),
+      *static_cast<const ColorConsts*>(color_consts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Let kernels on `device` write to `peer`'s memory (a no-op if they already may).
+int ring_enable_peer(int device, int peer) {
+  int err = static_cast<int>(cudaSetDevice(device));
+  if (err) return err;
+  const cudaError_t e = cudaDeviceEnablePeerAccess(peer, 0);
+  if (e == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // the call leaves this error to be read: clear it
+    return 0;
+  }
+  return static_cast<int>(e);
+}
+
+}  // extern "C"

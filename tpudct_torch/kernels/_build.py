@@ -1,13 +1,15 @@
 """Build and load the CUDA library of the port's kernels.
 
-``tpudct_torch/csrc/hp_codec.cu`` (kernels B1-B7) and
-``tpudct_torch/csrc/color_codec.cu`` (B8-B13) are compiled by nvcc, one
-process per source, all started together, and linked into one shared
-library with a plain C interface, loaded with ctypes.  The library lives in
+``tpudct_torch/csrc/hp_codec.cu`` (kernels B1-B7, and B3 with a forward
+pointer as B15), ``tpudct_torch/csrc/color_codec.cu`` (B8-B13) and
+``tpudct_torch/csrc/ring.cu`` (B14, B16) are compiled by nvcc, one process
+per source, all started together, and linked into one shared library with a
+plain C interface, loaded with ctypes.  The library lives in
 ``build/tpudct_torch/`` at the root of the checkout (listed in .gitignore),
-named by a hash of the sources and the flags, so an edited source rebuilds
-and unchanged ones load at once.  Nothing is built at import: the first
-kernel launch builds.  A failed build raises with nvcc's stderr.
+named by a hash of the flags, the sources and the headers they share
+(``csrc/*.cuh``), so an edited source or header rebuilds and unchanged ones
+load at once.  Nothing is built at import: the first kernel launch builds.
+A failed build raises with nvcc's stderr.
 """
 
 from __future__ import annotations
@@ -23,25 +25,28 @@ import subprocess
 import tempfile
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "hp_codec.cu", _PKG / "csrc" / "color_codec.cu")
+SOURCES = tuple(_PKG / "csrc" / f for f in ("hp_codec.cu", "color_codec.cu", "ring.cu"))
 BUILD_DIR = _PKG.parent / "build" / "tpudct_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> argument types; every function returns a cudaError_t as int.
 _SIGNATURES = {
     "hp_rt_u8_launch": (_P, _P, _P, _I, _I, _P, _P, _I),
     "hp_encode_u8_launch": (_P, _P, _I, _I, _P, _P, _I),
-    "hp_decode_u8_launch": (_P, _P, _I, _I, _P, _P, _I),
+    "hp_decode_u8_launch": (_P, _P, _I, _I, _P, _P, _P, _I),
     "hp_rt_f32_launch": (_P, _P, _P, _I, _I, _I, _P, _P, _I),
     "hp_dct_launch": (_P, _P, _I, _I, _I, _P, _P, _I),
     "hp_idct_launch": (_P, _P, _I, _I, _P, _P, _I),
     "hp_scaled_decode_u8_launch": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _I),
     "color_split_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I),
     "color_merge_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I),
+    "ring_forward_launch": (_P, _P, _L, _P, _I),
+    "ring_forward_decode_color_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _I),
+    "ring_enable_peer": (_I, _I),
 }
 
 
@@ -57,9 +62,14 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def headers() -> tuple:
+    """The headers beside the sources, which they share."""
+    return tuple(sorted(SOURCES[0].parent.glob("*.cuh")))
+
+
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + headers():
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"libtpudct_torch-{h.hexdigest()[:16]}.so"
 

@@ -415,7 +415,7 @@ def hp_decode_u8(coeffs_i8, q_scale: float = 1.0, q_table: str = "luma",
         return decode_u8_plain(coeffs_i8, q_scale, q_table, decode_precision, transform)
     k = _args(transform, q_table, q_scale, None, decode_precision, False)
     r = torch.empty((h, w), dtype=torch.uint8, device=coeffs_i8.device)
-    launch("hp_decode_u8_launch", (coeffs_i8, r), h, w, k.packed)
+    launch("hp_decode_u8_launch", (coeffs_i8, r), h, w, k.packed, None)  # no forward (B15 has one)
     LAUNCHES["hp_decode_u8"] += 1
     return r
 
