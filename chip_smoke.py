@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (the hp codec B1-B7, the YCbCr split and
-merge B8-B13 and the ring hops B14-B16) from ``tpudct_torch/csrc`` and, in
-order:
+merge B8-B13, the ring hops B14-B16 and the study kernels B17-B20: the u8
+copy floors and the fused 4:2:0 color encode and decode) from
+``tpudct_torch/csrc`` and, in order:
 
   1. prints the card (name, power limit), the torch version and nvcc's;
   2. builds the kernels (one nvcc per source, in parallel) and prints
@@ -36,7 +37,11 @@ order:
      gathered truth (the coefficients; hp_decode_u8 and its twin on the
      whole map; decode_color_u8 and the twins' decode and merge), which
      also holds B3 and B9 against their twins after their chains moved
-     into the shared headers;
+     into the shared headers; then the study kernels at 512^2 and 8192^2
+     bit for bit against their twins: u8_copy and u8_copy2 (and both on a
+     ragged 3x1001 map, whose bytes end off the 16-byte vectors), the
+     fused encode and decode at the default config and at q_scale 2.5 with
+     retain_k 6;
   5. runs the float64 golden-model correctness gate at 512^2 (u8 path with
      the encode/decode/roundtrip bit-identity check, the f32 path, and the
      f32-literal core under transform "dct") and the color420_u8, f32 and
@@ -67,18 +72,31 @@ order:
      dryrun_multichip(8) -- each step moving exactly its counters (n B4 per
      codec step, n + n(n-1) B14 per all-gather, n B14 + n^2 B15 per decode
      ring, 2n B14 + n^2 B16 per color ring), its output held against the
-     same step on a CPU mesh of the twins on its first 256 rows;
-  7. times each kernel against its twin with CUDA events (the median of
+     same step on a CPU mesh of the twins on its first 256 rows; then the
+     study path, its counters set to 0 just before it: the two study
+     drivers (tpudct_torch.studies.u8_perf and color_fused_ab) at 8192^2,
+     each moving exactly its counters, the fused decode bit-identical to
+     the composed decode_color_u8 on the same coefficients, the fused
+     encode's Cb/Cr equal to the composed path's and its Y +-1 on at most
+     0.5% of entries (count printed); then the measurement path, its
+     counters set to 0 just before it: tpudct_torch.benchmark's
+     bench_pipeline for hp, batched, fast (1024^2) and cublas (256^2,
+     inside its cap), bench_fused_roundtrip, bench_serving_throughput,
+     bench_color, bench_color_serving and sweep over 256..1024, each moving
+     exactly its counters, every returned dict printed with the card;
+  7. times each kernel against its twin with
+     tpudct_torch.utils.timing.device_time_ms (CUDA events, the median of
      each batch of calls, L2 flushed before every call; order plain,
-     kernel, kernel, plain); the ring kernels once over a whole 8192^2
-     slot with its forward (B14 beside Tensor.copy_), then per launch and
-     per whole ring at n = 1, 2, 4, 8.
+     kernel, kernel, plain); B17 beside Tensor.copy_ into a distinct
+     tensor, B18 beside B1 as B1's byte floor; the ring kernels once over a
+     whole 8192^2 slot with its forward (B14 beside Tensor.copy_), then per
+     launch and per whole ring at n = 1, 2, 4, 8.
 
-Any failure ends the run with a non-zero exit.  The second-to-last line is
-a JSON summary of the kernels (launches on the main paths, max abs error
-against the twin, kernel and twin ms at 8192^2, the bound from the bytes
-and operations of that call, what bounds it, Tensor.copy_'s ms beside
-B14); the last line is
+Each phase prints its seconds.  Any failure ends the run with a non-zero
+exit.  The second-to-last line is a JSON summary of the kernels (launches
+on the main paths, max abs error against the twin, kernel and twin ms at
+8192^2, the bound from the bytes and operations of that call, what bounds
+it, Tensor.copy_'s ms beside B14 and B17); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device the script raises before printing any result.
 """
@@ -86,7 +104,6 @@ Without a CUDA device the script raises before printing any result.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import time
 
@@ -96,6 +113,7 @@ import torch
 _SRC, _REF = "tpudct_torch/csrc/hp_codec.cu", "tpudct/kernels/hp_pallas.py"
 _CSRC, _CREF = "tpudct_torch/csrc/color_codec.cu", "tpudct/kernels/color_pallas.py"
 _RSRC, _RREF = "tpudct_torch/csrc/ring.cu", "tpudct/parallel/ring.py"
+_SSRC = "tpudct_torch/csrc/study.cu"
 # kernel -> (CUDA source, the TPU kernel it replaces, bytes moved per pixel
 # (each input read once, each output written once), operations per pixel).
 # Operations: the value chain's arithmetic per pixel, a multiply-add counted
@@ -105,8 +123,10 @@ _RSRC, _RREF = "tpudct_torch/csrc/ring.cu", "tpudct/parallel/ring.py"
 # integer luma and window sums per pixel and its chroma transform and
 # rounding per chroma sample; a ring launch is counted over a whole slot with
 # its forward, per luma pixel (B16: the luma decode, two quarter-size chroma
-# decodes and the merge).  Every kernel here is bound by its bytes at these
-# counts (see _bound).
+# decodes and the merge); the fused color encode counts B8's chain with the
+# f32 luma (24) plus B2's forward on the luma and half as much on the
+# chroma (25.5), the fused decode B16's chain.  Every kernel here is bound by
+# its bytes at these counts (see _bound).
 KERNELS = {
     "hp_roundtrip_u8": (_SRC, f"{_REF}:678", 3, 36),
     "hp_encode_u8": (_SRC, f"{_REF}:627", 2, 17),
@@ -125,7 +145,14 @@ KERNELS = {
     "ring_forward": (_RSRC, f"{_RREF}:124", 2, 0),
     "ring_forward_decode": (_SRC, f"{_RREF}:303", 3, 19),  # B3's k_decode_u8 with a forward pointer
     "ring_forward_decode_color": (_RSRC, f"{_RREF}:568", 6, 48),
+    "u8_copy": (_SSRC, "benchmarks/u8_perf.py:35", 2, 0),
+    "u8_copy2": (_SSRC, "benchmarks/u8_perf.py:53", 3, 0),
+    "color_encode_420_u8": (_SSRC, "benchmarks/color_fused_ab.py:170", 4.5, 49.5),
+    "color_decode_420_u8": (_SSRC, "benchmarks/color_fused_ab.py:221", 4.5, 48),
 }
+# repetitions of each timed call in the measurement path (after one warm-up
+# call: device_time_ms)
+BENCH_REPS = 3
 COLOR_MODES = ("420", "422", "444")
 FP32_PEAK_OPS = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 SCALED_FACTORS = ((1, 1), (2, 2), (4, 4), (8, 8), (2, 4))
@@ -145,27 +172,21 @@ def _fail(msg: str) -> None:
     raise AssertionError(msg)
 
 
-def _card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
 def _phase(n: int, title: str) -> None:
     print(f"== phase {n}: {title}", flush=True)
 
 
 def phase_card() -> str:
     from tpudct_torch.kernels._build import nvcc_path
+    from tpudct_torch.utils.timing import card
 
     _phase(1, "card")
-    card = _card()
-    print("card:", card)
+    name = card()
+    print("card:", name)
     print("torch", torch.__version__, "cuda", torch.version.cuda)
     nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True, text=True, check=True)
     print(nvcc.stdout.strip().splitlines()[-1])
-    return card
+    return name
 
 
 def phase_build() -> None:
@@ -270,8 +291,41 @@ def phase_compare(dev) -> dict:
     _check_pinned_precision(dev)
     _compare_color(dev, errs)
     _compare_ring(dev, errs)
+    _compare_study(dev, errs)
     torch.cuda.synchronize()
     return errs
+
+
+def _compare_study(dev, errs: dict) -> None:
+    """The study kernels (B17-B20) against their twins, bit for bit: the
+    copies at 512^2, 8192^2 and on a ragged 3x1001 map (a byte tail past the
+    16-byte vectors), the fused encode and decode at 512^2 and 8192^2 at the
+    default config and at q_scale 2.5 with retain_k 6."""
+    from tpudct_torch.kernels import study
+
+    maps = [(f"{s}^2", _noise(s, s, seed=s + 3, dev=dev)) for s in COMPARE_SIZES]
+    maps.append(("3x1001", _noise(3, 1001, seed=4, dev=dev)))
+    for label, x in maps:
+        out = study.u8_copy(x.clone())
+        errs["u8_copy"] = max(errs["u8_copy"], _same(f"u8_copy {label}", out, study.copy_plain(x.clone())))
+        _equal(f"u8_copy {label} values", out, x)
+        for part, a, b in zip(("u8", "int8"), study.u8_copy2(x.clone()), study.copy2_plain(x.clone())):
+            errs["u8_copy2"] = max(errs["u8_copy2"], _same(f"u8_copy2 {label} {part}", a, b))
+    for s in COMPARE_SIZES:
+        rgb = _rgb_noise(s, s, seed=s + 5, dev=dev)
+        for kw in ({}, {"q_scale": 2.5, "retain_k": 6}):
+            tag = f"{s}^2 {kw or 'default'}"
+            planes = study.color_encode_420_u8(rgb, **kw)
+            for plane, a, b in zip(("y", "cb", "cr"), planes, study.encode_420_plain(rgb, **kw)):
+                errs["color_encode_420_u8"] = max(errs["color_encode_420_u8"],
+                                                  _same(f"color_encode_420_u8 {tag} {plane}", a, b))
+            qs = kw.get("q_scale", 1.0)
+            e = _same(f"color_decode_420_u8 {tag}", study.color_decode_420_u8(*planes, q_scale=qs),
+                      study.decode_420_plain(*planes, q_scale=qs))
+            errs["color_decode_420_u8"] = max(errs["color_decode_420_u8"], e)
+    print(f"  u8_copy and u8_copy2 at {', '.join(label for label, _ in maps)}, color_encode_420_u8 and "
+          f"color_decode_420_u8 at {', '.join(f'{s}^2' for s in COMPARE_SIZES)} (default; q_scale 2.5, "
+          "retain_k 6) bit-identical to their twins")
 
 
 def _same(name: str, kernel_out, plain_out) -> float:
@@ -796,6 +850,30 @@ def _color_band_check(label: str, rgb: np.ndarray, planes: dict, rec, sub, cfg, 
           f"differing {n_planes}, recon pixels differing {int((dr > 0).sum())}, MSE {m:.4f} vs {m_t:.4f}")
 
 
+def _stepper(*launch_counts: dict):
+    """(counts, step) over the wrappers' LAUNCHES dicts: counts() merges
+    them; step(label, expected, fn) runs fn, synchronizes, prints its host
+    wall and fails unless exactly the counters in `expected` moved, by
+    exactly those amounts."""
+
+    def counts() -> dict:
+        return {k: v for c in launch_counts for k, v in c.items()}
+
+    def step(label, expected: dict, fn):
+        before = counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        moved = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+        if moved != expected:
+            _fail(f"{label}: launched {moved}, expected {expected}")
+        print(f"  {label}: launched {json.dumps(moved)}, {dt * 1e3:.1f} ms host wall")
+        return out
+
+    return counts, step
+
+
 def phase_color_main_path(dev) -> dict:
     """The color main path at full width, its counters set to 0 just
     before it and read just after; each step moves exactly its own."""
@@ -808,20 +886,7 @@ def phase_color_main_path(dev) -> dict:
     _phase(6, "main path (color)")
     cfg, p = CodecConfig(), get_pipeline("hp")
 
-    def counts() -> dict:
-        return {**hp.LAUNCHES, **ck.LAUNCHES}
-
-    def step(label, expected: dict, fn):
-        before = counts()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        moved = {k: v - before[k] for k, v in counts().items() if v != before[k]}
-        if moved != expected:
-            _fail(f"{label}: launched {moved}, expected {expected}")
-        print(f"  {label}: launched {json.dumps(moved)}, {dt * 1e3:.1f} ms host wall (first call)")
-        return out
+    counts, step = _stepper(hp.LAUNCHES, ck.LAUNCHES)
 
     def codec(mode):
         return {f"color_split_{mode}_u8": 1, "hp_encode_u8": 2, "hp_decode_u8": 2, f"color_merge_{mode}_u8": 1}
@@ -946,20 +1011,7 @@ def phase_multi_main_path(dev) -> dict:
     _phase(6, "main path (multi-device)")
     cfg, p = CodecConfig(), get_pipeline("hp")
 
-    def counts() -> dict:
-        return {**hp.LAUNCHES, **ck.LAUNCHES, **rk.LAUNCHES}
-
-    def step(label, expected: dict, fn):
-        before = counts()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        moved = {k: v - before[k] for k, v in counts().items() if v != before[k]}
-        if moved != expected:
-            _fail(f"{label}: launched {moved}, expected {expected}")
-        print(f"  {label}: launched {json.dumps(moved)}, {dt * 1e3:.1f} ms host wall (first call)")
-        return out
+    counts, step = _stepper(hp.LAUNCHES, ck.LAUNCHES, rk.LAUNCHES)
 
     def cpu(n, grid=False):
         return P.grid_mesh((2, 2), ["cpu"] * 4) if grid else P.band_mesh(devices=["cpu"] * n)
@@ -1084,6 +1136,95 @@ def phase_multi_main_path(dev) -> dict:
     return launches
 
 
+def phase_study_path(dev) -> dict:
+    """The two study drivers at SQUARE^2, the counters set to 0 just before
+    and read just after; each driver moves exactly its counters (one
+    warm-up and REPS timed calls per measurement, plus its checks)."""
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.kernels import hp
+    from tpudct_torch.kernels import study
+    from tpudct_torch.studies import color_fused_ab, u8_perf
+
+    _phase(6, "study path")
+    counts, step = _stepper(hp.LAUNCHES, ck.LAUNCHES, study.LAUNCHES)
+    hp.reset_launches()
+    ck.reset_launches()
+    study.reset_launches()
+    k = 1 + u8_perf.REPS
+    floors = step(f"{SQUARE}^2 studies.u8_perf.main",
+                  {"u8_copy": k, "u8_copy2": k, "hp_encode_u8": k + 1, "hp_decode_u8": k, "hp_roundtrip_u8": k},
+                  lambda: u8_perf.main(SQUARE, dev))
+    # the fused and composed encodes and decodes once for the counts, then
+    # six timed stages: each kernel runs in two of them
+    n = 1 + 2 * (1 + color_fused_ab.REPS)
+    fused = step(f"{SQUARE}^2 studies.color_fused_ab.main",
+                 {"color_encode_420_u8": n, "color_decode_420_u8": n, "color_split_420_u8": n,
+                  "hp_encode_u8": 2 * n, "hp_decode_u8": 2 * n, "color_merge_420_u8": n},
+                 lambda: color_fused_ab.main(SQUARE, dev))
+    launches = counts()
+    if fused["decode_differ"]:
+        _fail(f"the fused decode differs from decode_color_u8 on {fused['decode_differ']} outputs")
+    if fused["cb_differ"] or fused["cr_differ"]:
+        _fail(f"the fused encode's chroma differs from the composed path's ({fused['cb_differ']}, "
+              f"{fused['cr_differ']} entries)")
+    n_y = fused["entries"]["y"]
+    if fused["y_max_diff"] > 1 or fused["y_differ"] > 0.005 * n_y:
+        _fail(f"the fused encode's luma differs on {fused['y_differ']} of {n_y} entries "
+              f"(max {fused['y_max_diff']})")
+    print(f"  fused decode bit-identical to decode_color_u8 on the same coefficients; fused Cb/Cr equal "
+          f"to the composed path's; fused Y +-1 on {fused['y_differ']} of {n_y} entries "
+          f"({fused['y_differ'] / n_y:.4%}); B1 over its byte floor {floors['roundtrip_over_floor']:.2f}x")
+    for name in study.LAUNCHES:
+        if launches[name] < 1:
+            _fail(f"study path never launched {name}")
+    print("  launches:", json.dumps(launches))
+    return launches
+
+
+def phase_measurement_path(dev, card: str) -> dict:
+    """tpudct_torch.benchmark's benches on the card, the counters set to 0
+    just before and read just after; each bench moves exactly its counters
+    (one warm-up and BENCH_REPS timed calls per measurement)."""
+    from tpudct_torch import benchmark as B
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.kernels import hp
+    from tpudct_torch.kernels import study
+
+    _phase(6, "measurement path")
+    counts, step = _stepper(hp.LAUNCHES, ck.LAUNCHES, study.LAUNCHES)
+    hp.reset_launches()
+    ck.reset_launches()
+    study.reset_launches()
+    k, n_img, side = 1 + BENCH_REPS, *BATCH
+    color = {"color_split_420_u8": k, "hp_encode_u8": 2 * k, "hp_decode_u8": 2 * k, "color_merge_420_u8": k}
+    sweep_sizes = (256, 512, 1024)
+    benches = [
+        ("bench_pipeline hp 1024", {"hp_dct": 2 * k, "hp_idct": k},
+         lambda: B.bench_pipeline("hp", 1024, reps=BENCH_REPS, device=dev)),
+        ("bench_pipeline batched 1024", {}, lambda: B.bench_pipeline("batched", 1024, reps=BENCH_REPS, device=dev)),
+        ("bench_pipeline fast 1024", {}, lambda: B.bench_pipeline("fast", 1024, reps=BENCH_REPS, device=dev)),
+        ("bench_pipeline cublas 256", {}, lambda: B.bench_pipeline("cublas", 256, reps=BENCH_REPS, device=dev)),
+        (f"bench_fused_roundtrip {SQUARE}", {"hp_roundtrip": k},
+         lambda: B.bench_fused_roundtrip(SQUARE, reps=BENCH_REPS, device=dev)),
+        (f"bench_serving_throughput {n_img}x{side}", {"hp_roundtrip_u8": k},
+         lambda: B.bench_serving_throughput(side, n_img, reps=BENCH_REPS, device=dev)),
+        (f"bench_color {SQUARE}", color, lambda: B.bench_color(SQUARE, reps=BENCH_REPS, device=dev)),
+        ("bench_color_serving 8x1024", color, lambda: B.bench_color_serving(1024, 8, reps=BENCH_REPS, device=dev)),
+        (f"sweep {sweep_sizes}", {"hp_dct": 2 * k * len(sweep_sizes), "hp_idct": k * len(sweep_sizes)},
+         lambda: B.sweep(sweep_sizes, reps=BENCH_REPS, device=dev)),
+    ]
+    for label, expected, fn in benches:
+        out = step(label, expected, fn)
+        for row in out if isinstance(out, list) else [out]:
+            times = [v for key, v in row.items() if key.endswith("_ms") and not key.startswith("ref_")]
+            if row["backend"] != torch.cuda.get_device_name(dev) or not all(np.isfinite(times)) or min(times) < 0:
+                _fail(f"{label}: {row}")
+            print(f"    {json.dumps(row)} [{card}]")
+    launches = counts()
+    print("  launches:", json.dumps(launches))
+    return launches
+
+
 def _bound(name: str, h: int, w: int) -> tuple:
     """(bound ms, "bytes" or "operations") of one call at h x w: the larger
     of its bytes over the HBM rate and its operations over the f32 rate."""
@@ -1092,28 +1233,22 @@ def _bound(name: str, h: int, w: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _time(fn, flush: torch.Tensor, reps: int) -> float:
-    """Median device ms per call (a stray slow call does not move it); L2
-    flushed (and the flush left out of the timed span) before every call."""
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def _time(fn, dev, reps: int) -> float:
+    """Median device ms per call of fn() on dev: the package's timer
+    (tpudct_torch.utils.timing.device_time_ms: one warm-up call, then CUDA
+    events around each call, the L2 flushed outside them before every call)."""
+    from tpudct_torch.utils.timing import device_time_ms
+
+    return device_time_ms(lambda _: fn(), torch.empty(0, device=dev), reps=reps)
 
 
 def phase_timing(dev, card: str) -> dict:
     from tpudct_torch.kernels import color as ck
     from tpudct_torch.kernels import hp
+    from tpudct_torch.kernels import study
 
     _phase(7, f"timing ({card})")
-    flush = torch.empty(512 * 2**20, dtype=torch.uint8, device=dev)
-    times = {}
+    times = {"library": {}}
     (n_img, side) = BATCH
     for label, (h, w) in ((f"{SQUARE}^2", (SQUARE, SQUARE)), (f"{n_img}x{side}^2", (n_img * side, side))):
         x = _noise(h, w, seed=5, dev=dev)
@@ -1142,6 +1277,17 @@ def phase_timing(dev, card: str) -> dict:
                                                  lambda m=mode: ck.split_plain(rgb, m))
                 fns[f"color_merge_{mode}_u8"] = (lambda f=merge, pl=planes: f(*pl),
                                                  lambda m=mode, pl=planes: ck.merge_plain(*pl, m))
+            # the study kernels: the copies work in place on their own map
+            # (its values stay), the fused pair on its own RGB and planes
+            xs = _noise(h, w, seed=8, dev=dev)
+            rgb_s = _rgb_noise(h, w, seed=12, dev=dev)
+            planes_s = study.color_encode_420_u8(rgb_s)
+            fns["u8_copy"] = (lambda: study.u8_copy(xs), lambda: study.copy_plain(xs))
+            fns["u8_copy2"] = (lambda: study.u8_copy2(xs), lambda: study.copy2_plain(xs))
+            fns["color_encode_420_u8"] = (lambda: study.color_encode_420_u8(rgb_s),
+                                          lambda: study.encode_420_plain(rgb_s))
+            fns["color_decode_420_u8"] = (lambda: study.color_decode_420_u8(*planes_s),
+                                          lambda: study.decode_420_plain(*planes_s))
         # variants off the main path's default (bytes per pixel, kernel, twin),
         # timed and printed beside it
         hi = dict(decode_precision="highest")
@@ -1156,11 +1302,10 @@ def phase_timing(dev, card: str) -> dict:
         rows = [(name, KERNELS[name][2], kern, plain) for name, (kern, plain) in fns.items()]
         rows += [(name, *v) for name, v in variants.items()]
         for name, bpp, kern, plain in rows:
-            kern(), plain()  # warm up
-            p1 = _time(plain, flush, 3)
-            k1 = _time(kern, flush, 20)
-            k2 = _time(kern, flush, 20)
-            p2 = _time(plain, flush, 3)
+            p1 = _time(plain, dev, 3)
+            k1 = _time(kern, dev, 20)
+            k2 = _time(kern, dev, 20)
+            p2 = _time(plain, dev, 3)
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
             gbps = bpp * h * w / (ms * 1e-3) / 1e9
             times[(name, label)] = (ms, plain_ms)
@@ -1168,9 +1313,18 @@ def phase_timing(dev, card: str) -> dict:
             print(f"  {label} {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; "
                   f"kernel {gbps:.1f} GB/s = {gbps * 1e9 / HBM_PEAK_BPS:.1%} of 3.35 TB/s{bound} "
                   f"[{card}]")
-    ring_times, copy_ms = _time_rings(dev, card, flush)
+        if label == f"{SQUARE}^2":
+            dst = torch.empty_like(xs)
+            copy = [_time(lambda: dst.copy_(xs), dev, 20) for _ in range(2)]
+            times["library"]["u8_copy"] = (copy[0] + copy[1]) / 2
+            print(f"  {label} Tensor.copy_ into a distinct tensor (u8_copy's library call): {copy[0]:.4f} / "
+                  f"{copy[1]:.4f} ms [{card}]")
+            rt, floor = times[("hp_roundtrip_u8", label)][0], times[("u8_copy2", label)][0]
+            print(f"  {label} hp_roundtrip_u8 (B1) {rt:.4f} ms against B1's byte floor u8_copy2 (B18) "
+                  f"{floor:.4f} ms: {rt / floor:.2f}x [{card}]")
+    ring_times, copy_ms = _time_rings(dev, card)
     times.update(ring_times)
-    times["library"] = {"ring_forward": copy_ms}
+    times["library"]["ring_forward"] = copy_ms
     return times
 
 
@@ -1185,7 +1339,7 @@ def _ring_bytes(n: int, side: int) -> dict:
     }
 
 
-def _time_rings(dev, card: str, flush: torch.Tensor) -> tuple:
+def _time_rings(dev, card: str) -> tuple:
     """B14-B16 over a whole SQUARE^2 slot with its forward (kernel and twin,
     Tensor.copy_ beside B14), then per launch and per whole ring at each
     rank count.  Returns (times, B14's library ms)."""
@@ -1209,18 +1363,17 @@ def _time_rings(dev, card: str, flush: torch.Tensor) -> tuple:
     }
     times = {}
     for name, (kern, plain) in fns.items():
-        kern(), plain()  # warm up
-        p1 = _time(plain, flush, 3)
-        k1 = _time(kern, flush, 20)
-        k2 = _time(kern, flush, 20)
-        p2 = _time(plain, flush, 3)
+        p1 = _time(plain, dev, 3)
+        k1 = _time(kern, dev, 20)
+        k2 = _time(kern, dev, 20)
+        p2 = _time(plain, dev, 3)
         ms = (k1 + k2) / 2
         times[(name, f"{SQUARE}^2")] = (ms, (p1 + p2) / 2)
         gbps = KERNELS[name][2] * SQUARE * SQUARE / (ms * 1e-3) / 1e9
         print(f"  {SQUARE}^2 slot with its forward, {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
               f"{p2:.4f} ms; {gbps:.1f} GB/s = {gbps * 1e9 / HBM_PEAK_BPS:.1%} of 3.35 TB/s; bound "
               f"{_bound(name, SQUARE, SQUARE)[0]:.4f} ms [{card}]")
-    copy = [_time(lambda: dst.copy_(x), flush, 20) for _ in range(2)]
+    copy = [_time(lambda: dst.copy_(x), dev, 20) for _ in range(2)]
     print(f"  {SQUARE}^2 Tensor.copy_ (B14's library call): {copy[0]:.4f} / {copy[1]:.4f} ms [{card}]")
     for n in (1, 2, 4, 8):
         mesh, br = P.band_mesh(devices=[dev] * n), SQUARE // n
@@ -1235,11 +1388,8 @@ def _time_rings(dev, card: str, flush: torch.Tensor) -> tuple:
             "ring_decode_gather": (P.shard_image(c, mesh), mesh),
             "ring_decode_color_gather": (P.shard_image(cy, mesh), P.shard_image(pack_n, mesh), mesh),
         }
-        per = {k: _time(f, flush, 20) for k, f in launch.items()}
-        whole = {}
-        for name, a in args.items():
-            getattr(P, name)(*a)  # warm up (allocations)
-            whole[name] = _time(lambda: getattr(P, name)(*a), flush, 5)
+        per = {k: _time(f, dev, 20) for k, f in launch.items()}
+        whole = {name: _time(lambda: getattr(P, name)(*a), dev, 5) for name, a in args.items()}
         times[("rings", n)] = (per, whole)
         bounds = {k: b / HBM_PEAK_BPS * 1e3 for k, b in _ring_bytes(n, SQUARE).items()}
         print(f"  n={n} ({br}x{SQUARE} slots): per launch with forward B14 {per['B14']:.4f}, B15 "
@@ -1253,26 +1403,35 @@ def main() -> int:
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
     import tpudct_torch  # noqa: F401  (fails here outside a checkout of the repo)
 
+    from tpudct_torch.utils.timing import card as card_label
+
     dev = torch.device("cuda", 0)
-    card = phase_card()
-    phase_build()
-    phase_tf32()
-    errs = phase_compare(dev)
-    phase_gate(dev)
-    gray = phase_main_path(dev)
-    color = phase_color_main_path(dev)
-    multi = phase_multi_main_path(dev)
-    times = phase_timing(dev, card)
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"   ({fn.__name__} took {time.perf_counter() - t0:.1f} s)", flush=True)
+        return out
+
+    card = timed(phase_card)
+    timed(phase_build)
+    timed(phase_tf32)
+    errs = timed(phase_compare, dev)
+    timed(phase_gate, dev)
+    runs = [timed(phase, dev) for phase in (phase_main_path, phase_color_main_path, phase_multi_main_path,
+                                             phase_study_path)]
+    runs.append(timed(phase_measurement_path, dev, card))
+    times = timed(phase_timing, dev, card)
     kernels = []
     for name, (src, replaces, _bpp, _ops) in KERNELS.items():
         bound_ms, bound_by = _bound(name, SQUARE, SQUARE)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sum(run.get(name, 0) for run in (gray, color, multi)), "max_abs_err": errs[name],
+            "launches": sum(run.get(name, 0) for run in runs), "max_abs_err": errs[name],
             "ms": times[(name, f"{SQUARE}^2")][0], "plain_ms": times[(name, f"{SQUARE}^2")][1],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": times["library"].get(name),
         })
-    print(_card())
+    print(card_label())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's main-path steps (gray, color and
-multi-device), on one CUDA card.
+"""Where the time goes in the port's main-path steps (gray, color,
+multi-device, and the composed and fused 4:2:0 color pair of the study), on
+one CUDA card.
 
     python3 profile_steps.py
 
 Each step runs once to warm up, then REPS (5) times under
-``torch.profiler``; per call it prints the host wall time (the calls end
-in ``torch.cuda.synchronize()``), the device busy time (the sum of the
+``torch.profiler`` (``tpudct_torch.utils.profiling.trace``); per call it
+prints the host wall time (the calls end in ``torch.cuda.synchronize()``), the device busy time (the sum of the
 device-side events: kernels, copies, memsets; summed over the streams of
 virtual ranks, so it may exceed the wall), the idle share (1 - busy / wall)
 and the four largest device items.  For the ring all-gather on 8 virtual
@@ -21,7 +22,6 @@ from __future__ import annotations
 import cProfile
 import os
 import pstats
-import subprocess
 import time
 
 import numpy as np
@@ -30,20 +30,14 @@ import torch
 REPS = 5
 
 
-def _card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
 def _profile(label: str, fn) -> None:
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from tpudct_torch.utils import profiling
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling.trace() as prof:
         t0 = time.perf_counter()
         for _ in range(REPS):
             fn()
@@ -149,9 +143,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_steps.py needs a CUDA device")
     from tpudct_torch import CodecConfig, get_pipeline
+    from tpudct_torch.kernels import study
     from tpudct_torch.models import color as mc
+    from tpudct_torch.utils.timing import card
 
-    print(_card())
+    print(card())
     dev = torch.device("cuda", 0)
     p, cfg = get_pipeline("hp"), CodecConfig()
     _gray_steps(p, cfg, dev)
@@ -175,6 +171,11 @@ def main() -> int:
     _profile("8192^2 roundtrip_color_auto q_scale=0.5, f32 path (device)",
              lambda: mc.roundtrip_color_auto(p, rgb, CodecConfig(q_scale=0.5)))
     planes, meta = mc.encode_color_u8(p, rgb, cfg)
+    rgb_planar = rgb.movedim(-1, 0).contiguous()
+    _profile("8192^2 planar RGB encode_color_u8 + decode_color_u8, composed 4:2:0 (device)",
+             lambda: mc.decode_color_u8(p, *mc.encode_color_u8(p, rgb_planar, cfg), cfg))
+    _profile("8192^2 planar RGB color_encode_420_u8 + color_decode_420_u8, fused (device)",
+             lambda: study.color_decode_420_u8(*study.color_encode_420_u8(rgb_planar)))
     for m in (4, 2, 6):
         _profile(f"8192^2 decode_color_scaled m={m} (device)",
                  lambda m=m: mc.decode_color_scaled(p, planes, meta, cfg, m=m))

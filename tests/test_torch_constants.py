@@ -204,8 +204,8 @@ def test_library_name_follows_the_shared_headers(monkeypatch, tmp_path):
     from tpudct_torch.kernels import _build
 
     names = {p.name for p in _build.headers()}
-    assert {"hp_block.cuh", "color_px.cuh"} <= names
-    assert {p.name for p in _build.SOURCES} == {"hp_codec.cu", "color_codec.cu", "ring.cu"}
+    assert {"hp_block.cuh", "color_px.cuh", "strip420.cuh"} <= names
+    assert {p.name for p in _build.SOURCES} == {"hp_codec.cu", "color_codec.cu", "ring.cu", "study.cu"}
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.SOURCES[0].parent, csrc)
     monkeypatch.setattr(_build, "SOURCES", tuple(csrc / p.name for p in _build.SOURCES))

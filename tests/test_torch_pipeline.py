@@ -79,7 +79,7 @@ def _assert_tie_class(c, c_ref, r, r_ref, cfg):
 
 def test_public_names_match_reference():
     assert set(tpudct_torch.__all__) == set(tpudct.__all__)
-    assert set(tpudct_torch.available_pipelines()) == {"batched", "hp"}
+    assert set(tpudct_torch.available_pipelines()) == set(tpudct.available_pipelines())
     assert tpudct_torch.get_pipeline("cublas2") is tpudct_torch.get_pipeline("batched")
     with pytest.raises(KeyError, match="unknown pipeline"):
         tpudct_torch.get_pipeline("nope")

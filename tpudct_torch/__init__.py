@@ -9,7 +9,7 @@ Public API
 ----------
 - constants:  T (Haweel approximate DCT), Q (JPEG luminance), BLOCK_SIZE
 - config:     CodecConfig
-- models:     get_pipeline("batched" | "cublas2" | "hp")
+- models:     get_pipeline("cublas" | "batched" | "cublas2" | "fast" | "hp")
 - ops:        blockify / deblockify / dct2 / idct2 / quantize / dequantize
 - parallel:   band_mesh / grid_mesh, shard_* and the sharded steps, the rings
 """

@@ -55,7 +55,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "color_px.cuh"  // ColorConsts, byte access, the roundings, merge_px
+#include "color_px.cuh"  // ColorConsts, byte access, the roundings, split_chroma, merge_px
 
 namespace {
 
@@ -105,20 +105,15 @@ __global__ void k_color_split(const uint8_t* __restrict__ rgb, uint8_t* __restri
     }
     store_bytes<16>(y + ro, yv);
   }
-  constexpr float kInv = 1.0f / (RH * RW);
   uint32_t cbv[V / 4], crv[V / 4];
 #pragma unroll
   for (int q = 0; q < V / 4; ++q) cbv[q] = crv[q] = 0u;
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    const float pr = __fadd_rn(__fmul_rn(static_cast<float>(sum[0][v]), kInv), 128.0f);
-    const float pg = __fadd_rn(__fmul_rn(static_cast<float>(sum[1][v]), kInv), 128.0f);
-    const float pb = __fadd_rn(__fmul_rn(static_cast<float>(sum[2][v]), kInv), 128.0f);
-    const float yp = __fadd_rn(__fadd_rn(__fmul_rn(pr, k.kr), __fmul_rn(pg, k.kg)), __fmul_rn(pb, k.kb));
-    const float zb = __fadd_rn(__fmul_rn(__fsub_rn(pb, yp), k.kcb), 128.0f);
-    const float zr = __fadd_rn(__fmul_rn(__fsub_rn(pr, yp), k.kcr), 128.0f);
-    cbv[v >> 2] |= round_u8(zb) << (8 * (v & 3));
-    crv[v >> 2] |= round_u8(zr) << (8 * (v & 3));
+    uint32_t zb, zr;
+    split_chroma(sum[0][v], sum[1][v], sum[2][v], 1.0f / (RH * RW), k, zb, zr);
+    cbv[v >> 2] |= zb << (8 * (v & 3));
+    crv[v >> 2] |= zr << (8 * (v & 3));
   }
   store_bytes<V>(cb + co, cbv);
   store_bytes<V>(cr + co, crv);

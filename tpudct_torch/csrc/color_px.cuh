@@ -1,7 +1,8 @@
 // The color codec's per-pixel chains and byte access helpers, shared by
-// color_codec.cu (B8-B13) and ring.cu (B16), so the color ring merges
-// exactly as color_merge_420_u8 does.  See color_codec.cu's header for the
-// value chain and its rounding.
+// color_codec.cu (B8-B13), ring.cu (B16) and study.cu (B19, B20), so the
+// color ring and the fused 4:2:0 kernels split and merge exactly as
+// color_split_420_u8 and color_merge_420_u8 do.  See color_codec.cu's header
+// for the value chain and its rounding.
 
 #pragma once
 
@@ -57,16 +58,38 @@ __device__ __forceinline__ uint32_t trunc_u8(float z) {
   return static_cast<uint32_t>(__float2int_rz(__fadd_rn(fminf(fmaxf(z, 0.0f), 255.0f), 0.5f)));
 }
 
+// BT.601 luma (KR r + KG g) + KB b in f32, every product and sum rounded.
+__device__ __forceinline__ float luma_f32(float r, float g, float b, const ColorConsts& k) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(r, k.kr), __fmul_rn(g, k.kg)), __fmul_rn(b, k.kb));
+}
+
+// One chroma sample of the split: the integer window sums of (c - 128) of
+// r, g, b over a window of 1/inv pixels (inv a power of two) -> cb, cr u8.
+// P_c = sum * inv + 128 is exact; then the pooled BT.601 and _to_u8.
+__device__ __forceinline__ void split_chroma(int sr, int sg, int sb, float inv, const ColorConsts& k,
+                                             uint32_t& cb, uint32_t& cr) {
+  const float pr = __fadd_rn(__fmul_rn(static_cast<float>(sr), inv), 128.0f);
+  const float pg = __fadd_rn(__fmul_rn(static_cast<float>(sg), inv), 128.0f);
+  const float pb = __fadd_rn(__fmul_rn(static_cast<float>(sb), inv), 128.0f);
+  const float yp = luma_f32(pr, pg, pb, k);
+  cb = round_u8(__fadd_rn(__fmul_rn(__fsub_rn(pb, yp), k.kcb), 128.0f));
+  cr = round_u8(__fadd_rn(__fmul_rn(__fsub_rn(pr, yp), k.kcr), 128.0f));
+}
+
 // One merged pixel: luma yf and the shifted chroma cbc = cb - 128,
-// crc = cr - 128 (all exact integers as f32) -> r, g, b in [0, 255].
+// crc = cr - 128 (all exact integers as f32) -> r, g, b in [0, 255], rounded
+// by _to_u8_trunc (the production merge) or, with kCompareRound, by the
+// compare form _to_u8 (the same values over every input, proven by the
+// 256^3 sweep).
+template <bool kCompareRound = false>
 __device__ __forceinline__ void merge_px(float yf, float cbc, float crc, const ColorConsts& k,
                                          uint32_t& r, uint32_t& g, uint32_t& b) {
   const float rf = __fadd_rn(yf, __fmul_rn(crc, k.kr2));
   const float bf = __fadd_rn(yf, __fmul_rn(cbc, k.kb2));
   const float gf = __fdiv_rn(__fsub_rn(__fsub_rn(yf, __fmul_rn(rf, k.kr)), __fmul_rn(bf, k.kb)), k.kg);
-  r = trunc_u8(rf);
-  g = trunc_u8(gf);
-  b = trunc_u8(bf);
+  r = kCompareRound ? round_u8(rf) : trunc_u8(rf);
+  g = kCompareRound ? round_u8(gf) : trunc_u8(gf);
+  b = kCompareRound ? round_u8(bf) : trunc_u8(bf);
 }
 
 }  // namespace

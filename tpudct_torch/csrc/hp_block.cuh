@@ -1,7 +1,9 @@
-// The hp codec's 8x8 block decode chain, shared by hp_codec.cu (B1, B3 and
-// B15, B4, B6, B7) and ring.cu (B16), so the color ring decodes exactly as
-// hp_decode_u8 does.  One thread holds one 8x8 block in registers; see
-// hp_codec.cu's header for the value chain and its rounding.
+// The hp codec's 8x8 block chains: the integer-core forward and quantizer,
+// shared by hp_codec.cu (B1, B2, B4, B5) and study.cu (B19), and the block
+// decode, shared by hp_codec.cu (B1, B3 and B15, B4, B6, B7), ring.cu (B16)
+// and study.cu (B20), so the fused and ring kernels code exactly as
+// hp_encode_u8 and hp_decode_u8 do.  One thread holds one 8x8 block in
+// registers; see hp_codec.cu's header for the value chain and its rounding.
 
 #pragma once
 
@@ -18,6 +20,33 @@ struct HpConsts {
   float a[64];     // inverse transform matrix (Ts or T)
   float s[64];     // dequantization multiplier per position
 };
+
+__device__ __forceinline__ float round_away(float z) {
+  return truncf(__fadd_rn(z, copysignf(0.5f, z)));
+}
+
+__device__ __forceinline__ void fwd_block(float x[64], const HpConsts& k) {
+  // x: level-shifted integral pixels in, quantized coefficients out.
+  float u[64];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float acc = k.fwd[i * 8] * x[c];
+#pragma unroll
+      for (int kk = 1; kk < 8; ++kk) acc += k.fwd[i * 8 + kk] * x[kk * 8 + c];
+      u[i * 8 + c] = acc;
+    }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float core = u[i * 8] * k.fwd[j * 8];
+#pragma unroll
+      for (int l = 1; l < 8; ++l) core += u[i * 8 + l] * k.fwd[j * 8 + l];
+      x[i * 8 + j] = round_away(__fmul_rn(core, k.fq[i * 8 + j]));
+    }
+}
 
 __device__ __forceinline__ void inv_block(float c[64], const HpConsts& k) {
   // c: quantized coefficients in, reconstruction + 128 (f32) out.
@@ -57,6 +86,27 @@ __device__ __forceinline__ void unpack_i8(uint2 v, float* x) {
 
 __device__ __forceinline__ void load_i8(const int8_t* p, float* x) {
   unpack_i8(*reinterpret_cast<const uint2*>(p), x);
+}
+
+// 8 u8 pixels (device or shared memory, 8-byte aligned) -> level-shifted f32.
+__device__ __forceinline__ void load_u8_shifted(const uint8_t* p, float* x) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    x[e] = static_cast<float>(static_cast<int>((v.x >> (8 * e)) & 0xffu) - 128);
+    x[4 + e] = static_cast<float>(static_cast<int>((v.y >> (8 * e)) & 0xffu) - 128);
+  }
+}
+
+// 8 quantized coefficients (integral f32 in int8 range) -> one 8-byte row.
+__device__ __forceinline__ void store_i8(int8_t* p, const float* c) {
+  uint2 v = {0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    v.x |= (static_cast<uint32_t>(__float2int_rz(c[e])) & 0xffu) << (8 * e);
+    v.y |= (static_cast<uint32_t>(__float2int_rz(c[4 + e])) & 0xffu) << (8 * e);
+  }
+  *reinterpret_cast<uint2*>(p) = v;
 }
 
 // One 8-byte int8 row at element offset ro: copied as it is to fwd (unless

@@ -64,36 +64,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hp_block.cuh"  // HpConsts, the block decode chain, block_origin, ROWS
+#include "hp_block.cuh"  // HpConsts, the forward and decode chains, row access, block_origin, ROWS
 
 namespace {
-
-__device__ __forceinline__ float round_away(float z) {
-  return truncf(__fadd_rn(z, copysignf(0.5f, z)));
-}
-
-__device__ __forceinline__ void fwd_block(float x[64], const HpConsts& k) {
-  // x: level-shifted integral pixels in, quantized coefficients out.
-  float u[64];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      float acc = k.fwd[i * 8] * x[c];
-#pragma unroll
-      for (int kk = 1; kk < 8; ++kk) acc += k.fwd[i * 8 + kk] * x[kk * 8 + c];
-      u[i * 8 + c] = acc;
-    }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float core = u[i * 8] * k.fwd[j * 8];
-#pragma unroll
-      for (int l = 1; l < 8; ++l) core += u[i * 8 + l] * k.fwd[j * 8 + l];
-      x[i * 8 + j] = round_away(__fmul_rn(core, k.fq[i * 8 + j]));
-    }
-}
 
 __device__ __forceinline__ void fwd_block_literal(float x[64], const HpConsts& k) {
   // x: f32 pixels in (not shifted), quantized and masked coefficients out.
@@ -124,15 +97,6 @@ __device__ __forceinline__ void fwd_block_literal(float x[64], const HpConsts& k
 
 // ---- 8-wide row loads and stores -------------------------------------------
 
-__device__ __forceinline__ void load_u8_shifted(const uint8_t* p, float* x) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    x[e] = static_cast<float>(static_cast<int>((v.x >> (8 * e)) & 0xffu) - 128);
-    x[4 + e] = static_cast<float>(static_cast<int>((v.y >> (8 * e)) & 0xffu) - 128);
-  }
-}
-
 __device__ __forceinline__ void load_f32(const float* p, float* x) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
   const float4 b = reinterpret_cast<const float4*>(p)[1];
@@ -148,16 +112,6 @@ __device__ __forceinline__ void load_f32_shifted(const float* p, float* x) {
 #pragma unroll
   for (int e = 0; e < 8; ++e)
     x[e] = static_cast<float>(static_cast<int8_t>(__float2int_rz(v[e]) - 128));
-}
-
-__device__ __forceinline__ void store_i8(int8_t* p, const float* c) {
-  uint2 v = {0u, 0u};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    v.x |= (static_cast<uint32_t>(__float2int_rz(c[e])) & 0xffu) << (8 * e);
-    v.y |= (static_cast<uint32_t>(__float2int_rz(c[4 + e])) & 0xffu) << (8 * e);
-  }
-  *reinterpret_cast<uint2*>(p) = v;
 }
 
 template <int N>

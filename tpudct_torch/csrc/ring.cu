@@ -23,9 +23,10 @@
 //
 // Value chain: B16 is hp_decode_u8's (B3) block chain with the luma and the
 // chroma tables and then color_merge_420_u8's (B9) pixel chain, taken from
-// the same headers (hp_block.cuh, color_px.cuh), so the color ring decodes
-// bit for bit as decode_color_u8 of the gathered planes does.  Like the reference, the rings run the butterfly
-// tier whatever the caller's decode_precision.
+// the same headers (hp_block.cuh, color_px.cuh; the strip in strip420.cuh,
+// which the fused decode B20 shares), so the color ring decodes bit for bit
+// as decode_color_u8 of the gathered planes does.  Like the reference, the
+// rings run the butterfly tier whatever the caller's decode_precision.
 //
 // Design.  On the TPU a ring hop is an RDMA whose wait the decode of the
 // band already held hides.  Here the hop and the decode read the same
@@ -51,8 +52,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "color_px.cuh"  // ColorConsts, byte_at, merge_px
-#include "hp_block.cuh"  // HpConsts, inv_block, load_forward_i8, to_u8, block_index, ROWS
+#include "strip420.cuh"  // the strip decode and merge (HpConsts, ColorConsts, block_index)
 
 namespace {
 
@@ -74,86 +74,18 @@ __global__ void k_ring_forward(const uint8_t* __restrict__ src, uint8_t* __restr
   for (long long i = done + t; i < nbytes; i += stride) dst[i] = src[i];
 }
 
-// One 8x8 int8 block at element offset o of a map with rows of w: loaded,
-// forwarded (when fwd is given) and decoded with the table k into x (f32,
-// + 128, not yet clamped).
-__device__ __forceinline__ void decode_block(const int8_t* __restrict__ src,
-                                             int8_t* __restrict__ fwd, long long o, int w,
-                                             const HpConsts& k, float (&x)[64]) {
-  ROWS(load_forward_i8(src, fwd, ro, x + 8 * r));
-  inv_block(x, k);
-}
-
-// The u8 of 8 decoded values as two little-endian words.
-__device__ __forceinline__ uint2 pack_u8(const float* x) {
-  uint2 v = {0u, 0u};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    v.x |= to_u8(x[e]) << (8 * e);
-    v.y |= to_u8(x[4 + e]) << (8 * e);
-  }
-  return v;
-}
-
-constexpr int kStripRows = 16, kStripCols = 256;  // the luma strip of one thread block
-constexpr int kLumaBlocks = (kStripRows / 8) * (kStripCols / 8);  // 64
-constexpr int kColorThreads = kLumaBlocks + 2 * (kStripCols / 16);  // + 16 cb + 16 cr blocks = 96
-
 // One thread block per 16 x 256 luma strip (its chroma: one 8-row block row
-// of cb and of cr, 128 wide).  Each thread first decodes one block, as B3
-// does: threads 0-63 a luma block, 64-95 a chroma block (warp-uniform), each
-// forwarding its block's bytes, into shared memory as u8; then all threads
-// merge the strip 8 pixels at a time, as B9 does.
-__global__ void __launch_bounds__(kColorThreads)
+// of cb and of cr, 128 wide, in the pack: cb rows over cr rows): B3's block
+// decode of each luma and chroma block into shared memory, forwarding its
+// bytes, then B9's merge (strip420.cuh).
+__global__ void __launch_bounds__(kStripThreads)
     k_ring_forward_decode_color(const int8_t* __restrict__ y, const int8_t* __restrict__ c,
                                 int8_t* __restrict__ fy, int8_t* __restrict__ fc,
                                 uint8_t* __restrict__ rgb, long long plane, int h, int w,
                                 const HpConsts kl, const HpConsts kc, const ColorConsts kk) {
-  __shared__ __align__(16) uint8_t ys[kStripRows][kStripCols];
-  __shared__ __align__(16) uint8_t cs[2][kStripRows / 2][kStripCols / 2];  // cb, cr
-  const int strips = w / kStripCols;
-  const long long r0 = static_cast<long long>(blockIdx.x / strips) * kStripRows;
-  const long long c0 = static_cast<long long>(blockIdx.x % strips) * kStripCols;
-  const int t = threadIdx.x, cw = w / 2;
-  float x[64];
-  if (t < kLumaBlocks) {
-    const int by = t / (kStripCols / 8), bx = t % (kStripCols / 8);
-    decode_block(y, fy, (r0 + by * 8) * w + c0 + bx * 8, w, kl, x);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) *reinterpret_cast<uint2*>(&ys[by * 8 + i][bx * 8]) = pack_u8(x + 8 * i);
-  } else {
-    // pack rows: cb of this band's strip at r0 / 2, cr h / 2 rows lower
-    const int q = t - kLumaBlocks, pl = q / (kStripCols / 16), bx = q % (kStripCols / 16);
-    decode_block(c, fc, (pl * (h / 2) + r0 / 2) * cw + c0 / 2 + bx * 8, cw, kc, x);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) *reinterpret_cast<uint2*>(&cs[pl][i][bx * 8]) = pack_u8(x + 8 * i);
-  }
-  __syncthreads();
-  constexpr int kSegs = kStripRows * kStripCols / 8;  // 8-pixel row segments of the strip
-  for (int s = t; s < kSegs; s += kColorThreads) {
-    const int row = s / (kStripCols / 8), col = (s % (kStripCols / 8)) * 8;
-    uint32_t yw[2], cbw[1], crw[1];
-    const uint2 yv = *reinterpret_cast<const uint2*>(&ys[row][col]);
-    yw[0] = yv.x;
-    yw[1] = yv.y;
-    cbw[0] = *reinterpret_cast<const uint32_t*>(&cs[0][row / 2][col / 2]);
-    crw[0] = *reinterpret_cast<const uint32_t*>(&cs[1][row / 2][col / 2]);
-    uint32_t rv[2] = {0u, 0u}, gv[2] = {0u, 0u}, bv[2] = {0u, 0u};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t r, g, b;
-      merge_px(static_cast<float>(byte_at(yw, j)), static_cast<float>(byte_at(cbw, j / 2) - 128),
-               static_cast<float>(byte_at(crw, j / 2) - 128), kk, r, g, b);
-      const int sh = 8 * (j & 3);
-      rv[j >> 2] |= r << sh;
-      gv[j >> 2] |= g << sh;
-      bv[j >> 2] |= b << sh;
-    }
-    const long long o = (r0 + row) * w + c0 + col;
-    *reinterpret_cast<uint2*>(rgb + o) = make_uint2(rv[0], rv[1]);
-    *reinterpret_cast<uint2*>(rgb + plane + o) = make_uint2(gv[0], gv[1]);
-    *reinterpret_cast<uint2*>(rgb + 2 * plane + o) = make_uint2(bv[0], bv[1]);
-  }
+  const long long cr = static_cast<long long>(h / 2) * (w / 2);  // the cr rows' offset in the pack
+  decode_merge_strip_420<false>(y, c, c + cr, fy, fc, fc ? fc + cr : nullptr, rgb, plane, w, kl, kc,
+                                kk);
 }
 
 }  // namespace
@@ -191,7 +123,7 @@ int ring_forward_decode_color_launch(const void* y, const void* c, void* fy, voi
   int err = static_cast<int>(cudaSetDevice(device));
   if (err) return err;
   const long long strips = static_cast<long long>(h / kStripRows) * (w / kStripCols);
-  k_ring_forward_decode_color<<<dim3(static_cast<unsigned>(strips)), kColorThreads, 0,
+  k_ring_forward_decode_color<<<dim3(static_cast<unsigned>(strips)), kStripThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(y), static_cast<const int8_t*>(c), static_cast<int8_t*>(fy),
       static_cast<int8_t*>(fc), static_cast<uint8_t*>(rgb), plane, h, w,

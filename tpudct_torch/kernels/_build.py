@@ -1,15 +1,17 @@
 """Build and load the CUDA library of the port's kernels.
 
 ``tpudct_torch/csrc/hp_codec.cu`` (kernels B1-B7, and B3 with a forward
-pointer as B15), ``tpudct_torch/csrc/color_codec.cu`` (B8-B13) and
-``tpudct_torch/csrc/ring.cu`` (B14, B16) are compiled by nvcc, one process
-per source, all started together, and linked into one shared library with a
-plain C interface, loaded with ctypes.  The library lives in
-``build/tpudct_torch/`` at the root of the checkout (listed in .gitignore),
-named by a hash of the flags, the sources and the headers they share
-(``csrc/*.cuh``), so an edited source or header rebuilds and unchanged ones
-load at once.  Nothing is built at import: the first kernel launch builds.
-A failed build raises with nvcc's stderr.
+pointer as B15), ``tpudct_torch/csrc/color_codec.cu`` (B8-B13),
+``tpudct_torch/csrc/ring.cu`` (B14, B16) and ``tpudct_torch/csrc/study.cu``
+(the study kernels B17-B20) are compiled by nvcc, one process per source,
+all started together, and linked into one shared library with a plain C
+interface, loaded with ctypes; :func:`call` launches one of its functions.
+The library lives in ``build/tpudct_torch/`` at the root of the checkout
+(listed in .gitignore), named by a hash of the flags, the sources and the
+headers they share (``csrc/*.cuh``), so an edited source or header rebuilds
+the library and an unchanged one loads at once.  Nothing is built at
+import: the first kernel launch builds.  A failed build raises with nvcc's
+stderr.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import subprocess
 import tempfile
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
-SOURCES = tuple(_PKG / "csrc" / f for f in ("hp_codec.cu", "color_codec.cu", "ring.cu"))
+SOURCES = tuple(_PKG / "csrc" / f for f in ("hp_codec.cu", "color_codec.cu", "ring.cu", "study.cu"))
 BUILD_DIR = _PKG.parent / "build" / "tpudct_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -47,6 +49,9 @@ _SIGNATURES = {
     "ring_forward_launch": (_P, _P, _L, _P, _I),
     "ring_forward_decode_color_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _I),
     "ring_enable_peer": (_I, _I),
+    "u8_copy_launch": (_P, _P, _P, _L, _P, _I),
+    "color_encode_420_launch": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I),
+    "color_decode_420_launch": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I),
 }
 
 
@@ -123,3 +128,14 @@ def library() -> ctypes.CDLL:
     lib.hp_error_string.argtypes = [ctypes.c_int]
     lib.hp_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def call(fn_name: str, device, *args) -> None:
+    """Launch ``fn_name(*args, stream, device)`` on ``device``'s current
+    stream; raises with CUDA's message where the launch returns an error."""
+    import torch
+
+    lib = library()
+    err = getattr(lib, fn_name)(*args, torch.cuda.current_stream(device).cuda_stream, device.index)
+    if err:
+        raise RuntimeError(f"{fn_name}: CUDA error {err}: {lib.hp_error_string(err).decode()}")

@@ -112,15 +112,15 @@ def merge_plain(y_u8: torch.Tensor, cb_u8: torch.Tensor, cr_u8: torch.Tensor, mo
 # ---------------------------------------------------------------------------
 
 
-def _check(x, ndim: int, name: str) -> None:
-    """Validate a u8 kernel operand (both devices, so the twin refuses what
+def _check(x, ndim: int, name: str, dtype: torch.dtype = torch.uint8) -> None:
+    """Validate a kernel operand (both devices, so the twin refuses what
     the kernel refuses)."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name} takes a torch.Tensor, got {type(x).__name__}")
     if x.dim() != ndim:
         raise ValueError(f"{name} takes a {ndim}-D tensor, got shape {tuple(x.shape)}")
-    if x.dtype != torch.uint8:
-        raise TypeError(f"{name} takes torch.uint8, got {x.dtype}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} takes {dtype}, got {x.dtype}")
     check_placement(x, name)
 
 

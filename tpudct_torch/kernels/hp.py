@@ -365,18 +365,12 @@ def check_placement(x: torch.Tensor, name: str) -> None:
 def launch(fn_name: str, tensors, h: int, w: int, consts: np.ndarray, *ints: int) -> None:
     """Call ``fn_name(*pointers, h, w, *ints, consts, stream, device)``, where
     ``consts`` is the packed f32 constant array the kernel reads."""
-    from tpudct_torch.kernels._build import library
+    from tpudct_torch.kernels._build import call
 
-    lib = library()
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
         raise ValueError(f"{fn_name}: operands on more than one device")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(lib, fn_name)(
-        *[t.data_ptr() for t in tensors], h, w, *ints, consts.ctypes.data, stream, dev.index
-    )
-    if err:
-        raise RuntimeError(f"{fn_name}: CUDA error {err}: {lib.hp_error_string(err).decode()}")
+    call(fn_name, dev, *[t.data_ptr() for t in tensors], h, w, *ints, consts.ctypes.data)
 
 
 def hp_roundtrip_u8(image_u8, q_scale: float = 1.0, q_table: str = "luma", retain_k=None,

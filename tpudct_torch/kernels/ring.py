@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from tpudct_torch.kernels import color as ck
+from tpudct_torch.kernels._build import call
 from tpudct_torch.kernels import hp
 
 #: Kernel launches per wrapper; a wrapper adds one only where it launches its
@@ -93,15 +94,6 @@ def _on_cuda(name: str, src: torch.Tensor, *others) -> bool:
     return src.device.type == "cuda"
 
 
-def _launch(fn_name: str, device: torch.device, *args) -> None:
-    from tpudct_torch.kernels._build import library
-
-    lib = library()
-    err = getattr(lib, fn_name)(*args, torch.cuda.current_stream(device).cuda_stream, device.index)
-    if err:
-        raise RuntimeError(f"{fn_name}: CUDA error {err}: {lib.hp_error_string(err).decode()}")
-
-
 def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
@@ -114,7 +106,7 @@ def ring_forward(src: torch.Tensor, dst: torch.Tensor) -> None:
         return forward_plain(src, dst)
     if not (src.is_contiguous() and dst.is_contiguous()):
         raise ValueError("ring_forward needs contiguous tensors")
-    _launch("ring_forward_launch", src.device, src.data_ptr(), dst.data_ptr(),
+    call("ring_forward_launch", src.device, src.data_ptr(), dst.data_ptr(),
             src.numel() * src.element_size())
     LAUNCHES["ring_forward"] += 1
 
@@ -136,7 +128,7 @@ def ring_forward_decode(coef, fwd, rec, q_scale: float = 1.0, q_table: str = "lu
         if t is not None:
             hp.check_placement(t, "ring_forward_decode")
     consts = _packed(transform, q_table, q_scale)
-    _launch("hp_decode_u8_launch", coef.device, coef.data_ptr(), rec.data_ptr(), h, w, _ptr(fwd),
+    call("hp_decode_u8_launch", coef.device, coef.data_ptr(), rec.data_ptr(), h, w, _ptr(fwd),
             consts.ctypes.data)
     LAUNCHES["ring_forward_decode"] += 1
 
@@ -170,7 +162,7 @@ def ring_forward_decode_color(y, c, fy, fc, rgb, q_scale: float = 1.0,
     if rgb.stride()[1:] != (w, 1) or rgb.data_ptr() % 16:
         raise ValueError(f"{name}: rgb needs contiguous rows and a 16-byte aligned start")
     luma, chroma = _packed(transform, "luma", q_scale), _packed(transform, "chroma", q_scale)
-    _launch("ring_forward_decode_color_launch", y.device, y.data_ptr(), c.data_ptr(), _ptr(fy), _ptr(fc),
+    call("ring_forward_decode_color_launch", y.device, y.data_ptr(), c.data_ptr(), _ptr(fy), _ptr(fc),
             rgb.data_ptr(), rgb.stride(0), h, w, luma.ctypes.data, chroma.ctypes.data,
             ck._consts().ctypes.data)
     LAUNCHES["ring_forward_decode_color"] += 1

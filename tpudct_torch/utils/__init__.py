@@ -1,1 +1,2 @@
-"""Host-side helpers of the port (color-space conversion)."""
+"""Host-side helpers of the port: color-space conversion, CUDA-event timing,
+profiling and the accuracy metrics."""
