@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (the hp codec B1-B7, the YCbCr split and
-merge B8-B13, the ring hops B14-B16 and the study kernels B17-B20: the u8
-copy floors and the fused 4:2:0 color encode and decode) from
-``tpudct_torch/csrc`` and, in order:
+merge B8-B13, the ring hops B14-B16 and the study kernels B17-B26: the u8
+copy floors, the fused 4:2:0 color encode and decode, the color split/merge
+variants and the inverse formulations) from ``tpudct_torch/csrc`` and, in
+order:
 
   1. prints the card (name, power limit), the torch version and nvcc's;
   2. builds the kernels (one nvcc per source, in parallel) and prints
@@ -41,7 +42,12 @@ copy floors and the fused 4:2:0 color encode and decode) from
      bit for bit against their twins: u8_copy and u8_copy2 (and both on a
      ragged 3x1001 map, whose bytes end off the 16-byte vectors), the
      fused encode and decode at the default config and at q_scale 2.5 with
-     retain_k 6;
+     retain_k 6; then the study variants at 512^2 and 8192^2 bit for bit
+     against their twins (kernels.variants: the merges V1, V12, V4, V6 on
+     B8's planes, the splits V3, V5, idct_x "b" and "c" on hp_dct's
+     coefficients), V1, V4, V6 also equal to B9's output and V3 to B8's, V12
+     and V5 within +-1 on at most 0.5% of them (counts printed), idct_x "b"
+     equal to hp_idct, and idct_x leaving its input as it was;
   5. runs the float64 golden-model correctness gate at 512^2 (u8 path with
      the encode/decode/roundtrip bit-identity check, the f32 path, and the
      f32-literal core under transform "dct") and the color420_u8, f32 and
@@ -73,22 +79,28 @@ copy floors and the fused 4:2:0 color encode and decode) from
      codec step, n + n(n-1) B14 per all-gather, n B14 + n^2 B15 per decode
      ring, 2n B14 + n^2 B16 per color ring), its output held against the
      same step on a CPU mesh of the twins on its first 256 rows; then the
-     study path, its counters set to 0 just before it: the two study
-     drivers (tpudct_torch.studies.u8_perf and color_fused_ab) at 8192^2,
-     each moving exactly its counters, the fused decode bit-identical to
-     the composed decode_color_u8 on the same coefficients, the fused
-     encode's Cb/Cr equal to the composed path's and its Y +-1 on at most
-     0.5% of entries (count printed); then the measurement path, its
-     counters set to 0 just before it: tpudct_torch.benchmark's
-     bench_pipeline for hp, batched, fast (1024^2) and cublas (256^2,
-     inside its cap), bench_fused_roundtrip, bench_serving_throughput,
-     bench_color, bench_color_serving and sweep over 256..1024, each moving
-     exactly its counters, every returned dict printed with the card;
+     study path, its counters set to 0 just before it: the five study
+     drivers (tpudct_torch.studies.u8_perf, color_fused_ab, color_variants,
+     color_variants2 and inv_formulations) at 8192^2, each moving exactly
+     its counters, the fused decode bit-identical to the composed
+     decode_color_u8 on the same coefficients, the fused encode's Cb/Cr
+     equal to the composed path's and its Y +-1 on at most 0.5% of entries
+     (count printed), the variant studies' checks (V1, V3, V4, V6 0
+     differences from the shipped pair, V12 and V5 +-1 on at most 0.5%,
+     idct_x "b" and "c" within 1e-4 of the f64 golden); then the
+     measurement path, its counters set to 0 just before it:
+     tpudct_torch.benchmark's bench_pipeline for hp, batched, fast
+     (1024^2) and cublas (256^2, its per-block loop, and 1024^2, above the
+     loop's cap: the products batched), bench_fused_roundtrip,
+     bench_serving_throughput, bench_color, bench_color_serving and sweep
+     over 256..1024, each moving exactly its counters, every returned dict
+     printed with the card;
   7. times each kernel against its twin with
      tpudct_torch.utils.timing.device_time_ms (CUDA events, the median of
      each batch of calls, L2 flushed before every call; order plain,
      kernel, kernel, plain); B17 beside Tensor.copy_ into a distinct
-     tensor, B18 beside B1 as B1's byte floor; the ring kernels once over a
+     tensor, B18 beside B1 as B1's byte floor, V1 beside B9 (the compare-
+     form round against the add form); the ring kernels once over a
      whole 8192^2 slot with its forward (B14 beside Tensor.copy_), then per
      launch and per whole ring at n = 1, 2, 4, 8.
 
@@ -114,6 +126,7 @@ _SRC, _REF = "tpudct_torch/csrc/hp_codec.cu", "tpudct/kernels/hp_pallas.py"
 _CSRC, _CREF = "tpudct_torch/csrc/color_codec.cu", "tpudct/kernels/color_pallas.py"
 _RSRC, _RREF = "tpudct_torch/csrc/ring.cu", "tpudct/parallel/ring.py"
 _SSRC = "tpudct_torch/csrc/study.cu"
+_CV, _CV2, _INV = (f"benchmarks/{n}.py" for n in ("color_variants", "color_variants2", "inv_formulations"))
 # kernel -> (CUDA source, the TPU kernel it replaces, bytes moved per pixel
 # (each input read once, each output written once), operations per pixel).
 # Operations: the value chain's arithmetic per pixel, a multiply-add counted
@@ -125,8 +138,11 @@ _SSRC = "tpudct_torch/csrc/study.cu"
 # its forward, per luma pixel (B16: the luma decode, two quarter-size chroma
 # decodes and the merge); the fused color encode counts B8's chain with the
 # f32 luma (24) plus B2's forward on the luma and half as much on the
-# chroma (25.5), the fused decode B16's chain.  Every kernel here is bound by
-# its bytes at these counts (see _bound).
+# chroma (25.5), the fused decode B16's chain; the color variants count as B8
+# and B9, idct_x "b" as B6 and "c" as the inverse's dequantization and shift
+# (2) plus, per direction, three digits' products (24) and sums (2) and the
+# digit splits (5): 64.  Every kernel here is bound by its bytes at these
+# counts (see _bound).
 KERNELS = {
     "hp_roundtrip_u8": (_SRC, f"{_REF}:678", 3, 36),
     "hp_encode_u8": (_SRC, f"{_REF}:627", 2, 17),
@@ -149,6 +165,15 @@ KERNELS = {
     "u8_copy2": (_SSRC, "benchmarks/u8_perf.py:53", 3, 0),
     "color_encode_420_u8": (_SSRC, "benchmarks/color_fused_ab.py:170", 4.5, 49.5),
     "color_decode_420_u8": (_SSRC, "benchmarks/color_fused_ab.py:221", 4.5, 48),
+    # the study variants (kernels.variants): V3, V4 and V6 launch B8's and B9's kernels
+    "color_merge_v1": (_CSRC, f"{_CV}:57", 4.5, 19),
+    "color_merge_v12": (_CSRC, f"{_CV}:80", 4.5, 19),
+    "color_split_v3": (_CSRC, f"{_CV}:103", 4.5, 19),
+    "color_merge_v4": (_CSRC, f"{_CV2}:49", 4.5, 19),
+    "color_merge_v6": (_CSRC, f"{_CV2}:65", 4.5, 19),
+    "color_split_v5": (_CSRC, f"{_CV2}:85", 4.5, 19),
+    "idct_x_b": (_SRC, f"{_INV}:77", 8, 17),  # B6's k_idct
+    "idct_x_c": (_SRC, f"{_INV}:81", 8, 64),
 }
 # repetitions of each timed call in the measurement path (after one warm-up
 # call: device_time_ms)
@@ -292,8 +317,63 @@ def phase_compare(dev) -> dict:
     _compare_color(dev, errs)
     _compare_ring(dev, errs)
     _compare_study(dev, errs)
+    _compare_variants(dev, errs)
     torch.cuda.synchronize()
     return errs
+
+
+def _tie_class(label: str, n: int, mx: int, total: int) -> None:
+    """n of total entries differ, by at most mx: +-1 on at most 0.5%."""
+    if mx > 1 or n > 0.005 * total:
+        _fail(f"{label}: {n} of {total} entries differ (max {mx})")
+
+
+def _compare_variants(dev, errs: dict) -> None:
+    """The study variants (B21-B26) against their twins, bit for bit, at
+    512^2 and 8192^2; V1, V4 and V6 against B9's output and V3 against B8's
+    (0 differences), V12 and V5 against them within +-1 on at most 0.5%
+    (counted); idct_x "b" against hp_idct bit for bit; idct_x leaves its
+    input as it was."""
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.kernels import hp
+    from tpudct_torch.kernels import variants as V
+    from tpudct_torch.studies import differ
+
+    for s in COMPARE_SIZES:
+        rgb = _rgb_noise(s, s, seed=s + 13, dev=dev)
+        planes = ck.color_split_420_u8(rgb)
+        base = ck.color_merge_420_u8(*planes)
+        counts = []
+        for kern in (V._k_merge_v1, V._k_merge_v12, V._k_merge_v4, V._k_merge_v6):
+            out = V.make_merge(kern)(*planes)
+            errs[kern.name] = max(errs[kern.name], _same(f"{kern.name} {s}^2", out, kern.plain(*planes)))
+            n, mx = differ(out, base)
+            (_tie_class if kern is V._k_merge_v12 else _zero)(f"{kern.name} {s}^2 vs B9", n, mx, base.numel())
+            counts.append(f"{kern.name} {n}")
+        for kern in (V._k_split_v3, V._k_split_v5):
+            out = V.make_split(kern)(rgb)
+            for plane, a, b, c in zip(("y", "cb", "cr"), out, kern.plain(rgb), planes):
+                errs[kern.name] = max(errs[kern.name], _same(f"{kern.name} {s}^2 {plane}", a, b))
+                n, mx = differ(a, c)
+                check = _tie_class if kern is V._k_split_v5 and plane != "y" else _zero
+                check(f"{kern.name} {s}^2 {plane} vs B8", n, mx, c.numel())
+                counts.append(f"{kern.name} {plane} {n}")
+        x = _noise(s, s, seed=s + 14, dev=dev).to(torch.float32)
+        c = hp.hp_dct(x)
+        keep = c.clone()
+        rb, rc = V.idct_x(c, "b"), V.idct_x(c, "c")
+        errs["idct_x_b"] = max(errs["idct_x_b"], _same(f"idct_x b {s}^2", rb, hp.idct_plain(c)))
+        errs["idct_x_c"] = max(errs["idct_x_c"], _same(f"idct_x c {s}^2", rc, V.idct_c_plain(c)))
+        _equal(f"idct_x b {s}^2 vs hp_idct", rb, hp.hp_idct(c))
+        _equal(f"idct_x {s}^2 input after the calls", c, keep)
+        print(f"  {s}^2: the six color variants and idct_x b, c bit-identical to their twins; against B8/B9 "
+              f"differing: {', '.join(counts)}; idct_x b equals hp_idct, c within "
+              f"{float((rc - rb).abs().max()):.2e} of it")
+
+
+def _zero(label: str, n: int, mx: int, total: int) -> None:
+    if n:
+        _fail(f"{label}: {n} of {total} entries differ (max {mx})")
 
 
 def _compare_study(dev, errs: dict) -> None:
@@ -1137,19 +1217,21 @@ def phase_multi_main_path(dev) -> dict:
 
 
 def phase_study_path(dev) -> dict:
-    """The two study drivers at SQUARE^2, the counters set to 0 just before
+    """The five study drivers at SQUARE^2, the counters set to 0 just before
     and read just after; each driver moves exactly its counters (one
     warm-up and REPS timed calls per measurement, plus its checks)."""
     from tpudct_torch.kernels import color as ck
     from tpudct_torch.kernels import hp
     from tpudct_torch.kernels import study
-    from tpudct_torch.studies import color_fused_ab, u8_perf
+    from tpudct_torch.kernels import variants as V
+    from tpudct_torch.studies import color_fused_ab, color_variants, color_variants2, inv_formulations, u8_perf
 
     _phase(6, "study path")
-    counts, step = _stepper(hp.LAUNCHES, ck.LAUNCHES, study.LAUNCHES)
+    counts, step = _stepper(hp.LAUNCHES, ck.LAUNCHES, study.LAUNCHES, V.LAUNCHES)
     hp.reset_launches()
     ck.reset_launches()
     study.reset_launches()
+    V.reset_launches()
     k = 1 + u8_perf.REPS
     floors = step(f"{SQUARE}^2 studies.u8_perf.main",
                   {"u8_copy": k, "u8_copy2": k, "hp_encode_u8": k + 1, "hp_decode_u8": k, "hp_roundtrip_u8": k},
@@ -1161,7 +1243,35 @@ def phase_study_path(dev) -> dict:
                  {"color_encode_420_u8": n, "color_decode_420_u8": n, "color_split_420_u8": n,
                   "hp_encode_u8": 2 * n, "hp_decode_u8": 2 * n, "color_merge_420_u8": n},
                  lambda: color_fused_ab.main(SQUARE, dev))
+    # the variant studies: their checks once, then the timed pairs (shipped
+    # twice), each kernel in as many pairs as name it
+    k = 1 + color_variants.REPS
+    cv = step(f"{SQUARE}^2 studies.color_variants.main",
+              {"color_split_420_u8": 1 + 4 * k, "color_merge_420_u8": 1 + 3 * k, "color_merge_v1": 1 + k,
+               "color_merge_v12": 1 + 2 * k, "color_split_v3": 1 + 2 * k},
+              lambda: color_variants.main(SQUARE, dev))
+    cv2 = step(f"{SQUARE}^2 studies.color_variants2.main",
+               {"color_split_420_u8": 1 + 3 * k, "color_merge_420_u8": 1 + 2 * k, "color_merge_v4": 1 + 2 * k,
+                "color_merge_v6": 1 + k, "color_split_v5": 1 + 2 * k},
+               lambda: color_variants2.main(SQUARE, dev))
+    k = 1 + inv_formulations.REPS
+    inv = step(f"{SQUARE}^2 studies.inv_formulations.main",
+               {"hp_dct": 2, "idct_x_b": 1 + k, "idct_x_c": 1 + k, "hp_idct": 3 * k},
+               lambda: inv_formulations.main(SQUARE, dev))
     launches = counts()
+    n_m, n_l, n_c = (cv["entries"][k] for k in ("merge", "y", "chroma"))
+    for out, key, total in ((cv, "v1", n_m), (cv, "v3_y", n_l), (cv, "v3_cb", n_c), (cv, "v3_cr", n_c),
+                            (cv2, "v4", n_m), (cv2, "v6", n_m), (cv2, "v5_y", n_l)):
+        _zero(f"the {key} check", out[f"{key}_differ"], out[f"{key}_max"], total)
+    _tie_class("the V12 merge against the shipped merge", cv["v12_differ"], cv["v12_max"], n_m)
+    for plane in ("cb", "cr"):
+        _tie_class(f"the V5 split's {plane}", cv2[f"v5_{plane}_differ"], cv2[f"v5_{plane}_max"], n_c)
+    for v in ("b", "c"):
+        if not inv[f"{v}_max_err"] <= 1e-4:
+            _fail(f"idct_x {v}: {inv[f'{v}_max_err']} from the f64 golden")
+    print(f"  variant checks on (3, 256, 512): V1, V3, V4, V6 0 differences; V12 {cv['v12_differ']} of {n_m} merge "
+          f"outputs, V5 cb {cv2['v5_cb_differ']}, cr {cv2['v5_cr_differ']} of {n_c}; idct_x b, c "
+          f"{inv['b_max_err']:.2e}, {inv['c_max_err']:.2e} from the f64 golden at 512^2")
     if fused["decode_differ"]:
         _fail(f"the fused decode differs from decode_color_u8 on {fused['decode_differ']} outputs")
     if fused["cb_differ"] or fused["cr_differ"]:
@@ -1174,7 +1284,7 @@ def phase_study_path(dev) -> dict:
     print(f"  fused decode bit-identical to decode_color_u8 on the same coefficients; fused Cb/Cr equal "
           f"to the composed path's; fused Y +-1 on {fused['y_differ']} of {n_y} entries "
           f"({fused['y_differ'] / n_y:.4%}); B1 over its byte floor {floors['roundtrip_over_floor']:.2f}x")
-    for name in study.LAUNCHES:
+    for name in (*study.LAUNCHES, *V.LAUNCHES):
         if launches[name] < 1:
             _fail(f"study path never launched {name}")
     print("  launches:", json.dumps(launches))
@@ -1204,6 +1314,8 @@ def phase_measurement_path(dev, card: str) -> dict:
         ("bench_pipeline batched 1024", {}, lambda: B.bench_pipeline("batched", 1024, reps=BENCH_REPS, device=dev)),
         ("bench_pipeline fast 1024", {}, lambda: B.bench_pipeline("fast", 1024, reps=BENCH_REPS, device=dev)),
         ("bench_pipeline cublas 256", {}, lambda: B.bench_pipeline("cublas", 256, reps=BENCH_REPS, device=dev)),
+        # above the per-block loop's cap (512^2): the products batched over the blocks
+        ("bench_pipeline cublas 1024", {}, lambda: B.bench_pipeline("cublas", 1024, reps=BENCH_REPS, device=dev)),
         (f"bench_fused_roundtrip {SQUARE}", {"hp_roundtrip": k},
          lambda: B.bench_fused_roundtrip(SQUARE, reps=BENCH_REPS, device=dev)),
         (f"bench_serving_throughput {n_img}x{side}", {"hp_roundtrip_u8": k},
@@ -1246,6 +1358,7 @@ def phase_timing(dev, card: str) -> dict:
     from tpudct_torch.kernels import color as ck
     from tpudct_torch.kernels import hp
     from tpudct_torch.kernels import study
+    from tpudct_torch.kernels import variants as V
 
     _phase(7, f"timing ({card})")
     times = {"library": {}}
@@ -1288,6 +1401,16 @@ def phase_timing(dev, card: str) -> dict:
                                           lambda: study.encode_420_plain(rgb_s))
             fns["color_decode_420_u8"] = (lambda: study.color_decode_420_u8(*planes_s),
                                           lambda: study.decode_420_plain(*planes_s))
+            # the study variants: the merges on B8's planes of rgb, the splits
+            # on rgb, idct_x on hp_dct's coefficients
+            p420 = ck.color_split_420_u8(rgb)
+            for kern in (V._k_merge_v1, V._k_merge_v12, V._k_merge_v4, V._k_merge_v6):
+                fns[kern.name] = (lambda f=V.make_merge(kern): f(*p420), lambda t=kern.plain: t(*p420))
+            for kern in (V._k_split_v3, V._k_split_v5):
+                fns[kern.name] = (lambda f=V.make_split(kern): f(rgb), lambda t=kern.plain: t(rgb))
+            for v in ("b", "c"):
+                fns[f"idct_x_{v}"] = (lambda v=v: V.idct_x(cf, v),
+                                      lambda t=(hp.idct_plain if v == "b" else V.idct_c_plain): t(cf))
         # variants off the main path's default (bytes per pixel, kernel, twin),
         # timed and printed beside it
         hi = dict(decode_precision="highest")
@@ -1322,6 +1445,9 @@ def phase_timing(dev, card: str) -> dict:
             rt, floor = times[("hp_roundtrip_u8", label)][0], times[("u8_copy2", label)][0]
             print(f"  {label} hp_roundtrip_u8 (B1) {rt:.4f} ms against B1's byte floor u8_copy2 (B18) "
                   f"{floor:.4f} ms: {rt / floor:.2f}x [{card}]")
+            v1, b9 = times[("color_merge_v1", label)][0], times[("color_merge_420_u8", label)][0]
+            print(f"  {label} color_merge_v1 (compare-form round) {v1:.4f} ms beside color_merge_420_u8 (B9, "
+                  f"add-form round) {b9:.4f} ms: {v1 / b9:.3f}x [{card}]")
     ring_times, copy_ms = _time_rings(dev, card)
     times.update(ring_times)
     times["library"]["ring_forward"] = copy_ms

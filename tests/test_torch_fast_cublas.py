@@ -15,7 +15,9 @@ Tolerances and their reasons:
 - cublas: both contract each block's two 8x8 GEMMs in another order (f32
   there, float64 here), so coefficients are +-1 at exact .5 quantizer ties
   on at most 0.5% of entries and reconstructions within the per-block
-  tie-flip bound; against tests/golden.py the same tie class.
+  tie-flip bound; against tests/golden.py the same tie class.  Its batched
+  form above the per-block loop's cap gives the loop's values (the same
+  float64 products, rounded once to f32).
 - Refusals: the same exception type and message as the reference.
 """
 
@@ -136,10 +138,16 @@ def test_cublas_matches_reference_and_golden(kw):
     _tie_flip_bound(c.numpy(), gc, r.numpy(), gr, cfg)
 
 
-def test_cublas_is_capped():
-    p = tpudct_torch.get_pipeline("cublas")
+def test_cublas_is_capped(monkeypatch):
+    """MAX_PIXELS caps the per-block loop, not the image: above it the same
+    float64 products run batched over the blocks, with the loop's values."""
+    p, cfg = tpudct_torch.get_pipeline("cublas"), tpudct_torch.CodecConfig()
+    img = torch.as_tensor(_img((64, 128), seed=7))
+    loop = p.roundtrip(img, cfg)
+    monkeypatch.setattr(cublas_like, "MAX_PIXELS", 64 * 64)
+    batched = p.roundtrip(img, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(loop, batched))
+    monkeypatch.undo()
     side = int(cublas_like.MAX_PIXELS ** 0.5)
-    with pytest.raises(ValueError, match="at most"):
-        p.dct(torch.zeros(side + 8, side), tpudct_torch.CodecConfig())
-    with pytest.raises(ValueError, match="at most"):
-        p.idct(torch.zeros(side, side + 8), tpudct_torch.CodecConfig())
+    assert tuple(p.dct(torch.zeros(side + 8, side), cfg).shape) == (side + 8, side)
+    assert tuple(p.idct(torch.zeros(side, side + 8), cfg).shape) == (side, side + 8)

@@ -12,6 +12,13 @@
 //   color_merge_launch  k_color_merge<2,2>  B9   color_merge_420_u8  (_k_merge)
 //                       k_color_merge<1,2>  B11  color_merge_422_u8  (_k_merge_422)
 //                       k_color_merge<1,1>  B13  color_merge_444_u8  (_k_merge_444)
+// and the 4:2:0 variants of the color variant studies (benchmarks/
+// color_variants.py and color_variants2.py, make_split/make_merge):
+//   color_merge_variant_launch 1   k_color_merge<2,2,kCompare>  B23 _k_merge_v1
+//   color_merge_variant_launch 12  k_color_merge<2,2,kDirect>   B23 _k_merge_v12
+//   color_split_variant_launch 5   k_color_split<2,2,true>      B26 _k_split_v5
+// (the studies' other variants, B24 _k_split_v3, B25 _k_merge_v4 and
+// _k_merge_v6, compute B8's and B9's values and launch B8 and B9).
 //
 // Value chain (the reference's, rounding included):
 //   split  Y = (19595 r + 38470 g + 7471 b + 32768) >> 16 in int32 (exact);
@@ -32,9 +39,17 @@
 //          u8 = trunc(clip(z) + 0.5) (color_pallas._to_u8_trunc), the
 //          add form the reference proves equal to the compare form over all
 //          256^3 (y, cb, cr) triples.
-// The f32 constants (KR, KG, KB, kcb, kcr, kr2, kb2) come from the caller
-// (ColorConsts), the same values the plain twins in kernels/color.py use, so
-// kernel and twin agree bit for bit.
+//   variants V1: the merge with the compare-form round (merge_px<true>): B9's
+//          values on every input.  V12: r and b as above, g in the direct
+//          form (y - c1 cbc) - c2 crc with c1 = KB (2 - 2 KB) / KG and
+//          c2 = KR (2 - 2 KR) / KG (f64, rounded once), separately rounded,
+//          the compare-form round: +-1 against B9 where the two g chains
+//          round apart.  V5: the split with its chroma rounded by the add
+//          form trunc(clip(z) + 0.5): +-1 against B8 where the f32 add of
+//          0.5 crosses an integer.
+// The f32 constants (KR, KG, KB, kcb, kcr, kr2, kb2, c1, c2) come from the
+// caller (ColorConsts), the same values the plain twins in kernels/color.py
+// and kernels/variants.py use, so kernel and twin agree bit for bit.
 //
 // Design: no reduction crosses threads, so one thread owns one RH x 16
 // window of the luma grid (16 / RW chroma samples): it reads 16 bytes per
@@ -47,17 +62,21 @@
 // TPU's layout rules only.
 //
 // Bound: memory.  Bytes per pixel (each input read once, each output
-// written once): split and merge 4:2:0 4.5, 4:2:2 5, 4:4:4 6; at 8192^2
-// and 3.35 TB/s that is 0.090, 0.100 and 0.120 ms.  The arithmetic (about
-// 20 operations per pixel, the merge's true division among them) stays
-// well under that at the card's f32 rate.
+// written once): split and merge 4:2:0 4.5 (the variants too), 4:2:2 5,
+// 4:4:4 6; at 8192^2 and 3.35 TB/s that is 0.090, 0.100 and 0.120 ms.  The
+// arithmetic (about 20 operations per pixel, the merge's true division
+// among them) stays well under that at the card's f32 rate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "color_px.cuh"  // ColorConsts, byte access, the roundings, split_chroma, merge_px
+#include "color_px.cuh"  // ColorConsts, byte access, the roundings, split_chroma, merge_px(_direct)
 
 namespace {
+
+// The merge's per-pixel chain: B9-B13's (trunc round), V1's (compare
+// round), V12's (direct-form g, compare round).
+enum class Merge { kTrunc, kCompare, kDirect };
 
 constexpr int kCols = 16;  // luma columns per thread
 constexpr int kThreads = 256;
@@ -75,7 +94,7 @@ __device__ __forceinline__ bool window(int h, int w, long long& o, long long& co
   return true;
 }
 
-template <int RH, int RW>
+template <int RH, int RW, bool kTruncChroma = false>
 __global__ void k_color_split(const uint8_t* __restrict__ rgb, uint8_t* __restrict__ y,
                               uint8_t* __restrict__ cb, uint8_t* __restrict__ cr, int h, int w,
                               const ColorConsts k) {
@@ -111,7 +130,7 @@ __global__ void k_color_split(const uint8_t* __restrict__ rgb, uint8_t* __restri
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     uint32_t zb, zr;
-    split_chroma(sum[0][v], sum[1][v], sum[2][v], 1.0f / (RH * RW), k, zb, zr);
+    split_chroma<kTruncChroma>(sum[0][v], sum[1][v], sum[2][v], 1.0f / (RH * RW), k, zb, zr);
     cbv[v >> 2] |= zb << (8 * (v & 3));
     crv[v >> 2] |= zr << (8 * (v & 3));
   }
@@ -119,7 +138,7 @@ __global__ void k_color_split(const uint8_t* __restrict__ rgb, uint8_t* __restri
   store_bytes<V>(cr + co, crv);
 }
 
-template <int RH, int RW>
+template <int RH, int RW, Merge kForm = Merge::kTrunc>
 __global__ void k_color_merge(const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
                               const uint8_t* __restrict__ cr, uint8_t* __restrict__ out, int h,
                               int w, const ColorConsts k) {
@@ -145,7 +164,11 @@ __global__ void k_color_merge(const uint8_t* __restrict__ y, const uint8_t* __re
 #pragma unroll
     for (int e = 0; e < kCols; ++e) {
       uint32_t r, g, b;
-      merge_px(static_cast<float>(byte_at(yw, e)), cbc[e / RW], crc[e / RW], k, r, g, b);
+      const float yf = static_cast<float>(byte_at(yw, e));
+      if constexpr (kForm == Merge::kDirect)
+        merge_px_direct(yf, cbc[e / RW], crc[e / RW], k, r, g, b);
+      else
+        merge_px<kForm == Merge::kCompare>(yf, cbc[e / RW], crc[e / RW], k, r, g, b);
       const int sh = 8 * (e & 3);
       rv[e >> 2] |= r << sh;
       gv[e >> 2] |= g << sh;
@@ -170,18 +193,18 @@ inline int prologue(int device, int h, int w, int rh, int rw) {
   return static_cast<int>(cudaSetDevice(device));
 }
 
-template <int RH, int RW>
+template <int RH, int RW, bool kTruncChroma = false>
 void split(const void* rgb, void* y, void* cb, void* cr, int h, int w, const ColorConsts& k,
            cudaStream_t s) {
-  k_color_split<RH, RW><<<grid_for<RH>(h, w), kThreads, 0, s>>>(
+  k_color_split<RH, RW, kTruncChroma><<<grid_for<RH>(h, w), kThreads, 0, s>>>(
       static_cast<const uint8_t*>(rgb), static_cast<uint8_t*>(y), static_cast<uint8_t*>(cb),
       static_cast<uint8_t*>(cr), h, w, k);
 }
 
-template <int RH, int RW>
+template <int RH, int RW, Merge kForm = Merge::kTrunc>
 void merge(const void* y, const void* cb, const void* cr, void* out, int h, int w,
            const ColorConsts& k, cudaStream_t s) {
-  k_color_merge<RH, RW><<<grid_for<RH>(h, w), kThreads, 0, s>>>(
+  k_color_merge<RH, RW, kForm><<<grid_for<RH>(h, w), kThreads, 0, s>>>(
       static_cast<const uint8_t*>(y), static_cast<const uint8_t*>(cb),
       static_cast<const uint8_t*>(cr), static_cast<uint8_t*>(out), h, w, k);
 }
@@ -190,11 +213,13 @@ void merge(const void* y, const void* cb, const void* cr, void* out, int h, int 
 
 // ---- C interface -------------------------------------------------------------
 // Pointers are device pointers (16-byte aligned, contiguous) except `consts`,
-// a host pointer to 7 floats laid out as ColorConsts.  (rh, rw) is the chroma
+// a host pointer to 9 floats laid out as ColorConsts.  (rh, rw) is the chroma
 // window: (2, 2) 4:2:0, (1, 2) 4:2:2, (1, 1) 4:4:4; h % rh == 0 and
-// w % 16 == 0.  Each function returns a cudaError_t value (0 = ok) after
-// checking the launch (hp_error_string in hp_codec.cu names it); it neither
-// synchronizes nor allocates.
+// w % 16 == 0.  The variant launchers are 4:2:0 only and take the study's
+// variant number: merge 1 (V1) or 12 (V12), split 5 (V5); any other is
+// refused with cudaErrorInvalidValue.  Each function returns a cudaError_t
+// value (0 = ok) after checking the launch (hp_error_string in hp_codec.cu
+// names it); it neither synchronizes nor allocates.
 
 extern "C" {
 
@@ -225,6 +250,30 @@ int color_merge_launch(const void* y, const void* cb, const void* cr, void* out,
     merge<1, 2>(y, cb, cr, out, h, w, k, s);
   else
     merge<1, 1>(y, cb, cr, out, h, w, k, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int color_split_variant_launch(const void* rgb, void* y, void* cb, void* cr, int h, int w,
+                               int variant, const void* consts, void* stream, int device) {
+  if (variant != 5) return static_cast<int>(cudaErrorInvalidValue);
+  int err = prologue(device, h, w, 2, 2);
+  if (err) return err;
+  split<2, 2, true>(rgb, y, cb, cr, h, w, *static_cast<const ColorConsts*>(consts),
+                    static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int color_merge_variant_launch(const void* y, const void* cb, const void* cr, void* out, int h,
+                               int w, int variant, const void* consts, void* stream, int device) {
+  if (variant != 1 && variant != 12) return static_cast<int>(cudaErrorInvalidValue);
+  int err = prologue(device, h, w, 2, 2);
+  if (err) return err;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const ColorConsts& k = *static_cast<const ColorConsts*>(consts);
+  if (variant == 1)
+    merge<2, 2, Merge::kCompare>(y, cb, cr, out, h, w, k, s);
+  else
+    merge<2, 2, Merge::kDirect>(y, cb, cr, out, h, w, k, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,8 @@
 // The color codec's per-pixel chains and byte access helpers, shared by
-// color_codec.cu (B8-B13), ring.cu (B16) and study.cu (B19, B20), so the
-// color ring and the fused 4:2:0 kernels split and merge exactly as
-// color_split_420_u8 and color_merge_420_u8 do.  See color_codec.cu's header
-// for the value chain and its rounding.
+// color_codec.cu (B8-B13 and the study variants B23-B26), ring.cu (B16) and
+// study.cu (B19, B20), so the color ring and the fused 4:2:0 kernels split
+// and merge exactly as color_split_420_u8 and color_merge_420_u8 do.  See
+// color_codec.cu's header for the value chain and its rounding.
 
 #pragma once
 
@@ -15,6 +15,8 @@ struct ColorConsts {
   float kr, kg, kb;  // BT.601 luma weights, f32
   float kcb, kcr;    // 0.5 / (1 - KB), 0.5 / (1 - KR): forward chroma scales
   float kr2, kb2;    // 2 - 2 KR, 2 - 2 KB: inverse chroma scales
+  float c1, c2;      // KB (2 - 2 KB) / KG, KR (2 - 2 KR) / KG: the direct-form
+                     // inverse's g weights (merge_px_direct), each rounded once
 };
 
 // N bytes at p (N in 4, 8, 16; p aligned to N) as N/4 little-endian words.
@@ -65,15 +67,19 @@ __device__ __forceinline__ float luma_f32(float r, float g, float b, const Color
 
 // One chroma sample of the split: the integer window sums of (c - 128) of
 // r, g, b over a window of 1/inv pixels (inv a power of two) -> cb, cr u8.
-// P_c = sum * inv + 128 is exact; then the pooled BT.601 and _to_u8.
+// P_c = sum * inv + 128 is exact; then the pooled BT.601 and _to_u8 or, with
+// kTruncRound (the study's V5 split), _to_u8_trunc.
+template <bool kTruncRound = false>
 __device__ __forceinline__ void split_chroma(int sr, int sg, int sb, float inv, const ColorConsts& k,
                                              uint32_t& cb, uint32_t& cr) {
   const float pr = __fadd_rn(__fmul_rn(static_cast<float>(sr), inv), 128.0f);
   const float pg = __fadd_rn(__fmul_rn(static_cast<float>(sg), inv), 128.0f);
   const float pb = __fadd_rn(__fmul_rn(static_cast<float>(sb), inv), 128.0f);
   const float yp = luma_f32(pr, pg, pb, k);
-  cb = round_u8(__fadd_rn(__fmul_rn(__fsub_rn(pb, yp), k.kcb), 128.0f));
-  cr = round_u8(__fadd_rn(__fmul_rn(__fsub_rn(pr, yp), k.kcr), 128.0f));
+  const float zb = __fadd_rn(__fmul_rn(__fsub_rn(pb, yp), k.kcb), 128.0f);
+  const float zr = __fadd_rn(__fmul_rn(__fsub_rn(pr, yp), k.kcr), 128.0f);
+  cb = kTruncRound ? trunc_u8(zb) : round_u8(zb);
+  cr = kTruncRound ? trunc_u8(zr) : round_u8(zr);
 }
 
 // One merged pixel: luma yf and the shifted chroma cbc = cb - 128,
@@ -90,6 +96,19 @@ __device__ __forceinline__ void merge_px(float yf, float cbc, float crc, const C
   r = kCompareRound ? round_u8(rf) : trunc_u8(rf);
   g = kCompareRound ? round_u8(gf) : trunc_u8(gf);
   b = kCompareRound ? round_u8(bf) : trunc_u8(bf);
+}
+
+// The study's direct-form merge (V12): r and b as merge_px, g straight from
+// the chroma, (yf - c1 cbc) - c2 crc, every product and difference rounded
+// on its own; the compare-form round.
+__device__ __forceinline__ void merge_px_direct(float yf, float cbc, float crc, const ColorConsts& k,
+                                                uint32_t& r, uint32_t& g, uint32_t& b) {
+  const float rf = __fadd_rn(yf, __fmul_rn(crc, k.kr2));
+  const float bf = __fadd_rn(yf, __fmul_rn(cbc, k.kb2));
+  const float gf = __fsub_rn(__fsub_rn(yf, __fmul_rn(cbc, k.c1)), __fmul_rn(crc, k.c2));
+  r = round_u8(rf);
+  g = round_u8(gf);
+  b = round_u8(bf);
 }
 
 }  // namespace

@@ -14,6 +14,8 @@
 //   hp_dct_launch               B5  hp_dct           (_k_dct_int, _k_dct_f32)
 //   hp_idct_launch              B6  hp_idct          (_k_idct_bf, _k_idct)
 //   hp_scaled_decode_u8_launch  B7  hp_scaled_decode_u8 (_k_scaled_decode_u8_bf)
+//   idct_split3_launch          B22 idct_x(., "c") of benchmarks/inv_formulations.py (_k_c)
+// (idct_x(., "b"), _k_b, is B6's butterfly at q_scale 1: hp_idct_launch, B21.)
 //
 // Value chain (identical to the reference's, rounding included):
 //   forward, integer core
@@ -38,12 +40,21 @@
 //            reference's "high" tier (a bf16x3 MXU product, there because
 //            the TPU has no f32 MXU path) runs the "highest" constants.
 //   u8 out   clamp(trunc(X + 128), 0, 255).
+//   split3   (B22) the butterfly inverse at q_scale 1 with each direction
+//            taken per bf16 digit: M = fl(c * S); every value v of M is
+//            split exactly into three bf16 digits (round to nearest even:
+//            d1 = bf16(v), d2 = bf16(v - d1), d3 = bf16(v - d1 - d2)); per
+//            digit the column sum Ts^T d over k = 0..7, every product and
+//            sum rounded; the three digit sums added (d1 + d2) + d3; then
+//            the same on the rows of that result against Ts, + 128.  The
+//            TPU form's three bf16 MXU passes per direction, in one fixed
+//            order.
 //   scaled   box sums of fr x fc windows of the clamped, truncated decode
 //            (exact integers < 2^14), times 1/(fr fc) (a power of two, so
 //            exact): bit-identical to box_pool_u8(hp_decode_u8(c)).
 //
-// The plain twins in kernels/hp.py sum in the same order, so kernel and
-// twin agree bit for bit.
+// The plain twins in kernels/hp.py (and kernels/variants.py for split3) sum
+// in the same order, so kernel and twin agree bit for bit.
 //
 // Design: one thread per 8x8 block, the block held in registers.  A thread
 // reads its block as 8 row loads of 8 bytes (u8/int8) or 32 bytes (f32);
@@ -57,10 +68,13 @@
 // Bound: memory.  The fused u8 pass moves 3 bytes per pixel (read u8, write
 // int8 + u8): 192 MiB at 8192^2, about 60 us at the H100 SXM's 3.35 TB/s;
 // hp_dct and hp_idct move 8, the f32 roundtrips 12, the scaled u8 decode
-// 1 + 1/(fr fc).  The arithmetic is ~2k f32 operations per block (the
-// literal forward adds 64 IEEE divisions).  This version favours a plain,
-// checkable shape over reaching the memory bound.
+// 1 + 1/(fr fc), the split3 inverse 8.  The arithmetic is ~2k f32
+// operations per block (the literal forward adds 64 IEEE divisions; split3
+// does three times the inverse's products and sums, plus 5 operations per
+// digit split, ~7k).  This version favours a plain, checkable shape over
+// reaching the memory bound.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -211,6 +225,54 @@ __global__ void k_idct(const float* __restrict__ coef, float* __restrict__ rec, 
   ROWS(store_f32(rec + ro, x + 8 * r));
 }
 
+// v -> its three bf16 digits as f32, d1 + d2 + d3 == v: _split3 of
+// benchmarks/inv_formulations.py (each digit rounded to nearest even).
+__device__ __forceinline__ void split3(float v, float& d1, float& d2, float& d3) {
+  d1 = __bfloat162float(__float2bfloat16_rn(v));
+  const float r1 = __fsub_rn(v, d1);
+  d2 = __bfloat162float(__float2bfloat16_rn(r1));
+  d3 = __bfloat162float(__float2bfloat16_rn(__fsub_rn(r1, d2)));
+}
+
+// sum over e = 0..7 of w[e * stride] * d[e], from e = 0, every product and
+// sum rounded.
+__device__ __forceinline__ float dot8(const float* w, int stride, const float* d) {
+  float acc = __fmul_rn(w[0], d[0]);
+#pragma unroll
+  for (int e = 1; e < 8; ++e) acc = __fadd_rn(acc, __fmul_rn(w[e * stride], d[e]));
+  return acc;
+}
+
+// The digit sums of one output: (dot8(d1) + dot8(d2)) + dot8(d3).
+__device__ __forceinline__ float dot8_split3(const float* w, int stride, const float (&d)[3][8]) {
+  return __fadd_rn(__fadd_rn(dot8(w, stride, d[0]), dot8(w, stride, d[1])), dot8(w, stride, d[2]));
+}
+
+__global__ void k_idct_split3(const float* __restrict__ coef, float* __restrict__ rec, int h, int w,
+                              const HpConsts k) {
+  const long long o = block_origin(h, w);
+  if (o < 0) return;
+  float x[64], u[64], d[3][8];
+  ROWS(load_f32(coef + ro, x + 8 * r));
+#pragma unroll
+  for (int e = 0; e < 64; ++e) x[e] = __fmul_rn(x[e], k.s[e]);
+#pragma unroll
+  for (int l = 0; l < 8; ++l) {  // columns: u = Ts^T M, per digit of M's column l
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) split3(x[kk * 8 + l], d[0][kk], d[1][kk], d[2][kk]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) u[i * 8 + l] = dot8_split3(k.a + i, 8, d);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {  // rows: u Ts, per digit of u's row i, + 128
+#pragma unroll
+    for (int l = 0; l < 8; ++l) split3(u[i * 8 + l], d[0][l], d[1][l], d[2][l]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[i * 8 + j] = __fadd_rn(dot8_split3(k.a + j, 8, d), 128.0f);
+  }
+  ROWS(store_f32(rec + ro, x + 8 * r));
+}
+
 // int8 (h, w) -> (h / FR, w / FC) box averages of the clamped, truncated
 // decode; u8 (truncated) when out_u8, else f32.
 template <int FR, int FC>
@@ -353,6 +415,17 @@ int hp_idct_launch(const void* coef, void* rec, int h, int w, const void* consts
   int err = prologue(device, h, w);
   if (err) return err;
   k_idct<<<grid_for(h, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(coef), static_cast<float*>(rec), h, w, consts_of(consts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rec must not be coef: the kernel's pointers are __restrict__.
+int idct_split3_launch(const void* coef, void* rec, int h, int w, const void* consts, void* stream,
+                       int device) {
+  if (coef == rec) return static_cast<int>(cudaErrorInvalidValue);
+  int err = prologue(device, h, w);
+  if (err) return err;
+  k_idct_split3<<<grid_for(h, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(coef), static_cast<float*>(rec), h, w, consts_of(consts));
   return static_cast<int>(cudaGetLastError());
 }

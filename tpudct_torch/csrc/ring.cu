@@ -92,7 +92,7 @@ __global__ void __launch_bounds__(kStripThreads)
 
 // ---- C interface -------------------------------------------------------------
 // Pointers are device pointers except the consts, host pointers to 320 floats
-// laid out as HpConsts (luma, chroma) or 7 floats laid out as ColorConsts.
+// laid out as HpConsts (luma, chroma) or 9 floats laid out as ColorConsts.
 // The forward pointers may be null, and may point into another card's memory
 // once ring_enable_peer has given this card access to it.  The kernel runs on
 // `device` in `stream`.  Each function returns a cudaError_t value (0 = ok;

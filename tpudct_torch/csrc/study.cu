@@ -179,7 +179,7 @@ inline dim3 strip_grid(int h, int w) {
 // Pointers are device pointers (16-byte aligned, contiguous) except the
 // consts, host pointers to 320 floats laid out as HpConsts (luma, chroma;
 // the integer core's tables for the encode, the butterfly's for the decode)
-// or 7 floats laid out as ColorConsts.  u8_copy_launch copies n bytes of src
+// or 9 floats laid out as ColorConsts.  u8_copy_launch copies n bytes of src
 // to dst (which may be src) and, unless i8 is null, to i8; the color
 // launchers need h % 16 == 0 and w % 256 == 0.  Each function returns a
 // cudaError_t value (0 = ok; hp_error_string in hp_codec.cu names it) after

@@ -1,10 +1,12 @@
 """Build and load the CUDA library of the port's kernels.
 
-``tpudct_torch/csrc/hp_codec.cu`` (kernels B1-B7, and B3 with a forward
-pointer as B15), ``tpudct_torch/csrc/color_codec.cu`` (B8-B13),
-``tpudct_torch/csrc/ring.cu`` (B14, B16) and ``tpudct_torch/csrc/study.cu``
-(the study kernels B17-B20) are compiled by nvcc, one process per source,
-all started together, and linked into one shared library with a plain C
+``tpudct_torch/csrc/hp_codec.cu`` (kernels B1-B7, B3 with a forward
+pointer as B15, the study's split3 inverse B22),
+``tpudct_torch/csrc/color_codec.cu`` (B8-B13 and the study variants B23,
+B26), ``tpudct_torch/csrc/ring.cu`` (B14, B16) and
+``tpudct_torch/csrc/study.cu`` (the study kernels B17-B20) are compiled by
+nvcc, one process per source, all started together, and linked into one
+shared library with a plain C
 interface, loaded with ctypes; :func:`call` launches one of its functions.
 The library lives in ``build/tpudct_torch/`` at the root of the checkout
 (listed in .gitignore), named by a hash of the flags, the sources and the
@@ -44,8 +46,11 @@ _SIGNATURES = {
     "hp_dct_launch": (_P, _P, _I, _I, _I, _P, _P, _I),
     "hp_idct_launch": (_P, _P, _I, _I, _P, _P, _I),
     "hp_scaled_decode_u8_launch": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _I),
+    "idct_split3_launch": (_P, _P, _I, _I, _P, _P, _I),
     "color_split_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I),
     "color_merge_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I),
+    "color_split_variant_launch": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I),
+    "color_merge_variant_launch": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I),
     "ring_forward_launch": (_P, _P, _L, _P, _I),
     "ring_forward_decode_color_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _I),
     "ring_enable_peer": (_I, _I),

@@ -50,8 +50,8 @@ def supports(h: int, w: int) -> bool:
 
 @functools.cache
 def _consts() -> np.ndarray:
-    """The 7 f32 constants the CUDA side reads as ColorConsts."""
-    a = np.array([F32[k] for k in ("kr", "kg", "kb", "kcb", "kcr", "kr2", "kb2")], np.float32)
+    """The 9 f32 constants the CUDA side reads as ColorConsts."""
+    a = np.array([F32[k] for k in ("kr", "kg", "kb", "kcb", "kcr", "kr2", "kb2", "c1", "c2")], np.float32)
     a.setflags(write=False)
     return a
 

@@ -32,18 +32,12 @@ from tpudct_torch import CodecConfig, get_pipeline
 from tpudct_torch.kernels import study
 from tpudct_torch.models.color import decode_color_u8, encode_color_u8
 from tpudct_torch.models.dispatch import default_device
-from tpudct_torch.studies import device_label
+from tpudct_torch.studies import device_label, differ
 from tpudct_torch.utils.timing import device_time_ms
 
 PLANES = ("y", "cb", "cr")
 #: Timed calls per measurement (each after one warm-up call).
 REPS = 5
-
-
-def _differ(a: torch.Tensor, b: torch.Tensor) -> tuple:
-    """(entries that differ, max abs difference)."""
-    d = (a.to(torch.int16) - b.to(torch.int16)).abs()
-    return int((d > 0).sum()), int(d.max())
 
 
 def main(size: int = 8192, device=None) -> dict:
@@ -74,8 +68,8 @@ def main(size: int = 8192, device=None) -> dict:
     composed = composed_encode(rgb)
     out = {"size": size, "card": label, "entries": {k: c.numel() for k, c in zip(PLANES, composed)}}
     for k, f, c in zip(PLANES, fused, composed):
-        out[f"{k}_differ"], out[f"{k}_max_diff"] = _differ(f, c)
-    out["decode_differ"] = _differ(fused_decode(composed), composed_decode(composed))[0]
+        out[f"{k}_differ"], out[f"{k}_max_diff"] = differ(f, c)
+    out["decode_differ"] = differ(fused_decode(composed), composed_decode(composed))[0]
     print(f"{size}^2 fused vs composed: coefficients differing y {out['y_differ']} of "
           f"{out['entries']['y']} (max {out['y_max_diff']}), cb {out['cb_differ']}, cr {out['cr_differ']} "
           f"of {out['entries']['cb']}; decode on the same coefficients: {out['decode_differ']} of "

@@ -33,6 +33,8 @@ F32 = {
     "kr": _f32(_KR), "kg": _f32(_KG), "kb": _f32(_KB),
     "kcb": _f32(0.5 / (1.0 - _KB)), "kcr": _f32(0.5 / (1.0 - _KR)),
     "kr2": _f32(2.0 - 2.0 * _KR), "kb2": _f32(2.0 - 2.0 * _KB),
+    # the direct-form inverse's g weights (the color variant study's V12)
+    "c1": _f32(_KB * (2.0 - 2.0 * _KB) / _KG), "c2": _f32(_KR * (2.0 - 2.0 * _KR) / _KG),
 }
 
 
