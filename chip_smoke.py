@@ -38,9 +38,15 @@ order:
      gathered truth (the coefficients; hp_decode_u8 and its twin on the
      whole map; decode_color_u8 and the twins' decode and merge), which
      also holds B3 and B9 against their twins after their chains moved
-     into the shared headers; then the study kernels at 512^2 and 8192^2
-     bit for bit against their twins: u8_copy and u8_copy2 (and both on a
-     ragged 3x1001 map, whose bytes end off the 16-byte vectors), the
+     into the shared headers; then B14 (csrc/copy.cuh's body) bit for bit
+     against its twin on byte runs of odd lengths (below one 16-byte
+     vector, around the body's 512-byte chunk grain and 16 and 32 KiB
+     tiles, 1001, 1 MiB +-1) and of each 8192^2 ring slot, src and dst at byte offsets
+     (0, 0), (1, 1) and (1, 3), the bytes around each run untouched; then
+     the study kernels at 512^2 and 8192^2 bit for bit against their
+     twins: u8_copy (in place: its output is its input) and u8_copy2 (both
+     outputs; both kernels also on a ragged 3x1001 map, whose bytes end
+     off the 16-byte vectors), the
      fused encode and decode at the default config and at q_scale 2.5 with
      retain_k 6; then the study variants at 512^2 and 8192^2 bit for bit
      against their twins (kernels.variants: the merges V1, V12, V4, V6 on
@@ -98,11 +104,13 @@ order:
   7. times each kernel against its twin with
      tpudct_torch.utils.timing.device_time_ms (CUDA events, the median of
      each batch of calls, L2 flushed before every call; order plain,
-     kernel, kernel, plain); B17 beside Tensor.copy_ into a distinct
-     tensor, B18 beside B1 as B1's byte floor, V1 beside B9 (the compare-
-     form round against the add form); the ring kernels once over a
-     whole 8192^2 slot with its forward (B14 beside Tensor.copy_), then per
-     launch and per whole ring at n = 1, 2, 4, 8.
+     kernel, kernel, plain); B17 in turns with Tensor.copy_ of the same
+     bytes into a distinct tensor (kernel, copy_, copy_, kernel), B18
+     beside B1 as B1's byte floor, V1 beside B9 (the compare-form round
+     against the add form); the ring kernels once over a whole 8192^2 slot
+     with its forward (B14 in turns with Tensor.copy_), then per launch
+     (B14 in turns with Tensor.copy_ of the same slot, with the slot's
+     bound) and per whole ring at n = 1, 2, 4, 8.
 
 Each phase prints its seconds.  Any failure ends the run with a non-zero
 exit.  The second-to-last line is a JSON summary of the kernels (launches
@@ -191,6 +199,13 @@ COMPARE_SIZES = (512, SQUARE)
 COLOR_FRAME = (4032, 3024)
 # the rings: (side, virtual rank counts on the card)
 RING_CASES = ((512, (8,)), (SQUARE, (1, 2, 4, 8)))
+# B14's edge cases (copy.cuh): byte counts below one 16-byte vector, around
+# the 512-byte chunk grain and 16 and 32 KiB (the bulk copies' tiles), 1001,
+# 1 MiB +-1 (many blocks), and a slot of each ring at SQUARE^2; each at
+# (src, dst) byte offsets from a 16-byte boundary: the bulk path, a peeled
+# head, and the byte path (offsets that differ mod 16)
+COPY_EDGE_BYTES = (1, 15, 17, 511, 513, 1001, 16383, 16385, 32767, 32769, 2**20 - 1, 2**20 + 1)
+COPY_OFFSETS = ((0, 0), (1, 1), (1, 3))
 
 
 def _fail(msg: str) -> None:
@@ -316,6 +331,7 @@ def phase_compare(dev) -> dict:
     _check_pinned_precision(dev)
     _compare_color(dev, errs)
     _compare_ring(dev, errs)
+    _compare_copy_edges(dev, errs)
     _compare_study(dev, errs)
     _compare_variants(dev, errs)
     torch.cuda.synchronize()
@@ -376,17 +392,44 @@ def _zero(label: str, n: int, mx: int, total: int) -> None:
         _fail(f"{label}: {n} of {total} entries differ (max {mx})")
 
 
+def _compare_copy_edges(dev, errs: dict) -> None:
+    """B14 (copy.cuh's body) against its twin, bit for bit, on byte runs of
+    COPY_EDGE_BYTES and of each ring slot at SQUARE^2, src and dst at each of
+    COPY_OFFSETS; the bytes around dst's run must stay as they were."""
+    from tpudct_torch.kernels import ring as rk
+
+    slots = tuple(SQUARE * SQUARE // n for n in RING_CASES[-1][1])
+    pad = 16
+    src = _noise(1, max(COPY_EDGE_BYTES + slots) + pad, seed=15, dev=dev)[0]
+    for nbytes in COPY_EDGE_BYTES + slots:
+        for so, do in COPY_OFFSETS:
+            outs = []
+            for fn in (rk.ring_forward, rk.forward_plain):
+                buf = torch.full((nbytes + pad,), 0xA5, dtype=torch.uint8, device=dev)
+                fn(src[so:so + nbytes], buf[do:do + nbytes])
+                outs.append(buf)
+            e = _same(f"ring_forward {nbytes} bytes at offsets ({so}, {do}), with the bytes around it", *outs)
+            errs["ring_forward"] = max(errs["ring_forward"], e)
+    print(f"  ring_forward on {len(COPY_EDGE_BYTES) + len(slots)} byte counts ({', '.join(map(str, COPY_EDGE_BYTES))} "
+          f"and the slots {', '.join(map(str, slots))}) at (src, dst) offsets {list(COPY_OFFSETS)}: bit-identical "
+          "to its twin, the bytes around each run untouched")
+
+
 def _compare_study(dev, errs: dict) -> None:
     """The study kernels (B17-B20) against their twins, bit for bit: the
     copies at 512^2, 8192^2 and on a ragged 3x1001 map (a byte tail past the
-    16-byte vectors), the fused encode and decode at 512^2 and 8192^2 at the
-    default config and at q_scale 2.5 with retain_k 6."""
+    16-byte vectors), B17 in place, B18's u8 and int8 outputs; the fused
+    encode and decode at 512^2 and 8192^2 at the default config and at
+    q_scale 2.5 with retain_k 6."""
     from tpudct_torch.kernels import study
 
     maps = [(f"{s}^2", _noise(s, s, seed=s + 3, dev=dev)) for s in COMPARE_SIZES]
     maps.append(("3x1001", _noise(3, 1001, seed=4, dev=dev)))
     for label, x in maps:
-        out = study.u8_copy(x.clone())
+        y = x.clone()
+        out = study.u8_copy(y)
+        if out.data_ptr() != y.data_ptr():
+            _fail(f"u8_copy {label}: the output is not its input (the copy is in place)")
         errs["u8_copy"] = max(errs["u8_copy"], _same(f"u8_copy {label}", out, study.copy_plain(x.clone())))
         _equal(f"u8_copy {label} values", out, x)
         for part, a, b in zip(("u8", "int8"), study.u8_copy2(x.clone()), study.copy2_plain(x.clone())):
@@ -1354,6 +1397,15 @@ def _time(fn, dev, reps: int) -> float:
     return device_time_ms(lambda _: fn(), torch.empty(0, device=dev), reps=reps)
 
 
+def _in_turns(kern, library, dev, reps: int = 20) -> tuple:
+    """(kernel ms, kernel ms, (library ms, library ms) or None): the kernel
+    twice, with its library call, where it has one, twice in between
+    (kernel, library, library, kernel)."""
+    k1 = _time(kern, dev, reps)
+    lib = (_time(library, dev, reps), _time(library, dev, reps)) if library else None
+    return k1, _time(kern, dev, reps), lib
+
+
 def phase_timing(dev, card: str) -> dict:
     from tpudct_torch.kernels import color as ck
     from tpudct_torch.kernels import hp
@@ -1422,12 +1474,17 @@ def phase_timing(dev, card: str) -> dict:
             "hp_scaled_decode_u8[8x8]": (1 + 1 / 64, lambda: hp.hp_scaled_decode_u8(ci8, 8, 8, out_u8=True),
                                          lambda: hp.scaled_decode_u8_plain(ci8, 8, 8, out_u8=True)),
         }
+        # u8_copy's library call: Tensor.copy_ of the same bytes into a
+        # distinct tensor (torch skips an in-place one), timed in turns with it
+        library = {}
+        if label == f"{SQUARE}^2":
+            dst = torch.empty_like(xs)
+            library["u8_copy"] = lambda: dst.copy_(xs)
         rows = [(name, KERNELS[name][2], kern, plain) for name, (kern, plain) in fns.items()]
         rows += [(name, *v) for name, v in variants.items()]
         for name, bpp, kern, plain in rows:
             p1 = _time(plain, dev, 3)
-            k1 = _time(kern, dev, 20)
-            k2 = _time(kern, dev, 20)
+            k1, k2, lib = _in_turns(kern, library.get(name), dev)
             p2 = _time(plain, dev, 3)
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
             gbps = bpp * h * w / (ms * 1e-3) / 1e9
@@ -1436,12 +1493,12 @@ def phase_timing(dev, card: str) -> dict:
             print(f"  {label} {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; "
                   f"kernel {gbps:.1f} GB/s = {gbps * 1e9 / HBM_PEAK_BPS:.1%} of 3.35 TB/s{bound} "
                   f"[{card}]")
+            if lib:
+                times["library"][name] = (lib[0] + lib[1]) / 2
+                print(f"  {label} {name} in turns with Tensor.copy_ into a distinct tensor (its library call): "
+                      f"kernel {k1:.4f}, copy_ {lib[0]:.4f}, copy_ {lib[1]:.4f}, kernel {k2:.4f} ms; kernel / "
+                      f"copy_ {ms / times['library'][name]:.3f} [{card}]")
         if label == f"{SQUARE}^2":
-            dst = torch.empty_like(xs)
-            copy = [_time(lambda: dst.copy_(xs), dev, 20) for _ in range(2)]
-            times["library"]["u8_copy"] = (copy[0] + copy[1]) / 2
-            print(f"  {label} Tensor.copy_ into a distinct tensor (u8_copy's library call): {copy[0]:.4f} / "
-                  f"{copy[1]:.4f} ms [{card}]")
             rt, floor = times[("hp_roundtrip_u8", label)][0], times[("u8_copy2", label)][0]
             print(f"  {label} hp_roundtrip_u8 (B1) {rt:.4f} ms against B1's byte floor u8_copy2 (B18) "
                   f"{floor:.4f} ms: {rt / floor:.2f}x [{card}]")
@@ -1467,8 +1524,9 @@ def _ring_bytes(n: int, side: int) -> dict:
 
 def _time_rings(dev, card: str) -> tuple:
     """B14-B16 over a whole SQUARE^2 slot with its forward (kernel and twin,
-    Tensor.copy_ beside B14), then per launch and per whole ring at each
-    rank count.  Returns (times, B14's library ms)."""
+    B14 in turns with Tensor.copy_), then per launch (B14 in turns with
+    Tensor.copy_ of the same slot) and per whole ring at each rank count.
+    Returns (times, B14's library ms at SQUARE^2)."""
     from tpudct_torch import parallel as P
     from tpudct_torch.kernels import hp
     from tpudct_torch.kernels import ring as rk
@@ -1490,8 +1548,7 @@ def _time_rings(dev, card: str) -> tuple:
     times = {}
     for name, (kern, plain) in fns.items():
         p1 = _time(plain, dev, 3)
-        k1 = _time(kern, dev, 20)
-        k2 = _time(kern, dev, 20)
+        k1, k2, lib = _in_turns(kern, (lambda: dst.copy_(x)) if name == "ring_forward" else None, dev)
         p2 = _time(plain, dev, 3)
         ms = (k1 + k2) / 2
         times[(name, f"{SQUARE}^2")] = (ms, (p1 + p2) / 2)
@@ -1499,8 +1556,11 @@ def _time_rings(dev, card: str) -> tuple:
         print(f"  {SQUARE}^2 slot with its forward, {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
               f"{p2:.4f} ms; {gbps:.1f} GB/s = {gbps * 1e9 / HBM_PEAK_BPS:.1%} of 3.35 TB/s; bound "
               f"{_bound(name, SQUARE, SQUARE)[0]:.4f} ms [{card}]")
-    copy = [_time(lambda: dst.copy_(x), dev, 20) for _ in range(2)]
-    print(f"  {SQUARE}^2 Tensor.copy_ (B14's library call): {copy[0]:.4f} / {copy[1]:.4f} ms [{card}]")
+        if lib:
+            copy_ms = (lib[0] + lib[1]) / 2
+            print(f"  {SQUARE}^2 {name} in turns with Tensor.copy_ (its library call): kernel {k1:.4f}, copy_ "
+                  f"{lib[0]:.4f}, copy_ {lib[1]:.4f}, kernel {k2:.4f} ms; kernel / copy_ {ms / copy_ms:.3f} "
+                  f"[{card}]")
     for n in (1, 2, 4, 8):
         mesh, br = P.band_mesh(devices=[dev] * n), SQUARE // n
         pack_n = P.chroma_band_pack(ccb, ccr, n)
@@ -1514,14 +1574,20 @@ def _time_rings(dev, card: str) -> tuple:
             "ring_decode_gather": (P.shard_image(c, mesh), mesh),
             "ring_decode_color_gather": (P.shard_image(cy, mesh), P.shard_image(pack_n, mesh), mesh),
         }
-        per = {k: _time(f, dev, 20) for k, f in launch.items()}
+        b14 = _in_turns(launch.pop("B14"), lambda: dst[:br].copy_(x[:br]), dev)
+        per = {"B14": (b14[0] + b14[1]) / 2, **{k: _time(f, dev, 20) for k, f in launch.items()}}
         whole = {name: _time(lambda: getattr(P, name)(*a), dev, 5) for name, a in args.items()}
         times[("rings", n)] = (per, whole)
         bounds = {k: b / HBM_PEAK_BPS * 1e3 for k, b in _ring_bytes(n, SQUARE).items()}
+        slot_bound = 2 * br * SQUARE / HBM_PEAK_BPS * 1e3
+        print(f"  n={n} ({br}x{SQUARE} slots): B14 in turns with Tensor.copy_ of the slot: kernel {b14[0]:.4f}, "
+              f"copy_ {b14[2][0]:.4f}, copy_ {b14[2][1]:.4f}, kernel {b14[1]:.4f} ms; kernel / copy_ "
+              f"{2 * per['B14'] / sum(b14[2]):.3f}; bound {slot_bound:.4f} ms, kernel at "
+              f"{slot_bound / per['B14']:.1%} of it [{card}]")
         print(f"  n={n} ({br}x{SQUARE} slots): per launch with forward B14 {per['B14']:.4f}, B15 "
               f"{per['B15']:.4f}, B16 {per['B16']:.4f} ms; whole ring "
               + ", ".join(f"{k} {whole[k]:.4f} ms (bound {bounds[k]:.4f})" for k in whole) + f" [{card}]")
-    return times, (copy[0] + copy[1]) / 2
+    return times, copy_ms
 
 
 def main() -> int:

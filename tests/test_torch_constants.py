@@ -197,24 +197,51 @@ def test_failed_build_raises_with_nvccs_stderr(stage, monkeypatch, tmp_path):
     assert not list((tmp_path / "build").glob("*.so"))
 
 
-def test_library_name_follows_the_shared_headers(monkeypatch, tmp_path):
+@pytest.mark.parametrize("edited", ["hp_block.cuh", "copy.cuh"])
+def test_library_name_follows_the_shared_headers(edited, monkeypatch, tmp_path):
     """The library is named by a hash of the sources AND the headers they
     include, so an edited header rebuilds (the ring kernels share the block
-    decode and the 4:2:0 merge with B3 and B9 through csrc/*.cuh)."""
+    decode and the 4:2:0 merge with B3 and B9, and B14 shares the copy body
+    with B17/B18, through csrc/*.cuh)."""
     from tpudct_torch.kernels import _build
 
     names = {p.name for p in _build.headers()}
-    assert {"hp_block.cuh", "color_px.cuh", "strip420.cuh"} <= names
+    assert {"hp_block.cuh", "color_px.cuh", "strip420.cuh", "copy.cuh"} <= names
     assert {p.name for p in _build.SOURCES} == {"hp_codec.cu", "color_codec.cu", "ring.cu", "study.cu"}
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.SOURCES[0].parent, csrc)
     monkeypatch.setattr(_build, "SOURCES", tuple(csrc / p.name for p in _build.SOURCES))
     before = _build.library_path()
     assert before == _build.library_path()
-    header = csrc / "hp_block.cuh"
+    header = csrc / edited
     header.write_text(header.read_text() + "\n// edited\n")
     after = _build.library_path()
     assert after != before and after.parent == before.parent
+
+
+# An element copy loop: a for statement whose one statement stores an indexed
+# element loaded from an indexed element (the form B14's and B17's loops had
+# before they shared csrc/copy.cuh).
+_COPY_LOOP = re.compile(r"for\s*\([^;]*;[^;]*;[^)]*\)\s*\w+\[\w+\]\s*=\s*\w+\[\w+\];")
+
+
+@pytest.mark.parametrize("source", ["ring.cu", "study.cu"])
+def test_copy_kernels_share_one_copy_body(source):
+    """B14 (ring.cu) and B17/B18 (study.cu) run csrc/copy.cuh's body: each
+    source includes it and calls copy_bytes, and neither keeps a copy loop,
+    a 16-byte vector access or a grid cap of its own."""
+    from tpudct_torch.kernels import _build
+
+    csrc = _build.SOURCES[0].parent
+    text = (csrc / source).read_text()
+    assert '#include "copy.cuh"' in text
+    assert re.search(r"copy_bytes<(false|kI8)>\(src, dst, (nullptr|i8), n(bytes)?\);", text)
+    assert "kMaxCopyBlocks" not in text and "uint4" not in text
+    assert not _COPY_LOOP.search(text)
+    assert _COPY_LOOP.search("for (long long i = done + t; i < nbytes; i += stride) dst[i] = src[i];")
+    assert _COPY_LOOP.search("for (long long i = t; i < n16; i += stride) d[i] = s[i];")
+    body = (csrc / "copy.cuh").read_text()
+    assert body.count("void copy_bytes(") == 1 and "kMaxCopyBlocks" not in body
 
 
 def _c_interface() -> dict:

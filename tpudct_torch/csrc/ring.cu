@@ -28,17 +28,18 @@
 // as decode_color_u8 of the gathered planes does.  Like the reference, the
 // rings run the butterfly tier whatever the caller's decode_precision.
 //
-// Design.  On the TPU a ring hop is an RDMA whose wait the decode of the
-// band already held hides.  Here the hop and the decode read the same
-// bytes, so one pass does both: a thread reads each 8-byte row of its
-// block once, writes it to the next rank's replica (a peer card's memory
-// where the ranks lie on two cards, through NVLink) and decodes it from
-// registers.  The ordering of hops across ranks is the host's (CUDA events
-// between the ranks' streams); no kernel waits on another.  B14 is a
-// grid-stride copy, 16 bytes per access where both pointers allow it.  B15
-// is B3 itself, one thread per 8x8 block.  B16 runs one thread block per
-// 16 x 256 luma strip: each thread decodes one luma or chroma block (as B3,
-// one block of f32 live) into shared memory as u8, then the block merges the
+// Design.  On the TPU a ring hop is an RDMA whose wait the decode of the band
+// already held hides.  Here the hop and the decode read the same bytes, so
+// one pass does both: a thread reads each 8-byte row of its block once,
+// writes it to the next rank's replica (a peer card's memory where the ranks
+// lie on two cards, through NVLink) and decodes it from registers.  The
+// ordering of hops across ranks is the host's (CUDA events between the ranks'
+// streams); no kernel waits on another.  B14 is copy.cuh's copy body, shared
+// with B17/B18 (see its header: TMA bulk copies through a ring of
+// shared-memory stages, one block per SM, any byte count and alignment).  B15
+// is B3 itself, one thread per 8x8 block.  B16 runs one thread block per 16 x
+// 256 luma strip: each thread decodes one luma or chroma block (as B3, one
+// block of f32 live) into shared memory as u8, then the block merges the
 // strip from shared memory (as B9).  One thread per 16x16 window, decoding
 // its two chroma blocks and then its four luma blocks in turn, needs 255
 // registers (8 warps per SM) and runs 4x slower.
@@ -52,26 +53,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "copy.cuh"      // the copy body (B14)
 #include "strip420.cuh"  // the strip decode and merge (HpConsts, ColorConsts, block_index)
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr long long kMaxCopyBlocks = 132 * 16;  // a few waves of the H100's 132 SMs
-
-__global__ void k_ring_forward(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
-                               long long nbytes, int vec) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long t = block_index();
-  long long done = 0;
-  if (vec) {
-    const long long n16 = nbytes / 16;
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    for (long long i = t; i < n16; i += stride) d[i] = s[i];
-    done = n16 * 16;
-  }
-  for (long long i = done + t; i < nbytes; i += stride) dst[i] = src[i];
+// A slot, src -> dst (the next rank's replica or the rank's own place):
+// copy.cuh's body.
+__global__ void __launch_bounds__(kCopyThreads)
+    k_ring_forward(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, long long nbytes) {
+  copy_bytes<false>(src, dst, nullptr, nbytes);
 }
 
 // One thread block per 16 x 256 luma strip (its chroma: one 8-row block row
@@ -105,13 +96,8 @@ int ring_forward_launch(const void* src, void* dst, long long nbytes, void* stre
   if (nbytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   int err = static_cast<int>(cudaSetDevice(device));
   if (err || nbytes == 0) return err;
-  const int vec = (reinterpret_cast<uintptr_t>(src) % 16 == 0) && (reinterpret_cast<uintptr_t>(dst) % 16 == 0);
-  const long long items = vec ? (nbytes + 15) / 16 : nbytes;
-  const long long blocks = (items + kThreads - 1) / kThreads;
-  k_ring_forward<<<dim3(static_cast<unsigned>(blocks < kMaxCopyBlocks ? blocks : kMaxCopyBlocks)),
-                   kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), nbytes, vec);
-  return static_cast<int>(cudaGetLastError());
+  return launch_copy(k_ring_forward, nbytes, static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(src),
+                     static_cast<uint8_t*>(dst), nbytes);
 }
 
 int ring_forward_decode_color_launch(const void* y, const void* c, void* fy, void* fc, void* rgb,

@@ -38,15 +38,17 @@
 // kernels/study.py compute the same chains, so kernel and twin agree bit for
 // bit.
 //
-// Design.  B17/B18: a grid-stride loop of 16-byte loads and stores, a few
-// waves of blocks.  B19: one thread block of 128 threads per 16 x 256 luma
-// strip; each thread first reads a 2 x 16 window of the three planes (16
-// bytes a row), writes its 32 shifted-luma bytes and its 8 Cb and 8 Cr bytes
-// into shared memory, then threads 0-63 each run the forward of one luma
-// block and threads 64-95 of one chroma block from shared memory (one 8x8
-// block of f32 live per thread).  B20: B16's strip form (strip420.cuh)
-// without the forward stores.  A thread per 16x16 window with six blocks in
-// flight took B16's first form to 255 registers and 4x the time.
+// Design.  B17/B18: copy.cuh's copy body, shared with B14 (see its header:
+// TMA bulk copies through a ring of shared-memory stages, one block per SM,
+// in place allowed; B18 stores each tile twice).  B19: one thread block of
+// 128 threads per 16 x 256 luma strip; each thread first reads a 2 x 16
+// window of the three planes (16 bytes a row), writes its 32 shifted-luma
+// bytes and its 8 Cb and 8 Cr bytes into shared memory, then threads 0-63
+// each run the forward of one luma block and threads 64-95 of one chroma
+// block from shared memory (one 8x8 block of f32 live per thread).  B20:
+// B16's strip form (strip420.cuh) without the forward stores.  A thread per
+// 16x16 window with six blocks in flight took B16's first form to 255
+// registers and 4x the time.
 //
 // Bound: memory.  Bytes per luma pixel (each input read once, each output
 // written once): B17 2, B18 3, B19 and B20 4.5 (RGB 3, coefficients 1.5); at
@@ -57,29 +59,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "copy.cuh"      // the copy body (B17, B18)
 #include "strip420.cuh"  // strip geometry and decode; HpConsts, fwd_block; ColorConsts, luma_f32
 
 namespace {
 
-constexpr int kCopyThreads = 256;
-constexpr long long kMaxCopyBlocks = 132 * 16;  // a few waves of the H100's 132 SMs
-
-// src and dst (and i8) 16-byte aligned; dst may equal src.
+// n bytes of src -> dst (which may be src) and, for B18, -> i8: copy.cuh's body.
 template <bool kI8>
-__global__ void k_u8_copy(const uint8_t* src, uint8_t* dst, int8_t* i8, long long n) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long t = block_index();
-  const long long n16 = n / 16;
-  for (long long i = t; i < n16; i += stride) {
-    const uint4 v = reinterpret_cast<const uint4*>(src)[i];
-    reinterpret_cast<uint4*>(dst)[i] = v;
-    if constexpr (kI8) reinterpret_cast<uint4*>(i8)[i] = v;
-  }
-  for (long long i = n16 * 16 + t; i < n; i += stride) {
-    const uint8_t v = src[i];
-    dst[i] = v;
-    if constexpr (kI8) i8[i] = static_cast<int8_t>(v);
-  }
+__global__ void __launch_bounds__(kCopyThreads)
+    k_u8_copy(const uint8_t* src, uint8_t* dst, int8_t* i8, long long n) {
+  copy_bytes<kI8>(src, dst, i8, n);
 }
 
 constexpr int kWinCols = 16;                                               // luma columns of a window
@@ -191,16 +180,11 @@ int u8_copy_launch(const void* src, void* dst, void* i8, long long n, void* stre
   if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   int err = static_cast<int>(cudaSetDevice(device));
   if (err || n == 0) return err;
-  const long long blocks = (n / 16 + kCopyThreads - 1) / kCopyThreads;
-  const dim3 grid(static_cast<unsigned>(blocks < 1 ? 1 : blocks < kMaxCopyBlocks ? blocks : kMaxCopyBlocks));
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* x = static_cast<const uint8_t*>(src);
   auto* d = static_cast<uint8_t*>(dst);
-  if (i8)
-    k_u8_copy<true><<<grid, kCopyThreads, 0, s>>>(x, d, static_cast<int8_t*>(i8), n);
-  else
-    k_u8_copy<false><<<grid, kCopyThreads, 0, s>>>(x, d, nullptr, n);
-  return static_cast<int>(cudaGetLastError());
+  if (i8) return launch_copy(k_u8_copy<true>, n, s, x, d, static_cast<int8_t*>(i8), n);
+  return launch_copy(k_u8_copy<false>, n, s, x, d, static_cast<int8_t*>(nullptr), n);
 }
 
 int color_encode_420_launch(const void* rgb, void* y, void* cb, void* cr, int h, int w,

@@ -10,10 +10,11 @@ shared library with a plain C
 interface, loaded with ctypes; :func:`call` launches one of its functions.
 The library lives in ``build/tpudct_torch/`` at the root of the checkout
 (listed in .gitignore), named by a hash of the flags, the sources and the
-headers they share (``csrc/*.cuh``), so an edited source or header rebuilds
-the library and an unchanged one loads at once.  Nothing is built at
-import: the first kernel launch builds.  A failed build raises with nvcc's
-stderr.
+headers they share (``csrc/*.cuh``: the 8x8 block chains, the color pixel
+chains, the 4:2:0 strip, and ``copy.cuh``, the one copy body of B14 and
+B17/B18), so an edited source or header rebuilds the library and an
+unchanged one loads at once.  Nothing is built at import: the first kernel
+launch builds.  A failed build raises with nvcc's stderr.
 """
 
 from __future__ import annotations
