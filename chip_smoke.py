@@ -11,7 +11,9 @@ order:
 
   1. prints the card (name, power limit), the torch version and nvcc's;
   2. builds the kernels (one nvcc per source, in parallel) and prints
-     nvcc's register/stack/spill lines;
+     nvcc's register/stack/spill lines, and from ``cuobjdump -sass`` of the
+     library each B16 and B20 instance's count of conversion instructions
+     (I2F, I2FP, F2I, F2IP, FRND, F2F) and MUFU;
   3. turns TF32 off and prints both flags;
   4. holds each kernel against its plain torch twin at 512^2 and 8192^2,
      q_scale 1 and 2.5, retain_k None and 6 (where the kernel takes it),
@@ -48,7 +50,11 @@ order:
      outputs; both kernels also on a ragged 3x1001 map, whose bytes end
      off the 16-byte vectors), the
      fused encode and decode at the default config and at q_scale 2.5 with
-     retain_k 6; then the study variants at 512^2 and 8192^2 bit for bit
+     retain_k 6; B16 and B20 (csrc/strip420.cuh's one body) on uniform int8
+     noise planes (so the decode's clamps are reached) at 512^2 and 8192^2,
+     for every integer core and the alias cb2011, at q_scale 1 and 2.5, B16
+     on every ring slot at n = 1, 2, 4, 8, with its forwards; then the study
+     variants at 512^2 and 8192^2 bit for bit
      against their twins (kernels.variants: the merges V1, V12, V4, V6 on
      B8's planes, the splits V3, V5, idct_x "b" and "c" on hp_dct's
      coefficients), V1, V4, V6 also equal to B9's output and V3 to B8's, V12
@@ -107,10 +113,14 @@ order:
      kernel, kernel, plain); B17 in turns with Tensor.copy_ of the same
      bytes into a distinct tensor (kernel, copy_, copy_, kernel), B18
      beside B1 as B1's byte floor, V1 beside B9 (the compare-form round
-     against the add form); the ring kernels once over a whole 8192^2 slot
-     with its forward (B14 in turns with Tensor.copy_), then per launch
-     (B14 in turns with Tensor.copy_ of the same slot, with the slot's
-     bound) and per whole ring at n = 1, 2, 4, 8.
+     against the add form), B20 in turns with its composed counterpart
+     (hp_decode_u8 on the luma and the stacked chroma, color_merge_420_u8);
+     the ring kernels once over a whole 8192^2 slot with its forward (B14
+     in turns with Tensor.copy_, B16 with its composed counterpart: B15 on
+     the luma and the chroma pack slots, then color_merge_420_u8), then per
+     launch (B14 in turns with Tensor.copy_ of the same slot, B16 with its
+     composed counterpart, with the slot's bound) and per whole ring at
+     n = 1, 2, 4, 8.
 
 Each phase prints its seconds.  Any failure ends the run with a non-zero
 exit.  The second-to-last line is a JSON summary of the kernels (launches
@@ -123,7 +133,10 @@ Without a CUDA device the script raises before printing any result.
 
 from __future__ import annotations
 
+import collections
 import json
+import os
+import re
 import subprocess
 import time
 
@@ -240,6 +253,33 @@ def phase_build() -> None:
     for line in _build.build_log().splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill", "stack frame")):
             print("  ptxas:", line.strip().removeprefix("ptxas info    :").strip())
+    _sass_conversions(lib)
+
+
+# SASS opcodes of type conversions (16 per clock per SM on sm_90), and MUFU
+CONVERSIONS = ("I2F", "I2FP", "F2I", "F2IP", "FRND", "F2F")
+
+
+def _sass_conversions(lib) -> None:
+    """Static counts of conversion instructions (and MUFU) in each instance
+    of B16 and B20 (one per integer core), from cuobjdump -sass of the built
+    library."""
+    from tpudct_torch.kernels._build import nvcc_path
+    from tpudct_torch.kernels.strip420 import CORES
+
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    found = 0
+    for fn in re.split(r"\n\s*Function : ", out)[1:]:
+        m = re.search(r"(k_ring_forward_decode_color|k_color_decode_420)ILi(\d)E", fn.split("\n", 1)[0])
+        if not m:
+            continue
+        found += 1
+        ops = collections.Counter(re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9]*)", fn))
+        print(f"  sass: {m.group(1)}<{CORES[int(m.group(2))]}>: {sum(ops.values())} instructions; "
+              + ", ".join(f"{k} {ops[k]}" for k in CONVERSIONS + ("MUFU",)))
+    if found != 2 * len(CORES):
+        _fail(f"cuobjdump -sass shows {found} instances of B16 and B20, not {2 * len(CORES)}")
 
 
 def phase_tf32() -> None:
@@ -333,6 +373,7 @@ def phase_compare(dev) -> dict:
     _compare_ring(dev, errs)
     _compare_copy_edges(dev, errs)
     _compare_study(dev, errs)
+    _compare_strip(dev, errs)
     _compare_variants(dev, errs)
     torch.cuda.synchronize()
     return errs
@@ -449,6 +490,54 @@ def _compare_study(dev, errs: dict) -> None:
     print(f"  u8_copy and u8_copy2 at {', '.join(label for label, _ in maps)}, color_encode_420_u8 and "
           f"color_decode_420_u8 at {', '.join(f'{s}^2' for s in COMPARE_SIZES)} (default; q_scale 2.5, "
           "retain_k 6) bit-identical to their twins")
+
+
+def _i8_noise(shape, seed: int, dev) -> torch.Tensor:
+    """Uniform int8 noise: coefficients no encoder gives, so the decode's
+    clamps are reached both ways."""
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(-128, 128, size=shape, dtype=np.int8), device=dev)
+
+
+def _compare_strip(dev, errs: dict) -> None:
+    """B16 and B20 (csrc/strip420.cuh's one body) against their twins, bit
+    for bit, on uniform int8 noise planes at 512^2 and 8192^2, for every
+    integer core (and the alias cb2011), at the default config and at
+    q_scale 2.5 (the config with retain_k 6: retain_k reaches only the
+    encoder); B16 on every slot of the ring at n = 1, 2, 4, 8 (a forward on
+    every slot but the last, as a rank's last hop; at n = 1 with it)."""
+    from tpudct_torch.kernels import ring as rk
+    from tpudct_torch.kernels import study
+    from tpudct_torch.kernels.strip420 import CORES
+    from tpudct_torch.parallel import chroma_band_pack
+
+    for s in COMPARE_SIZES:
+        y = _i8_noise((s, s), s + 21, dev)
+        cb, cr = _i8_noise((s // 2, s // 2), s + 22, dev), _i8_noise((s // 2, s // 2), s + 23, dev)
+        for core in CORES + ("cb2011",):
+            for qs in (1.0, 2.5):
+                e = _same(f"color_decode_420_u8 {s}^2 int8 noise {core} q_scale={qs}",
+                          study.color_decode_420_u8(y, cb, cr, q_scale=qs, transform=core),
+                          study.decode_420_plain(y, cb, cr, q_scale=qs, transform=core))
+                errs["color_decode_420_u8"] = max(errs["color_decode_420_u8"], e)
+                for n in RING_CASES[-1][1]:
+                    br, pack = s // n, chroma_band_pack(cb, cr, n)
+                    for r in range(n):
+                        ys, ps = y[r * br:(r + 1) * br], pack[r * br:(r + 1) * br]
+                        fwd = r < n - 1 or n == 1
+                        outs = []
+                        for fn in (rk.ring_forward_decode_color, rk.forward_decode_color_plain):
+                            fy, fc = (torch.full_like(ys, 7), torch.full_like(ps, 7)) if fwd else (None, None)
+                            rgb = torch.full((3, br, s), 9, dtype=torch.uint8, device=dev)
+                            fn(ys, ps, fy, fc, rgb, q_scale=qs, transform=core)
+                            outs.append((rgb, fy, fc) if fwd else (rgb,))
+                        for part, k, p in zip(("rgb", "fy", "fc"), *outs):
+                            e = _same(f"ring_forward_decode_color {s}^2 int8 noise {core} q_scale={qs} n={n} "
+                                      f"slot {r} {part}", k, p)
+                            errs["ring_forward_decode_color"] = max(errs["ring_forward_decode_color"], e)
+        print(f"  {s}^2 int8 noise: color_decode_420_u8 and ring_forward_decode_color on every slot at n = "
+              f"{', '.join(map(str, RING_CASES[-1][1]))}, for {', '.join(CORES)} and cb2011 at q_scale 1 and "
+              "2.5, bit-identical to their twins")
 
 
 def _same(name: str, kernel_out, plain_out) -> float:
@@ -1397,13 +1486,33 @@ def _time(fn, dev, reps: int) -> float:
     return device_time_ms(lambda _: fn(), torch.empty(0, device=dev), reps=reps)
 
 
-def _in_turns(kern, library, dev, reps: int = 20) -> tuple:
-    """(kernel ms, kernel ms, (library ms, library ms) or None): the kernel
-    twice, with its library call, where it has one, twice in between
-    (kernel, library, library, kernel)."""
+def _in_turns(kern, other, dev, reps: int = 20) -> tuple:
+    """(kernel ms, kernel ms, (other ms, other ms) or None): the kernel
+    twice, with what it is held against (its library call, or the composed
+    kernels computing the same function), where it has one, twice in
+    between (kernel, other, other, kernel)."""
     k1 = _time(kern, dev, reps)
-    lib = (_time(library, dev, reps), _time(library, dev, reps)) if library else None
+    lib = (_time(other, dev, reps), _time(other, dev, reps)) if other else None
     return k1, _time(kern, dev, reps), lib
+
+
+def _composed_420(y, cc, half: int):
+    """B20's composed counterpart: hp_decode_u8 on the luma plane and on
+    the stacked chroma (chroma table), then color_merge_420_u8."""
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.kernels import hp
+
+    return ck.color_merge_420_u8(hp.hp_decode_u8(y), *hp.hp_decode_u8(cc, q_table="chroma").split(half))
+
+
+def _composed_ring(rk, ck, y, pack, fy, fc, ry, rc) -> None:
+    """B16's composed counterpart on a slot: ring_forward_decode (B15) on
+    the luma slot and on the chroma pack slot (chroma table), forwarding
+    both, then color_merge_420_u8."""
+    rk.ring_forward_decode(y, fy, ry)
+    rk.ring_forward_decode(pack, fc, rc, q_table="chroma")
+    half = pack.shape[0] // 2
+    ck.color_merge_420_u8(ry, rc[:half], rc[half:])
 
 
 def phase_timing(dev, card: str) -> dict:
@@ -1447,6 +1556,7 @@ def phase_timing(dev, card: str) -> dict:
             xs = _noise(h, w, seed=8, dev=dev)
             rgb_s = _rgb_noise(h, w, seed=12, dev=dev)
             planes_s = study.color_encode_420_u8(rgb_s)
+            cc_s = torch.cat(planes_s[1:])
             fns["u8_copy"] = (lambda: study.u8_copy(xs), lambda: study.copy_plain(xs))
             fns["u8_copy2"] = (lambda: study.u8_copy2(xs), lambda: study.copy2_plain(xs))
             fns["color_encode_420_u8"] = (lambda: study.color_encode_420_u8(rgb_s),
@@ -1476,15 +1586,16 @@ def phase_timing(dev, card: str) -> dict:
         }
         # u8_copy's library call: Tensor.copy_ of the same bytes into a
         # distinct tensor (torch skips an in-place one), timed in turns with it
-        library = {}
+        library, composed = {}, {}
         if label == f"{SQUARE}^2":
             dst = torch.empty_like(xs)
             library["u8_copy"] = lambda: dst.copy_(xs)
+            composed["color_decode_420_u8"] = lambda: _composed_420(planes_s[0], cc_s, h // 2)
         rows = [(name, KERNELS[name][2], kern, plain) for name, (kern, plain) in fns.items()]
         rows += [(name, *v) for name, v in variants.items()]
         for name, bpp, kern, plain in rows:
             p1 = _time(plain, dev, 3)
-            k1, k2, lib = _in_turns(kern, library.get(name), dev)
+            k1, k2, lib = _in_turns(kern, library.get(name) or composed.get(name), dev)
             p2 = _time(plain, dev, 3)
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
             gbps = bpp * h * w / (ms * 1e-3) / 1e9
@@ -1493,11 +1604,18 @@ def phase_timing(dev, card: str) -> dict:
             print(f"  {label} {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; "
                   f"kernel {gbps:.1f} GB/s = {gbps * 1e9 / HBM_PEAK_BPS:.1%} of 3.35 TB/s{bound} "
                   f"[{card}]")
-            if lib:
+            if lib and name in library:
                 times["library"][name] = (lib[0] + lib[1]) / 2
                 print(f"  {label} {name} in turns with Tensor.copy_ into a distinct tensor (its library call): "
                       f"kernel {k1:.4f}, copy_ {lib[0]:.4f}, copy_ {lib[1]:.4f}, kernel {k2:.4f} ms; kernel / "
                       f"copy_ {ms / times['library'][name]:.3f} [{card}]")
+            if lib and name in composed:
+                c_ms = (lib[0] + lib[1]) / 2
+                bound = _bound(name, h, w)[0]
+                print(f"  {label} {name} in turns with its composed counterpart (hp_decode_u8 on the luma and "
+                      f"the stacked chroma, then color_merge_420_u8): kernel {k1:.4f}, composed {lib[0]:.4f}, "
+                      f"composed {lib[1]:.4f}, kernel {k2:.4f} ms; kernel at {bound / ms:.1%} of its bound "
+                      f"{bound:.4f} ms, composed at {bound / c_ms:.1%}; kernel / composed {ms / c_ms:.3f} [{card}]")
         if label == f"{SQUARE}^2":
             rt, floor = times[("hp_roundtrip_u8", label)][0], times[("u8_copy2", label)][0]
             print(f"  {label} hp_roundtrip_u8 (B1) {rt:.4f} ms against B1's byte floor u8_copy2 (B18) "
@@ -1509,6 +1627,14 @@ def phase_timing(dev, card: str) -> dict:
     times.update(ring_times)
     times["library"]["ring_forward"] = copy_ms
     return times
+
+
+def _print_composed_ring(label: str, k1: float, k2: float, comp: tuple, bound: float, card: str) -> None:
+    ms, c_ms = (k1 + k2) / 2, (comp[0] + comp[1]) / 2
+    print(f"  {label}: ring_forward_decode_color (B16) in turns with its composed counterpart (B15 on the luma "
+          f"and the chroma pack slots, forwarding both, then color_merge_420_u8): kernel {k1:.4f}, composed "
+          f"{comp[0]:.4f}, composed {comp[1]:.4f}, kernel {k2:.4f} ms; kernel at {bound / ms:.1%} of its bound "
+          f"{bound:.4f} ms, composed at {bound / c_ms:.1%}; kernel / composed {ms / c_ms:.3f} [{card}]")
 
 
 def _ring_bytes(n: int, side: int) -> dict:
@@ -1528,6 +1654,7 @@ def _time_rings(dev, card: str) -> tuple:
     Tensor.copy_ of the same slot) and per whole ring at each rank count.
     Returns (times, B14's library ms at SQUARE^2)."""
     from tpudct_torch import parallel as P
+    from tpudct_torch.kernels import color as ck
     from tpudct_torch.kernels import hp
     from tpudct_torch.kernels import ring as rk
 
@@ -1538,6 +1665,7 @@ def _time_rings(dev, card: str) -> tuple:
     e = torch.empty_like
     dst, fwd, rec, fy, fc = e(x), e(c), e(x), e(cy), e(pack)
     rgb = torch.empty((3, SQUARE, SQUARE), dtype=torch.uint8, device=dev)
+    ry, rc = e(x), torch.empty(pack.shape, dtype=torch.uint8, device=dev)  # the composed B16's planes
     fns = {
         "ring_forward": (lambda: rk.ring_forward(x, dst), lambda: rk.forward_plain(x, dst)),
         "ring_forward_decode": (lambda: rk.ring_forward_decode(c, fwd, rec),
@@ -1546,9 +1674,11 @@ def _time_rings(dev, card: str) -> tuple:
                                       lambda: rk.forward_decode_color_plain(cy, pack, fy, fc, rgb)),
     }
     times = {}
+    others = {"ring_forward": lambda: dst.copy_(x),
+              "ring_forward_decode_color": lambda: _composed_ring(rk, ck, cy, pack, fy, fc, ry, rc)}
     for name, (kern, plain) in fns.items():
         p1 = _time(plain, dev, 3)
-        k1, k2, lib = _in_turns(kern, (lambda: dst.copy_(x)) if name == "ring_forward" else None, dev)
+        k1, k2, lib = _in_turns(kern, others.get(name), dev)
         p2 = _time(plain, dev, 3)
         ms = (k1 + k2) / 2
         times[(name, f"{SQUARE}^2")] = (ms, (p1 + p2) / 2)
@@ -1556,26 +1686,32 @@ def _time_rings(dev, card: str) -> tuple:
         print(f"  {SQUARE}^2 slot with its forward, {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
               f"{p2:.4f} ms; {gbps:.1f} GB/s = {gbps * 1e9 / HBM_PEAK_BPS:.1%} of 3.35 TB/s; bound "
               f"{_bound(name, SQUARE, SQUARE)[0]:.4f} ms [{card}]")
-        if lib:
+        if lib and name == "ring_forward":
             copy_ms = (lib[0] + lib[1]) / 2
             print(f"  {SQUARE}^2 {name} in turns with Tensor.copy_ (its library call): kernel {k1:.4f}, copy_ "
                   f"{lib[0]:.4f}, copy_ {lib[1]:.4f}, kernel {k2:.4f} ms; kernel / copy_ {ms / copy_ms:.3f} "
                   f"[{card}]")
+        if lib and name == "ring_forward_decode_color":
+            _print_composed_ring(f"{SQUARE}^2 slot", k1, k2, lib, _bound(name, SQUARE, SQUARE)[0], card)
     for n in (1, 2, 4, 8):
         mesh, br = P.band_mesh(devices=[dev] * n), SQUARE // n
         pack_n = P.chroma_band_pack(ccb, ccr, n)
         launch = {
             "B14": lambda: rk.ring_forward(x[:br], dst[:br]),
             "B15": lambda: rk.ring_forward_decode(c[:br], fwd[:br], rec[:br]),
-            "B16": lambda: rk.ring_forward_decode_color(cy[:br], pack_n[:br], fy[:br], fc[:br], rgb[:, :br]),
         }
+        b16 = _in_turns(lambda: rk.ring_forward_decode_color(cy[:br], pack_n[:br], fy[:br], fc[:br], rgb[:, :br]),
+                        lambda: _composed_ring(rk, ck, cy[:br], pack_n[:br], fy[:br], fc[:br], ry[:br], rc[:br]),
+                        dev)
+        _print_composed_ring(f"n={n} ({br}x{SQUARE} slots)", *b16, 6 * br * SQUARE / HBM_PEAK_BPS * 1e3, card)
         args = {
             "ring_all_gather": (P.shard_image(x, mesh), mesh),
             "ring_decode_gather": (P.shard_image(c, mesh), mesh),
             "ring_decode_color_gather": (P.shard_image(cy, mesh), P.shard_image(pack_n, mesh), mesh),
         }
         b14 = _in_turns(launch.pop("B14"), lambda: dst[:br].copy_(x[:br]), dev)
-        per = {"B14": (b14[0] + b14[1]) / 2, **{k: _time(f, dev, 20) for k, f in launch.items()}}
+        per = {"B14": (b14[0] + b14[1]) / 2, "B16": (b16[0] + b16[1]) / 2,
+               **{k: _time(f, dev, 20) for k, f in launch.items()}}
         whole = {name: _time(lambda: getattr(P, name)(*a), dev, 5) for name, a in args.items()}
         times[("rings", n)] = (per, whole)
         bounds = {k: b / HBM_PEAK_BPS * 1e3 for k, b in _ring_bytes(n, SQUARE).items()}

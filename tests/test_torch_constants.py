@@ -197,7 +197,7 @@ def test_failed_build_raises_with_nvccs_stderr(stage, monkeypatch, tmp_path):
     assert not list((tmp_path / "build").glob("*.so"))
 
 
-@pytest.mark.parametrize("edited", ["hp_block.cuh", "copy.cuh"])
+@pytest.mark.parametrize("edited", ["hp_block.cuh", "copy.cuh", "strip420.cuh"])
 def test_library_name_follows_the_shared_headers(edited, monkeypatch, tmp_path):
     """The library is named by a hash of the sources AND the headers they
     include, so an edited header rebuilds (the ring kernels share the block

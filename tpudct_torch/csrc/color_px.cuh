@@ -1,7 +1,8 @@
 // The color codec's per-pixel chains and byte access helpers, shared by
-// color_codec.cu (B8-B13 and the study variants B23-B26), ring.cu (B16) and
-// study.cu (B19, B20), so the color ring and the fused 4:2:0 kernels split
-// and merge exactly as color_split_420_u8 and color_merge_420_u8 do.  See
+// color_codec.cu (B8-B13 and the study variants B23-B26) and study.cu (B19),
+// so the fused 4:2:0 encode splits exactly as color_split_420_u8 does; the
+// 4:2:0 strip (B16, B20, strip420.cuh) reads ColorConsts and merges with the
+// same chain, its round without a conversion instruction.  See
 // color_codec.cu's header for the value chain and its rounding.
 
 #pragma once

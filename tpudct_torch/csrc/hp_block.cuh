@@ -1,9 +1,10 @@
 // The hp codec's 8x8 block chains: the integer-core forward and quantizer,
-// shared by hp_codec.cu (B1, B2, B4, B5) and study.cu (B19), and the block
-// decode, shared by hp_codec.cu (B1, B3 and B15, B4, B6, B7), ring.cu (B16)
-// and study.cu (B20), so the fused and ring kernels code exactly as
-// hp_encode_u8 and hp_decode_u8 do.  One thread holds one 8x8 block in
-// registers; see hp_codec.cu's header for the value chain and its rounding.
+// shared by hp_codec.cu (B1, B2, B4, B5) and study.cu (B19), so the fused
+// encode codes exactly as hp_encode_u8 does, and the block decode of
+// hp_codec.cu (B1, B3 and B15, B4, B6, B7).  The 4:2:0 strip (B16, B20)
+// decodes with its own add-only form of the same sums (strip420.cuh).  One
+// thread holds one 8x8 block in registers; see hp_codec.cu's header for the
+// value chain and its rounding.
 
 #pragma once
 

@@ -29,9 +29,10 @@
 //        luma table for Y and the chroma table for Cb and Cr.
 //   B20  Y, Cb, Cr int8 -> (3, H, W) u8 RGB in one pass: B3's butterfly
 //        decode of every block, trunc and clamp, nearest 2x2 chroma
-//        replication and the BT.601 inverse with the compare-form round
-//        _to_u8, which equals the production merge's add form (B9) on every
-//        input, so B20 is bit-identical to decode_color_u8 (B3 twice, B9).
+//        replication and the BT.601 inverse.  Its twin rounds with the
+//        compare form _to_u8; the kernel with the production merge's add
+//        form (B9), which equals it on every (y, cb, cr) triple, so B20 is
+//        bit-identical to its twin and to decode_color_u8 (B3 twice, B9).
 // The TPU kernels stack Cb over Cr for one K=128 contraction and pool with
 // 0/1 matrices on the MXU; the integer forward is exact per 8x8 block, so
 // here each chroma block is transformed on its own.  The plain twins in
@@ -46,21 +47,22 @@
 // bytes and its 8 Cb and 8 Cr bytes into shared memory, then threads 0-63
 // each run the forward of one luma block and threads 64-95 of one chroma
 // block from shared memory (one 8x8 block of f32 live per thread).  B20:
-// B16's strip form (strip420.cuh) without the forward stores.  A thread per
-// 16x16 window with six blocks in flight took B16's first form to 255
-// registers and 4x the time.
+// strip420.cuh's body, B16's without the forward (see its header: one
+// thread block per 16 x 256 luma strip, an add-only inverse compiled per
+// integer core, no conversion instructions per pixel).
 //
 // Bound: memory.  Bytes per luma pixel (each input read once, each output
 // written once): B17 2, B18 3, B19 and B20 4.5 (RGB 3, coefficients 1.5); at
 // 8192^2 and 3.35 TB/s 0.040, 0.060 and 0.090 ms.  The arithmetic (B19: B8's
 // and B2's chains plus the f32 luma, about 50 operations per pixel; B20: B3's
-// 1.5 times plus B9's) is under that at the card's f32 rate.
+// 1.5 times plus B9's, about 53 instructions per luma pixel) is under that at
+// the card's f32 rate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "copy.cuh"      // the copy body (B17, B18)
-#include "strip420.cuh"  // strip geometry and decode; HpConsts, fwd_block; ColorConsts, luma_f32
+#include "strip420.cuh"  // the strip body (B20) and geometry (B19); HpConsts, fwd_block; ColorConsts, luma_f32
 
 namespace {
 
@@ -145,12 +147,12 @@ __global__ void __launch_bounds__(kEncThreads)
   }
 }
 
+template <int kCore>
 __global__ void __launch_bounds__(kStripThreads)
     k_color_decode_420(const int8_t* __restrict__ y, const int8_t* __restrict__ cb,
                        const int8_t* __restrict__ cr, uint8_t* __restrict__ rgb, int h, int w,
-                       const HpConsts kl, const HpConsts kc, const ColorConsts kk) {
-  decode_merge_strip_420<true>(y, cb, cr, nullptr, nullptr, nullptr, rgb,
-                               static_cast<long long>(h) * w, w, kl, kc, kk);
+                       const StripConsts k) {
+  decode_merge_strip_420<kCore>(y, cb, cr, nullptr, nullptr, nullptr, rgb, static_cast<long long>(h) * w, w, k);
 }
 
 inline int strip_prologue(int device, int h, int w) {
@@ -166,9 +168,12 @@ inline dim3 strip_grid(int h, int w) {
 
 // ---- C interface -------------------------------------------------------------
 // Pointers are device pointers (16-byte aligned, contiguous) except the
-// consts, host pointers to 320 floats laid out as HpConsts (luma, chroma;
-// the integer core's tables for the encode, the butterfly's for the decode)
-// or 9 floats laid out as ColorConsts.  u8_copy_launch copies n bytes of src
+// consts: for the encode host pointers to 320 floats laid out as HpConsts
+// (luma, chroma: the integer core's tables) or 9 floats laid out as
+// ColorConsts; for the decode a host pointer to 137 floats laid out as
+// StripConsts (the luma and chroma dequantization multipliers, then
+// ColorConsts), `core` picking the integer core (strip420.cuh's core_ts,
+// kernels/strip420.py's CORES).  u8_copy_launch copies n bytes of src
 // to dst (which may be src) and, unless i8 is null, to i8; the color
 // launchers need h % 16 == 0 and w % 256 == 0.  Each function returns a
 // cudaError_t value (0 = ok; hp_error_string in hp_codec.cu names it) after
@@ -199,16 +204,17 @@ int color_encode_420_launch(const void* rgb, void* y, void* cb, void* cr, int h,
   return static_cast<int>(cudaGetLastError());
 }
 
-int color_decode_420_launch(const void* y, const void* cb, const void* cr, void* rgb, int h, int w,
-                            const void* consts_luma, const void* consts_chroma, const void* color_consts,
-                            void* stream, int device) {
+int color_decode_420_launch(const void* y, const void* cb, const void* cr, void* rgb, int h, int w, int core,
+                            const void* consts, void* stream, int device) {
+  using Kernel = decltype(&k_color_decode_420<0>);
+  static const Kernel kernels[kCores] = {k_color_decode_420<0>, k_color_decode_420<1>, k_color_decode_420<2>,
+                                         k_color_decode_420<3>};
+  if (core < 0 || core >= kCores) return static_cast<int>(cudaErrorInvalidValue);
   int err = strip_prologue(device, h, w);
   if (err) return err;
-  k_color_decode_420<<<strip_grid(h, w), kStripThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(y), static_cast<const int8_t*>(cb), static_cast<const int8_t*>(cr),
-      static_cast<uint8_t*>(rgb), h, w, *static_cast<const HpConsts*>(consts_luma),
-      *static_cast<const HpConsts*>(consts_chroma), *static_cast<const ColorConsts*>(color_consts));
-  return static_cast<int>(cudaGetLastError());
+  return launch_strips(kernels[core], h, w, static_cast<cudaStream_t>(stream), static_cast<const int8_t*>(y),
+                       static_cast<const int8_t*>(cb), static_cast<const int8_t*>(cr), static_cast<uint8_t*>(rgb),
+                       h, w, *static_cast<const StripConsts*>(consts));
 }
 
 }  // extern "C"

@@ -11,9 +11,9 @@ interface, loaded with ctypes; :func:`call` launches one of its functions.
 The library lives in ``build/tpudct_torch/`` at the root of the checkout
 (listed in .gitignore), named by a hash of the flags, the sources and the
 headers they share (``csrc/*.cuh``: the 8x8 block chains, the color pixel
-chains, the 4:2:0 strip, and ``copy.cuh``, the one copy body of B14 and
-B17/B18), so an edited source or header rebuilds the library and an
-unchanged one loads at once.  Nothing is built at import: the first kernel
+chains, the 4:2:0 strip body of B16 and B20, and ``copy.cuh``, the one copy
+body of B14 and B17/B18), so an edited source or header rebuilds the
+library and an unchanged one loads at once.  Nothing is built at import: the first kernel
 launch builds.  A failed build raises with nvcc's stderr.
 """
 
@@ -53,11 +53,11 @@ _SIGNATURES = {
     "color_split_variant_launch": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I),
     "color_merge_variant_launch": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I),
     "ring_forward_launch": (_P, _P, _L, _P, _I),
-    "ring_forward_decode_color_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _I),
+    "ring_forward_decode_color_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P, _P, _I),
     "ring_enable_peer": (_I, _I),
     "u8_copy_launch": (_P, _P, _P, _L, _P, _I),
     "color_encode_420_launch": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I),
-    "color_decode_420_launch": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I),
+    "color_decode_420_launch": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I),
 }
 
 

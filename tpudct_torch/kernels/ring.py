@@ -20,7 +20,10 @@ tensors runs the twin; given CUDA tensors it launches the kernel or raises,
 and counts the launch in ``LAUNCHES``.  B15 and B16 decode with the
 butterfly tier (the reference's rings do, whatever ``decode_precision``),
 with tables from ``kernels.hp``'s ``kernel_constants``, so they raise for a
-transform without an integer core as ``hp_decode_u8`` does.
+transform without an integer core as ``hp_decode_u8`` does; B16 runs the
+strip body compiled for the transform's integer core
+(``kernels.strip420``), which checks that the core's compiled table is the
+transform's Ts.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 from tpudct_torch.kernels import color as ck
 from tpudct_torch.kernels._build import call
 from tpudct_torch.kernels import hp
+from tpudct_torch.kernels import strip420
 
 #: Kernel launches per wrapper; a wrapper adds one only where it launches its
 #: CUDA kernel (never for the CPU twin).
@@ -152,6 +156,7 @@ def ring_forward_decode_color(y, c, fy, fc, rgb, q_scale: float = 1.0,
     if fy is not None:
         _check(fy, torch.int8, (h, w), name, "fy")
         _check(fc, torch.int8, (h, w // 2), name, "fc")
+    core, consts = strip420.strip_args(transform, q_scale)
     if not _on_cuda(name, y, c, fy, fc, rgb):
         return forward_decode_color_plain(y, c, fy, fc, rgb, q_scale, transform)
     if c.device != y.device or rgb.device != y.device:
@@ -161,8 +166,6 @@ def ring_forward_decode_color(y, c, fy, fc, rgb, q_scale: float = 1.0,
             hp.check_placement(t, name)
     if rgb.stride()[1:] != (w, 1) or rgb.data_ptr() % 16:
         raise ValueError(f"{name}: rgb needs contiguous rows and a 16-byte aligned start")
-    luma, chroma = _packed(transform, "luma", q_scale), _packed(transform, "chroma", q_scale)
     call("ring_forward_decode_color_launch", y.device, y.data_ptr(), c.data_ptr(), _ptr(fy), _ptr(fc),
-            rgb.data_ptr(), rgb.stride(0), h, w, luma.ctypes.data, chroma.ctypes.data,
-            ck._consts().ctypes.data)
+         rgb.data_ptr(), rgb.stride(0), h, w, core, consts.ctypes.data)
     LAUNCHES["ring_forward_decode_color"] += 1

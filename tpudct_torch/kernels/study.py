@@ -35,6 +35,7 @@ import torch
 
 from tpudct_torch.kernels import color as ck
 from tpudct_torch.kernels import hp
+from tpudct_torch.kernels import strip420
 from tpudct_torch.kernels._build import call
 from tpudct_torch.utils.color import rgb_from_ycbcr_planes, ycbcr_from_rgb_planes
 
@@ -48,11 +49,10 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _tables(transform: str, q_table: str, q_scale: float, retain_k, encode: bool):
-    """The 320 packed f32 the kernels read as HpConsts: the integer core's
-    forward and scale (with ``retain_k`` folded in) for the encode, the
-    butterfly decode's for the decode."""
-    return hp._args(transform, q_table, q_scale, retain_k, "butterfly", encode).packed
+def _tables(transform: str, q_table: str, q_scale: float, retain_k):
+    """The 320 packed f32 the encode reads as HpConsts: the integer core's
+    forward and scale, with ``retain_k`` folded in."""
+    return hp._args(transform, q_table, q_scale, retain_k, "butterfly", True).packed
 
 
 # ---------------------------------------------------------------------------
@@ -138,8 +138,8 @@ def color_encode_420_u8(rgb_planar_u8, q_scale: float = 1.0, retain_k=None, tran
     ck._check_grid(h, w)
     if rgb_planar_u8.device.type == "cpu":
         return encode_420_plain(rgb_planar_u8, q_scale, retain_k, transform, y_q_table, c_q_table)
-    kl = _tables(transform, y_q_table, q_scale, retain_k, True)
-    kc = _tables(transform, c_q_table, q_scale, retain_k, True)
+    kl = _tables(transform, y_q_table, q_scale, retain_k)
+    kc = _tables(transform, c_q_table, q_scale, retain_k)
     dev = rgb_planar_u8.device
     y = torch.empty((h, w), dtype=torch.int8, device=dev)
     cb = torch.empty((h // 2, w // 2), dtype=torch.int8, device=dev)
@@ -166,15 +166,14 @@ def color_decode_420_u8(y_i8, cb_i8, cr_i8, q_scale: float = 1.0, transform: str
             f"{tuple(cb_i8.shape)} / {tuple(cr_i8.shape)}"
         )
     ck._check_grid(h, w)
+    core, consts = strip420.strip_args(transform, q_scale, y_q_table, c_q_table)
     if y_i8.device.type == "cpu":
         return decode_420_plain(y_i8, cb_i8, cr_i8, q_scale, transform, y_q_table, c_q_table)
-    kl = _tables(transform, y_q_table, q_scale, None, False)
-    kc = _tables(transform, c_q_table, q_scale, None, False)
     dev = y_i8.device
     if cb_i8.device != dev or cr_i8.device != dev:
         raise ValueError(f"{name}: operands on more than one device")
     out = torch.empty((3, h, w), dtype=torch.uint8, device=dev)
     call("color_decode_420_launch", dev, y_i8.data_ptr(), cb_i8.data_ptr(), cr_i8.data_ptr(),
-         out.data_ptr(), h, w, kl.ctypes.data, kc.ctypes.data, ck._consts().ctypes.data)
+         out.data_ptr(), h, w, core, consts.ctypes.data)
     LAUNCHES[name] += 1
     return out
