@@ -12,8 +12,10 @@ order:
   1. prints the card (name, power limit), the torch version and nvcc's;
   2. builds the kernels (one nvcc per source, in parallel) and prints
      nvcc's register/stack/spill lines, and from ``cuobjdump -sass`` of the
-     library each B16 and B20 instance's count of conversion instructions
-     (I2F, I2FP, F2I, F2IP, FRND, F2F) and MUFU;
+     library each B1, B3 (B15), B16 and B20 instance's count of
+     instructions, of conversion instructions (I2F, I2FP, F2I, F2IP, FRND,
+     F2F) and MUFU, beside its registers and spills; a B1/B3 instance with
+     an FRND, a spill, or more I2F or F2I than B6's block index fails;
   3. turns TF32 off and prints both flags;
   4. holds each kernel against its plain torch twin at 512^2 and 8192^2,
      q_scale 1 and 2.5, retain_k None and 6 (where the kernel takes it),
@@ -22,9 +24,11 @@ order:
      at the padded 4000x3072 frame, the 32768x1024 batch and an off-grid
      40x136, the f32-literal roundtrip ("dct", highest) at the frame and
      the scaled decode at the batch, as the main path runs them
-     (coefficients and f32 outputs bit-identical; u8 reconstructions within
-     +-1 on at most 1e-4 of pixels, the count printed; the scaled decode
-     also equal to box_pool_u8(hp_decode_u8)); and checks that TF32 does
+     (coefficients, u8 reconstructions and f32 outputs bit-identical, B1's
+     coefficients equal to B2's and its reconstruction to B3's; the f32
+     roundtrip's truncated reconstruction within +-1 on at most 1e-4 of
+     pixels, the count printed; the scaled decode also equal to
+     box_pool_u8(hp_decode_u8)); and checks that TF32 does
      not reach the plain contractions; then each of the six color kernels
      (split and merge at 4:2:0, 4:2:2, 4:4:4) bit for bit against its twin
      at 512^2, 8192^2, the padded 4032x3072 camera frame and the 32768x1024
@@ -53,7 +57,11 @@ order:
      retain_k 6; B16 and B20 (csrc/strip420.cuh's one body) on uniform int8
      noise planes (so the decode's clamps are reached) at 512^2 and 8192^2,
      for every integer core and the alias cb2011, at q_scale 1 and 2.5, B16
-     on every ring slot at n = 1, 2, 4, 8, with its forwards; then the study
+     on every ring slot at n = 1, 2, 4, 8, with its forwards; B1 (u8 noise
+     with all-0, all-255 and checkerboard blocks; its coefficients equal to
+     B2's), B3 (uniform int8 noise) on the butterfly, highest and high
+     tiers and B15 on every ring slot at n = 1, 2, 4, 8, for every integer
+     core and cb2011, at 512^2 and 8192^2, bit for bit; then the study
      variants at 512^2 and 8192^2 bit for bit
      against their twins (kernels.variants: the merges V1, V12, V4, V6 on
      B8's planes, the splits V3, V5, idct_x "b" and "c" on hp_dct's
@@ -253,33 +261,85 @@ def phase_build() -> None:
     for line in _build.build_log().splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill", "stack frame")):
             print("  ptxas:", line.strip().removeprefix("ptxas info    :").strip())
-    _sass_conversions(lib)
+    _sass_conversions(lib, _build.build_log())
 
 
 # SASS opcodes of type conversions (16 per clock per SM on sm_90), and MUFU
 CONVERSIONS = ("I2F", "I2FP", "F2I", "F2IP", "FRND", "F2F")
 
 
-def _sass_conversions(lib) -> None:
+def _instance(fn: str):
+    """(label, kind) of a SASS or ptxas function name that is an instance of
+    B1 (k_rt_u8<core, inv>), B3/B15 (k_decode_u8<core>), B16
+    (k_ring_forward_decode_color<core>), B20 (k_color_decode_420<core>) or
+    B6 (k_idct, the block index's conversions alone), else None; kind is
+    "u8" for B1/B3, "strip" for B16/B20, "idct" for B6."""
+    from tpudct_torch.kernels.cores import CORES
+
+    if m := re.search(r"k_rt_u8ILi(\d)ELi(n1|\d)E", fn):  # n1: kDense, -1
+        return f"k_rt_u8<{CORES[int(m.group(1))]}, {'dense' if m.group(2) == 'n1' else 'add-only'} inverse>", "u8"
+    if m := re.search(r"k_decode_u8ILi(n1|\d)E", fn):  # n1: kDense, -1
+        return f"k_decode_u8<{'dense' if m.group(1) == 'n1' else CORES[int(m.group(1))]}>", "u8"
+    if m := re.search(r"(k_ring_forward_decode_color|k_color_decode_420)ILi(\d)E", fn):
+        return f"{m.group(1)}<{CORES[int(m.group(2))]}>", "strip"
+    if re.search(r"\d+k_idctE", fn):
+        return "k_idct", "idct"
+    return None
+
+
+def _ptxas_instances(log: str) -> dict:
+    """label -> (registers, spill store bytes, spill load bytes) of each
+    instance _instance names, from nvcc's -Xptxas -v output."""
+    found, cur = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            cur = _instance(m.group(1))
+        elif cur and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            found[cur[0]] = [0, int(m.group(1)), int(m.group(2))]
+        elif cur and cur[0] in found and (m := re.search(r"Used (\d+) registers", line)):
+            found[cur[0]][0] = int(m.group(1))
+            cur = None
+    return found
+
+
+def _sass_conversions(lib, log: str) -> None:
     """Static counts of conversion instructions (and MUFU) in each instance
-    of B16 and B20 (one per integer core), from cuobjdump -sass of the built
-    library."""
+    of B1, B3 (B15), B16 and B20 (one per integer core; B1 and B3 also on
+    the dense inverse), from cuobjdump -sass of the built library, beside
+    ptxas's registers and spills.  Fails where a B1/B3 instance has an FRND,
+    more I2F/I2FP or F2I/F2IP than B6 (k_idct: the block index's division,
+    no conversion per pixel), or spills."""
     from tpudct_torch.kernels._build import nvcc_path
-    from tpudct_torch.kernels.strip420 import CORES
+    from tpudct_torch.kernels.cores import CORES
 
     tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
-    found = 0
+    regs = _ptxas_instances(log)
+    counts = {}
     for fn in re.split(r"\n\s*Function : ", out)[1:]:
-        m = re.search(r"(k_ring_forward_decode_color|k_color_decode_420)ILi(\d)E", fn.split("\n", 1)[0])
-        if not m:
+        found = _instance(fn.split("\n", 1)[0])
+        if not found:
             continue
-        found += 1
         ops = collections.Counter(re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9]*)", fn))
-        print(f"  sass: {m.group(1)}<{CORES[int(m.group(2))]}>: {sum(ops.values())} instructions; "
-              + ", ".join(f"{k} {ops[k]}" for k in CONVERSIONS + ("MUFU",)))
-    if found != 2 * len(CORES):
-        _fail(f"cuobjdump -sass shows {found} instances of B16 and B20, not {2 * len(CORES)}")
+        counts[found] = ops
+        r, st, ld = regs.get(found[0], ("?", "?", "?"))
+        print(f"  sass: {found[0]}: {sum(ops.values())} instructions; "
+              + ", ".join(f"{k} {ops[k]}" for k in CONVERSIONS + ("MUFU",))
+              + f"; ptxas {r} registers, {st} + {ld} bytes spilled")
+    kinds = collections.Counter(kind for _, kind in counts)
+    want = {"strip": 2 * len(CORES), "u8": 3 * len(CORES) + 1, "idct": 1}
+    if kinds != want:
+        _fail(f"cuobjdump -sass shows instances {dict(kinds)}, not {want}")
+    base = next(ops for (_, kind), ops in counts.items() if kind == "idct")
+    for (label, kind), ops in counts.items():
+        if kind != "u8":
+            continue
+        i2f, f2i = ops["I2F"] + ops["I2FP"], ops["F2I"] + ops["F2IP"]
+        if ops["FRND"] or i2f > base["I2F"] + base["I2FP"] or f2i > base["F2I"] + base["F2IP"]:
+            _fail(f"{label}: {ops['FRND']} FRND, {i2f} I2F and {f2i} F2I in SASS, against k_idct's "
+                  f"{base['I2F'] + base['I2FP']} I2F and {base['F2I'] + base['F2IP']} F2I (the block index)")
+        if label not in regs or regs[label][1] or regs[label][2]:
+            _fail(f"{label}: ptxas reports spills (or no entry): {regs.get(label)}")
 
 
 def phase_tf32() -> None:
@@ -338,13 +398,14 @@ def phase_compare(dev) -> dict:
         tag = f"{h}x{w} q_scale={qs} retain_k={rk} {prec}"
         c, r = hp.hp_roundtrip_u8(x, **kw)
         pc, pr = hp.roundtrip_u8_plain(x, **kw)
-        e1, _ = _cmp("hp_roundtrip_u8 coeffs", c, pc, recon=False)
-        e2, n_rt = _cmp("hp_roundtrip_u8 recon", r, pr, recon=True)
+        e1 = _same(f"hp_roundtrip_u8 coeffs {tag}", c, pc)
+        e2 = _same(f"hp_roundtrip_u8 recon {tag}", r, pr)
         ce = hp.hp_encode_u8(x, q_scale=qs, retain_k=rk)
-        e3, _ = _cmp("hp_encode_u8", ce, hp.encode_u8_plain(x, q_scale=qs, retain_k=rk), recon=False)
+        e3 = _same(f"hp_encode_u8 {tag}", ce, hp.encode_u8_plain(x, q_scale=qs, retain_k=rk))
+        _equal(f"hp_encode_u8 {tag} vs hp_roundtrip_u8's coefficients", ce, c)
         rd = hp.hp_decode_u8(ce, q_scale=qs, decode_precision=prec)
-        e4, n_dec = _cmp("hp_decode_u8", rd, hp.decode_u8_plain(ce, q_scale=qs, decode_precision=prec),
-                         recon=True)
+        e4 = _same(f"hp_decode_u8 {tag}", rd, hp.decode_u8_plain(ce, q_scale=qs, decode_precision=prec))
+        _equal(f"hp_decode_u8 {tag} vs hp_roundtrip_u8's reconstruction", rd, r)
         xf = x.to(torch.float32)
         cf, rf = hp.hp_roundtrip(xf, **kw)
         pcf, prf = hp.roundtrip_plain(xf, **kw)
@@ -355,8 +416,8 @@ def phase_compare(dev) -> dict:
         errs["hp_encode_u8"] = max(errs["hp_encode_u8"], e3)
         errs["hp_decode_u8"] = max(errs["hp_decode_u8"], e4)
         errs["hp_roundtrip"] = max(errs["hp_roundtrip"], e5, e6)
-        print(f"  {tag}: coeffs bit-identical; recon pixels differing: roundtrip_u8 {n_rt}, "
-              f"decode_u8 {n_dec}, roundtrip f32 (truncated) {n_f32}")
+        print(f"  {tag}: roundtrip_u8, encode_u8, decode_u8 and the f32 coefficients bit-identical to their "
+              f"twins and to each other; f32 recon pixels differing (truncated) {n_f32}")
     # the "high" tier runs the "highest" body
     x = _noise(*shapes[0], seed=3, dev=dev)
     ch, rh = hp.hp_roundtrip_u8(x, decode_precision="high")
@@ -374,6 +435,7 @@ def phase_compare(dev) -> dict:
     _compare_copy_edges(dev, errs)
     _compare_study(dev, errs)
     _compare_strip(dev, errs)
+    _compare_u8_cores(dev, errs)
     _compare_variants(dev, errs)
     torch.cuda.synchronize()
     return errs
@@ -508,7 +570,7 @@ def _compare_strip(dev, errs: dict) -> None:
     every slot but the last, as a rank's last hop; at n = 1 with it)."""
     from tpudct_torch.kernels import ring as rk
     from tpudct_torch.kernels import study
-    from tpudct_torch.kernels.strip420 import CORES
+    from tpudct_torch.kernels.cores import CORES
     from tpudct_torch.parallel import chroma_band_pack
 
     for s in COMPARE_SIZES:
@@ -538,6 +600,61 @@ def _compare_strip(dev, errs: dict) -> None:
         print(f"  {s}^2 int8 noise: color_decode_420_u8 and ring_forward_decode_color on every slot at n = "
               f"{', '.join(map(str, RING_CASES[-1][1]))}, for {', '.join(CORES)} and cb2011 at q_scale 1 and "
               "2.5, bit-identical to their twins")
+
+
+def _compare_u8_cores(dev, errs: dict) -> None:
+    """B1, B2, B3 and B15 on every compiled core (csrc/hp_block.cuh), bit
+    for bit against their twins, at 512^2 and 8192^2: B1 on u8 noise (with
+    all-0, all-255 and +-checkerboard blocks), its coefficients equal to
+    B2's; B3 on uniform int8 noise (so the decode's clamps are reached both
+    ways), on the butterfly, highest and high tiers; for every integer core
+    and the alias cb2011, at (q_scale 1, luma, retain_k None) and (2.5,
+    chroma, 6); B15 on every slot of the ring at n = 1, 2, 4, 8 (a forward on
+    every slot but the last, and at n = 1)."""
+    from tpudct_torch.kernels import hp
+    from tpudct_torch.kernels import ring as rk
+    from tpudct_torch.kernels.cores import CORES
+
+    board = ((torch.arange(8)[:, None] + torch.arange(8)[None, :]) % 2 * 255).to(torch.uint8).to(dev)
+    for s in COMPARE_SIZES:
+        x = _noise(s, s, seed=s + 31, dev=dev)
+        for j, block in enumerate((torch.zeros_like(board), torch.full_like(board, 255), board, 255 - board)):
+            x[:8, 8 * j:8 * j + 8] = block
+        q = _i8_noise((s, s), s + 32, dev)
+        for core in CORES + ("cb2011",):
+            for qs, table, retain in ((1.0, "luma", None), (2.5, "chroma", 6)):
+                cfg = dict(q_scale=qs, q_table=table, transform=core)
+                tag = f"{s}^2 {core} q_scale={qs} {table}"
+                ce = hp.hp_encode_u8(x, retain_k=retain, **cfg)
+                for tier in ("butterfly", "highest", "high"):
+                    c, r = hp.hp_roundtrip_u8(x, retain_k=retain, decode_precision=tier, **cfg)
+                    pc, pr = hp.roundtrip_u8_plain(x, retain_k=retain, decode_precision=tier, **cfg)
+                    e = max(_same(f"hp_roundtrip_u8 coeffs {tag} retain_k={retain} {tier}", c, pc),
+                            _same(f"hp_roundtrip_u8 recon {tag} retain_k={retain} {tier}", r, pr))
+                    errs["hp_roundtrip_u8"] = max(errs["hp_roundtrip_u8"], e)
+                    _equal(f"hp_encode_u8 {tag} retain_k={retain} vs hp_roundtrip_u8's coefficients", ce, c)
+                    e = _same(f"hp_decode_u8 int8 noise {tag} {tier}",
+                              hp.hp_decode_u8(q, decode_precision=tier, **cfg),
+                              hp.decode_u8_plain(q, decode_precision=tier, **cfg))
+                    errs["hp_decode_u8"] = max(errs["hp_decode_u8"], e)
+                for n in RING_CASES[-1][1]:
+                    br = s // n
+                    for r in range(n):
+                        slot = q[r * br:(r + 1) * br]
+                        fwd = r < n - 1 or n == 1
+                        outs = []
+                        for fn in (rk.ring_forward_decode, rk.forward_decode_plain):
+                            f = torch.full_like(slot, 7) if fwd else None
+                            rec = torch.full(slot.shape, 9, dtype=torch.uint8, device=dev)
+                            fn(slot, f, rec, q_scale=qs, q_table=table, transform=core)
+                            outs.append((rec, f) if fwd else (rec,))
+                        for part, k, p in zip(("rec", "fwd"), *outs):
+                            e = _same(f"ring_forward_decode int8 noise {tag} n={n} slot {r} {part}", k, p)
+                            errs["ring_forward_decode"] = max(errs["ring_forward_decode"], e)
+        print(f"  {s}^2: hp_roundtrip_u8 (u8 noise, edge blocks; = hp_encode_u8's coefficients) and hp_decode_u8 "
+              f"(int8 noise) on the butterfly, highest and high tiers, ring_forward_decode on every slot at n = "
+              f"{', '.join(map(str, RING_CASES[-1][1]))}, for {', '.join(CORES)} and cb2011 at (q_scale 1, luma) "
+              "and (2.5, chroma, retain_k 6): bit-identical to their twins")
 
 
 def _same(name: str, kernel_out, plain_out) -> float:
@@ -683,12 +800,11 @@ def _compare_color_codec(label: str, mode: str, planes, errs: dict, scaled: bool
     for plane, x, table in stacks:
         tag = f"{label} {mode} {plane} {tuple(x.shape)}"
         c = hp.hp_encode_u8(x, q_table=table)
-        e, _ = _cmp(f"hp_encode_u8 {tag}", c, hp.encode_u8_plain(x, q_table=table), recon=False)
+        e = _same(f"hp_encode_u8 {tag}", c, hp.encode_u8_plain(x, q_table=table))
         errs["hp_encode_u8"] = max(errs["hp_encode_u8"], e)
-        e, n = _cmp(f"hp_decode_u8 {tag}", hp.hp_decode_u8(c, q_table=table),
-                    hp.decode_u8_plain(c, q_table=table), recon=True)
+        e = _same(f"hp_decode_u8 {tag}", hp.hp_decode_u8(c, q_table=table), hp.decode_u8_plain(c, q_table=table))
         errs["hp_decode_u8"] = max(errs["hp_decode_u8"], e)
-        counts.append(f"{plane} {tuple(x.shape)} {n}")
+        counts.append(f"{plane} {tuple(x.shape)}")
         if scaled and table == "chroma":
             for fr in (1, 2):
                 for out_u8 in (False, True):
@@ -697,7 +813,7 @@ def _compare_color_codec(label: str, mode: str, planes, errs: dict, scaled: bool
                               hp.scaled_decode_u8_plain(c, fr, fr, q_table=table, out_u8=out_u8))
                     errs["hp_scaled_decode_u8"] = max(errs["hp_scaled_decode_u8"], e)
             counts.append("hp_scaled_decode_u8 (1, 1), (2, 2) (f32, u8) bit-identical")
-    print(f"    {mode}: hp_encode_u8 bit-identical, hp_decode_u8 pixels differing: {'; '.join(counts)}")
+    print(f"    {mode}: hp_encode_u8 and hp_decode_u8 bit-identical on {'; '.join(counts)}")
 
 
 def _merge_sweep(ck, dev, errs: dict) -> None:

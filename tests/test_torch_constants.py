@@ -276,4 +276,5 @@ def test_ctypes_signatures_match_the_c_interface():
         if name.endswith("_launch"):
             assert c[name].endswith("pi"), name
     assert set(c) - set(_build._SIGNATURES) == {"hp_error_string"}
-    assert c["hp_decode_u8_launch"] == "ppiipppi"  # coef, rec, h, w, fwd, consts, stream, device
+    assert c["hp_decode_u8_launch"] == "ppiipippi"  # coef, rec, h, w, fwd, core, consts, stream, device
+    assert c["hp_rt_u8_launch"] == "pppiiiippi"  # img, coef, rec, h, w, core, inv, consts, stream, device

@@ -2,8 +2,9 @@
 its host side, tpudct_torch/kernels/strip420.py), on the CPU.
 
 The CUDA body cannot run here, so these tests hold what it is built from:
-- the integer cores compiled into it (parsed from the header) are the
-  package's Ts, and every transform name reaches the right instance;
+- the integer cores compiled into it (parsed from csrc/hp_block.cuh, which
+  defines them once for the strip and for B1/B3/B15) are the package's Ts,
+  and every transform name reaches the right instance;
 - its add-only inverse, emulated step for step in numpy float32 (each
   output sums only its nonzero terms in k = 0..7 order, +-1 as an add or
   subtract, +-2 as v + v), gives the dense twin's f32 values bit for bit
@@ -35,6 +36,7 @@ import torch
 from tpudct_torch.constants import TRANSFORMS, get_transform
 from tpudct_torch.kernels import _build
 from tpudct_torch.kernels import color as ck
+from tpudct_torch.kernels import cores
 from tpudct_torch.kernels import hp
 from tpudct_torch.kernels import ring as rk
 from tpudct_torch.kernels import strip420
@@ -47,8 +49,8 @@ F32 = np.float32
 
 def _header_tables() -> list:
     """[(name, 8x8 table)] in the order core_ts lists them, parsed here
-    from the header on its own (not through kernels.strip420)."""
-    text = (_CSRC / "strip420.cuh").read_text()
+    from the header on its own (not through kernels.cores)."""
+    text = (_CSRC / "hp_block.cuh").read_text()
     body = re.search(r"constexpr int core_ts\(int core, int e\) \{(.*?)return ts\[core\]\[e\];", text, re.S).group(1)
     out = []
     for name, entries in re.findall(r"//\s*(\w+)\s*\n\s*\{([^}]*)\}", body):
@@ -57,18 +59,30 @@ def _header_tables() -> list:
     return out
 
 
-@pytest.mark.parametrize("core", strip420.CORES)
+@pytest.mark.parametrize("core", cores.CORES)
 def test_compiled_tables_are_the_integer_cores(core):
     tables = _header_tables()
-    assert [name for name, _ in tables] == list(strip420.CORES)
-    assert re.search(r"constexpr int kCores = %d;" % len(strip420.CORES), (_CSRC / "strip420.cuh").read_text())
+    assert [name for name, _ in tables] == list(cores.CORES)
+    assert re.search(r"constexpr int kCores = %d;" % len(cores.CORES), (_CSRC / "hp_block.cuh").read_text())
     compiled = dict(tables)[core]
     assert np.array_equal(compiled, TRANSFORMS[core].ts)
-    assert np.array_equal(strip420.source_tables()[core], compiled)
+    assert np.array_equal(cores.source_tables()[core], compiled)
     assert set(np.unique(compiled)) <= {-2, -1, 0, 1, 2}
     core_id, packed = strip420.strip_args(core, 1.0)
-    assert core_id == strip420.CORES.index(core)
+    assert core_id == cores.CORES.index(core)
     assert packed.dtype == np.float32 and packed.shape == (137,)
+
+
+def test_core_tables_are_defined_once():
+    """csrc/ defines core_ts (and kCores) once, in hp_block.cuh, which the
+    strip includes: B1/B3/B15 and B16/B20 compile the same tables."""
+    defs = {p.name: len(re.findall(r"constexpr int core_ts\(", p.read_text())) for p in _CSRC.iterdir()
+            if p.suffix in (".cu", ".cuh")}
+    assert {name: n for name, n in defs.items() if n} == {"hp_block.cuh": 1}
+    assert sum(len(re.findall(r"constexpr int kCores =", p.read_text())) for p in _CSRC.iterdir()
+               if p.suffix in (".cu", ".cuh")) == 1
+    assert '#include "hp_block.cuh"' in (_CSRC / "strip420.cuh").read_text()
+    assert cores.HEADER == _CSRC / "hp_block.cuh"
 
 
 def test_every_integer_core_transform_has_an_instance():
@@ -77,8 +91,8 @@ def test_every_integer_core_transform_has_an_instance():
     butterfly decode does."""
     for name, tr in TRANSFORMS.items():
         if tr.has_integer_core:
-            assert strip420.CORES[strip420.strip_args(name, 1.0)[0]] == name
-    assert strip420.strip_args("cb2011", 1.0)[0] == strip420.CORES.index("rdct")
+            assert cores.CORES[strip420.strip_args(name, 1.0)[0]] == name
+    assert strip420.strip_args("cb2011", 1.0)[0] == cores.CORES.index("rdct")
     assert get_transform("cb2011").name == "rdct"
     with pytest.raises(ValueError, match="butterfly decode needs an integer core"):
         strip420.strip_args("dct", 1.0)
@@ -103,7 +117,7 @@ def test_packed_constants_are_the_decode_tables(transform):
 
 def _add_only_inverse(c: np.ndarray, ts: np.ndarray, s: np.ndarray) -> np.ndarray:
     """(n, 8, 8) int8 blocks -> A^T (c s) A + 128 in f32, A = ts, in
-    strip420.cuh's order: dequantize, then for each output the nonzero
+    hp_block.cuh's order: dequantize, then for each output the nonzero
     terms of the dense sum in k = 0..7 order (inv_core, add_term)."""
 
     def dot(vs, coeffs):
@@ -146,11 +160,11 @@ def _blocks(seed: int) -> np.ndarray:
 
 @pytest.mark.parametrize("q_scale", [0.5, 1.0, 2.5])
 @pytest.mark.parametrize("q_table", ["luma", "chroma"])
-@pytest.mark.parametrize("core", strip420.CORES)
+@pytest.mark.parametrize("core", cores.CORES)
 def test_add_only_inverse_equals_the_dense_twin(core, q_table, q_scale):
     k = hp._args(core, q_table, q_scale, None, "butterfly", False)
     c = _blocks(seed=len(core) + int(10 * q_scale))
-    mine = _add_only_inverse(c, strip420.source_tables()[core], k.s)
+    mine = _add_only_inverse(c, cores.source_tables()[core], k.s)
     grid = torch.as_tensor(np.ascontiguousarray(c.transpose(1, 0, 2))[None])  # (1, 8, n, 8) block grid
     dense = hp._inv_plain(grid, k)[0].numpy().transpose(1, 0, 2)
     assert mine.dtype == dense.dtype == F32
@@ -249,14 +263,16 @@ def test_strip_merge_equals_the_twins_merge():
 
 @pytest.fixture
 def wrong_table(monkeypatch):
-    """kernels.strip420 reading a header whose haweel table differs from
+    """kernels.cores reading a header whose haweel table differs from
     haweel's Ts in one entry."""
-    tables = {name: t.copy() for name, t in strip420.source_tables().items()}
+    tables = {name: t.copy() for name, t in cores.source_tables().items()}
     tables["haweel"][3, 3] = 1
-    monkeypatch.setattr(strip420, "source_tables", lambda: tables)
+    monkeypatch.setattr(cores, "source_tables", lambda: tables)
     strip420.strip_args.cache_clear()
+    hp._core_of.cache_clear()
     yield
     strip420.strip_args.cache_clear()
+    hp._core_of.cache_clear()
 
 
 def _b16(transform):
@@ -330,7 +346,7 @@ def fused_ab():
     return _load_fused_ab()
 
 
-@pytest.mark.parametrize("core", strip420.CORES)
+@pytest.mark.parametrize("core", cores.CORES)
 def test_b20_twin_on_int8_noise_matches_reference(core, fused_ab):
     """Uniform int8 planes (not encoder output), so the decode's clamps are
     reached, through the B20 wrapper's twin and the reference's fused

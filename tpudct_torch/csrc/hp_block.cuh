@@ -1,10 +1,19 @@
-// The hp codec's 8x8 block chains: the integer-core forward and quantizer,
-// shared by hp_codec.cu (B1, B2, B4, B5) and study.cu (B19), so the fused
-// encode codes exactly as hp_encode_u8 does, and the block decode of
-// hp_codec.cu (B1, B3 and B15, B4, B6, B7).  The 4:2:0 strip (B16, B20)
-// decodes with its own add-only form of the same sums (strip420.cuh).  One
-// thread holds one 8x8 block in registers; see hp_codec.cu's header for the
-// value chain and its rounding.
+// The hp codec's 8x8 block chains, one thread holding one 8x8 block in
+// registers (see hp_codec.cu's header for the value chain and its
+// rounding):
+//  - the dense forward and quantizer fwd_block (B2, B4, B5, and study.cu's
+//    B19, so the fused encode codes exactly as hp_encode_u8 does) and the
+//    dense inverse inv_block (B4, B6, B7, and the "highest"/"high" tiers of
+//    B1 and B3), with conversion instructions at the bytes (B2, B7, B19);
+//  - the add-only chain of B1, B3 and B15 on the butterfly tier, shared
+//    with strip420.cuh's 4:2:0 strip (B16, B20): each integer core's Ts
+//    compiled in (core_ts, one kernel instance per core), the forward by
+//    even/odd butterflies, the inverse summing only its nonzero terms in
+//    the dense order, and no conversion instruction per pixel (bytes <->
+//    f32 by bit patterns, floors and truncations by directed-rounding adds
+//    of 2^23, bytes packed by PRMT).
+// Every form gives the dense chain's values bit for bit (tests/
+// test_torch_hp_addonly.py and test_torch_strip420.py emulate them).
 
 #pragma once
 
@@ -76,6 +85,277 @@ __device__ __forceinline__ void inv_block(float c[64], const HpConsts& k) {
     }
 }
 
+// ---- the integer cores ------------------------------------------------------
+
+// The integer cores compiled in, in kernels/cores.py's CORES order (the
+// launchers' `core` argument; cb2011 is rdct); kDense names the dense f32
+// inverse on the table `a` (inv_block) where a launcher takes a core.
+constexpr int kCores = 4;
+constexpr int kDense = -1;
+
+// Entry e (row-major) of core `core`'s Ts (tpudct_torch/constants.py).
+__host__ __device__ constexpr int core_ts(int core, int e) {
+  constexpr signed char ts[kCores][64] = {
+      // haweel
+      { 1,  1,  1,  1,  1,  1,  1,  1,
+        1,  1,  0,  0,  0,  0, -1, -1,
+        2,  1, -1, -2, -2, -1,  1,  2,
+        0,  0, -1,  0,  0,  1,  0,  0,
+        1, -1, -1,  1,  1, -1, -1,  1,
+        1, -1,  0,  0,  0,  0,  1, -1,
+        1, -2,  2, -1, -1,  2, -2,  1,
+        0,  0,  0, -1,  1,  0,  0,  0},
+      // rdct
+      { 1,  1,  1,  1,  1,  1,  1,  1,
+        1,  1,  1,  0,  0, -1, -1, -1,
+        1,  0,  0, -1, -1,  0,  0,  1,
+        1,  0, -1, -1,  1,  1,  0, -1,
+        1, -1, -1,  1,  1, -1, -1,  1,
+        1, -1,  0,  1, -1,  0,  1, -1,
+        0, -1,  1,  0,  0,  1, -1,  0,
+        0, -1,  1, -1,  1, -1,  1,  0},
+      // wht
+      { 1,  1,  1,  1,  1,  1,  1,  1,
+        1,  1,  1,  1, -1, -1, -1, -1,
+        1,  1, -1, -1, -1, -1,  1,  1,
+        1,  1, -1, -1,  1,  1, -1, -1,
+        1, -1, -1,  1,  1, -1, -1,  1,
+        1, -1, -1,  1, -1,  1,  1, -1,
+        1, -1,  1, -1, -1,  1, -1,  1,
+        1, -1,  1, -1,  1, -1,  1, -1},
+      // bas
+      { 1,  1,  1,  1,  1,  1,  1,  1,
+        1,  1,  0,  0,  0,  0, -1, -1,
+        1,  0,  0, -1, -1,  0,  0,  1,
+        0,  0, -1,  0,  0,  1,  0,  0,
+        1, -1, -1,  1,  1, -1, -1,  1,
+        1, -1,  0,  0,  0,  0,  1, -1,
+        0, -1,  1,  0,  0,  1, -1,  0,
+        0,  0,  0, -1,  1,  0,  0,  0},
+  };
+  return ts[core][e];
+}
+
+// True where core's Ts has the DCT's butterfly symmetry, which fwd8 uses:
+// row r is symmetric (t[k] = t[7 - k]) for even r and antisymmetric for odd
+// r, and in the first half of an even row, rows 0 and 4 are symmetric
+// (t[k] = t[3 - k]) and rows 2 and 6 antisymmetric.
+__host__ __device__ constexpr bool core_has_butterflies(int core) {
+  for (int r = 0; r < 8; ++r)
+    for (int k = 0; k < 4; ++k) {
+      const int t = core_ts(core, 8 * r + k);
+      if (t != (r % 2 ? -1 : 1) * core_ts(core, 8 * r + 7 - k)) return false;
+      if (r % 2 == 0 && t != (r % 4 ? -1 : 1) * core_ts(core, 8 * r + 3 - k)) return false;
+    }
+  return true;
+}
+static_assert(core_has_butterflies(0) && core_has_butterflies(1) && core_has_butterflies(2) &&
+                  core_has_butterflies(3),
+              "fwd8 needs every compiled core's butterfly symmetry");
+
+// The dense chain's next step for a table entry a in {+-1, +-2}: acc + a v,
+// or a v where it starts the sum, without the product (v + v is 2 v).
+__device__ __forceinline__ float add_term(float acc, bool first, int a, float v) {
+  const float t = (a == 2 || a == -2) ? __fadd_rn(v, v) : v;
+  if (first) return a < 0 ? -t : t;
+  return a < 0 ? __fsub_rn(acc, t) : __fadd_rn(acc, t);
+}
+
+// x: the dequantized block M in, A^T M A + 128 out (A = Ts of kCore): the
+// dense inv_block's sums, their zero terms skipped.  Every index and table
+// entry is a constant once the loops unroll.
+template <int kCore>
+__device__ __forceinline__ void inv_core(float (&x)[64]) {
+  float u[64];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int l = 0; l < 8; ++l) {
+      float acc = 0.0f;
+      bool first = true;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int a = core_ts(kCore, k * 8 + i);
+        if (a != 0) {
+          acc = add_term(acc, first, a, x[k * 8 + l]);
+          first = false;
+        }
+      }
+      u[i * 8 + l] = acc;
+    }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float acc = 0.0f;
+      bool first = true;
+#pragma unroll
+      for (int l = 0; l < 8; ++l) {
+        const int a = core_ts(kCore, l * 8 + j);
+        if (a != 0) {
+          acc = add_term(acc, first, a, u[i * 8 + l]);
+          first = false;
+        }
+      }
+      x[i * 8 + j] = __fadd_rn(acc, 128.0f);
+    }
+}
+
+// sum over k < n of t[k] v[k], t = row `row` of kCore's Ts, on integral
+// f32: the +-1 terms first, then each +-2 term as one FMA, the zero terms
+// skipped.  Exact in any order: every partial sum of the forward is an
+// integer of magnitude at most 128 * 12^2 = 18432 < 2^24 (haweel's largest
+// row has sum |t| = 12).
+template <int kCore>
+__device__ __forceinline__ float core_dot(int row, const float* v, int n) {
+  float acc = 0.0f;
+  bool first = true;
+#pragma unroll
+  for (int mag = 1; mag <= 2; ++mag)
+#pragma unroll
+    for (int k = 0; k < n; ++k) {
+      const int t = core_ts(kCore, 8 * row + k);
+      if (t != mag && t != -mag) continue;
+      acc = first ? static_cast<float>(t) * v[k] : fmaf(static_cast<float>(t), v[k], acc);
+      first = false;
+    }
+  return acc;
+}
+
+// v[0], v[S], ..., v[7 S] (integral) -> Ts v in place: sums and differences
+// of the mirrored pairs, then of those of the even half, then each output's
+// nonzero terms (core_has_butterflies).
+template <int kCore, int S>
+__device__ __forceinline__ void fwd8(float* v) {
+  float s[4], d[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    s[k] = v[k * S] + v[(7 - k) * S];
+    d[k] = v[k * S] - v[(7 - k) * S];
+  }
+  const float e[2] = {s[0] + s[3], s[1] + s[2]}, o[2] = {s[0] - s[3], s[1] - s[2]};
+#pragma unroll
+  for (int r = 0; r < 8; r += 2) v[r * S] = core_dot<kCore>(r, r % 4 ? o : e, 2);
+#pragma unroll
+  for (int r = 1; r < 8; r += 2) v[r * S] = core_dot<kCore>(r, d, 4);
+}
+
+// x: the level-shifted pixels X in, Ts X Ts^T out (exact integral f32):
+// the columns, then the rows, as fwd_block sums them.
+template <int kCore>
+__device__ __forceinline__ void fwd_core(float (&x)[64]) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) fwd8<kCore, 8>(x + c);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) fwd8<kCore, 1>(x + 8 * i);
+}
+
+// ---- bytes and f32 without conversion instructions -------------------------
+
+constexpr float kTwo23 = 8388608.0f;  // 2^23: a float in [2^23, 2^24) has an ulp of 1
+
+// Byte e of w, xor 0x80 where w holds int8 (then the byte is v + 128), as
+// the float 2^23 + byte: its bits are 0x4B0000 and the byte.
+__device__ __forceinline__ float biased_byte(uint32_t w, int e) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440u + e));
+}
+
+// The 8 bytes of lo, hi minus 128, as exact f32.
+__device__ __forceinline__ void bytes_minus_128(uint32_t lo, uint32_t hi, float* x) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    x[e] = __fsub_rn(biased_byte(lo, e), kTwo23 + 128.0f);
+    x[4 + e] = __fsub_rn(biased_byte(hi, e), kTwo23 + 128.0f);
+  }
+}
+
+// 8 u8 pixels (8-byte aligned) -> the level-shifted x - 128, exact f32.
+__device__ __forceinline__ void load_u8_level(const uint8_t* p, float* x) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  bytes_minus_128(v.x, v.y, x);
+}
+
+// 2^23 + floor(clip(x, 0, 255)) (B3's clamp_trunc plus 2^23): 2^23 + x
+// rounded down is 2^23 + floor(x), the floor in the low mantissa bits.
+__device__ __forceinline__ float floor_2p23(float x) {
+  return __fadd_rd(fminf(fmaxf(x, 0.0f), 255.0f), kTwo23);
+}
+
+// floor(clip(x, 0, 255)) as an exact f32 minus `shift`.
+__device__ __forceinline__ float clamp_floor(float x, float shift) {
+  return __fsub_rn(floor_2p23(x), kTwo23 + shift);
+}
+
+// Four values in [0, 255] (or any words: their low bytes) as the bytes of
+// one little-endian word.
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040u), __byte_perm(c, d, 0x0040u), 0x5410u);
+}
+
+// One decoded row (reconstruction + 128) -> its 8 u8 pixels,
+// clamp_trunc's values, in one 8-byte store: the low bytes of floor_2p23.
+__device__ __forceinline__ void store_u8_floor(uint8_t* p, const float* x) {
+  uint32_t b[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) b[e] = __float_as_uint(floor_2p23(x[e]));
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack4(b[0], b[1], b[2], b[3]), pack4(b[4], b[5], b[6], b[7]));
+}
+
+// trunc(fl(fl(core fq) + copysign(0.5))) (round_away of the scaled core:
+// the value chain's double rounding) as exact f32, without FRND: 2^23 + |y|
+// rounded down is 2^23 + floor|y| = 2^23 + |trunc y| (|y| < 2^23), and the
+// sign is y's.
+__device__ __forceinline__ float quantize(float core, float fq) {
+  const float z = __fmul_rn(core, fq);
+  const float y = __fadd_rn(z, copysignf(0.5f, z));
+  return copysignf(__fsub_rn(__fadd_rd(fabsf(y), kTwo23), kTwo23), y);
+}
+
+// An integral c, |c| < 2^22, as a word whose low byte is c mod 256 (the
+// int8 store's wrap), without F2I: 1.5 * 2^23 + c has the bits
+// 0x4B400000 + c.
+__device__ __forceinline__ uint32_t i8_bits(float c) {
+  return __float_as_uint(__fadd_rn(c, 12582912.0f));
+}
+
+// One row of 8 forward sums Ts X Ts^T -> the quantized coefficients, in
+// place, and as one 8-byte int8 row at p.
+__device__ __forceinline__ void quantize_store_i8(int8_t* p, float* x, const float* fq) {
+  uint32_t b[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    x[e] = quantize(x[e], fq[e]);
+    b[e] = i8_bits(x[e]);
+  }
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack4(b[0], b[1], b[2], b[3]), pack4(b[4], b[5], b[6], b[7]));
+}
+
+// One 8-byte int8 row at element offset ro: copied as it is to fwd (unless
+// fwd is null: the ring's forward to the next rank, B15) and unpacked as
+// exact f32 (byte ^ 0x80 is the value + 128).
+__device__ __forceinline__ void load_forward_i8(const int8_t* __restrict__ src,
+                                                int8_t* __restrict__ fwd, long long ro,
+                                                float* x) {
+  const uint2 v = *reinterpret_cast<const uint2*>(src + ro);
+  if (fwd) *reinterpret_cast<uint2*>(fwd + ro) = v;
+  bytes_minus_128(v.x ^ 0x80808080u, v.y ^ 0x80808080u, x);
+}
+
+// x: the coefficients c in, A^T (c S) A + 128 out: inv_block (kDense) or
+// the add-only inv_core of the integer core kCore.
+template <int kCore>
+__device__ __forceinline__ void dequant_inverse(float (&x)[64], const HpConsts& k) {
+  if constexpr (kCore == kDense) {
+    inv_block(x, k);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 64; ++e) x[e] = __fmul_rn(x[e], k.s[e]);
+    inv_core<kCore>(x);
+  }
+}
+
+// ---- rows with conversion instructions (B2, B7, B19) ----------------------
+
 // 8 int8 values, held as the raw 8 bytes of one row, -> f32.
 __device__ __forceinline__ void unpack_i8(uint2 v, float* x) {
 #pragma unroll
@@ -110,16 +390,6 @@ __device__ __forceinline__ void store_i8(int8_t* p, const float* c) {
   *reinterpret_cast<uint2*>(p) = v;
 }
 
-// One 8-byte int8 row at element offset ro: copied as it is to fwd (unless
-// fwd is null: the ring's forward to the next rank, B15/B16) and unpacked.
-__device__ __forceinline__ void load_forward_i8(const int8_t* __restrict__ src,
-                                                int8_t* __restrict__ fwd, long long ro,
-                                                float* x) {
-  const uint2 v = *reinterpret_cast<const uint2*>(src + ro);
-  if (fwd) *reinterpret_cast<uint2*>(fwd + ro) = v;
-  unpack_i8(v, x);
-}
-
 __device__ __forceinline__ float clamp_trunc(float x) {
   return fminf(fmaxf(truncf(x), 0.0f), 255.0f);
 }
@@ -151,8 +421,6 @@ __device__ __forceinline__ void store_row_u8(uint8_t* p, const float* x) {
     *p = static_cast<uint8_t>(to_u8(x[0]));
   }
 }
-
-__device__ __forceinline__ void store_u8(uint8_t* p, const float* x) { store_row_u8<8>(p, x); }
 
 __device__ __forceinline__ long long block_index() {
   return static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;

@@ -65,14 +65,38 @@
 // window crosses a block) and is instantiated per (fr, fc) so that every
 // register index is static.
 //
+// B1 and B3 (and so B15) run hp_block.cuh's add-only chain, one instance
+// per integer core (the launchers' `core`): their dense form was bound by
+// instruction issue, not bytes (about 31 rounded f32 operations per
+// coefficient for the inverse and 3 (B3) or 5 (B1) type conversions per
+// pixel, which issue 16 per clock per SM against 128 f32 operations).  Now:
+//   - bytes become exact f32 by bit patterns (PRMT, then - 2^23 - 128), the
+//     decode floors and clamps by min/max and a round-down add of 2^23, and
+//     the bytes are packed by PRMT: no I2F, F2I or FRND per pixel;
+//   - B1's forward Ts X Ts^T is exact integer arithmetic in f32, so it
+//     runs in any order: even/odd butterflies, then each output's nonzero
+//     terms (+-2 as one FMA), about 4.5 adds per pixel for haweel against
+//     the dense form's 16 FMAs;
+//   - B1's quantizer keeps the double rounding (fl(core * scale), then
+//     fl(+ copysign(0.5))), and truncates by a round-down add of 2^23 to
+//     the magnitude, the sign restored by copysign; the int8 byte is the
+//     low byte of 1.5 * 2^23 + c;
+//   - the inverse sums only the nonzero terms of the dense sums, in their
+//     k = 0..7 order (the dequantized values are not integers, so the order
+//     is the twin's): a zero term adds +-0, so only a zero's sign can
+//     differ, and the + 128 removes it.
+// The "highest" and "high" tiers (the dense f32 T) run inv_block in an
+// instance of their own (inverse id kDense), on the same exact byte forms.
+//
 // Bound: memory.  The fused u8 pass moves 3 bytes per pixel (read u8, write
 // int8 + u8): 192 MiB at 8192^2, about 60 us at the H100 SXM's 3.35 TB/s;
-// hp_dct and hp_idct move 8, the f32 roundtrips 12, the scaled u8 decode
-// 1 + 1/(fr fc), the split3 inverse 8.  The arithmetic is ~2k f32
-// operations per block (the literal forward adds 64 IEEE divisions; split3
-// does three times the inverse's products and sums, plus 5 operations per
-// digit split, ~7k).  This version favours a plain, checkable shape over
-// reaching the memory bound.
+// the u8 decode 2 (B15 3, with its forward); hp_dct and hp_idct move 8, the
+// f32 roundtrips 12, the scaled u8 decode 1 + 1/(fr fc), the split3 inverse
+// 8.  The arithmetic is ~2k f32 operations per block for the dense chains
+// (the literal forward adds 64 IEEE divisions; split3 does three times the
+// inverse's products and sums, plus 5 operations per digit split, ~7k);
+// the add-only chains' SASS instruction counts and times are in PERF.md
+// (sections 6 and 7).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -146,16 +170,21 @@ __device__ __forceinline__ void store_f32(float* p, const float* x) { store_row_
 
 // ---- kernels ---------------------------------------------------------------
 
+// The fused u8 pass on the integer core kCore: the add-only forward, the
+// quantizer without FRND/F2I, then the decode half on the inverse kInv:
+// kCore's add-only inverse, or kDense (the "highest"/"high" tiers).
+template <int kCore, int kInv>
 __global__ void k_rt_u8(const uint8_t* __restrict__ img, int8_t* __restrict__ coef,
                         uint8_t* __restrict__ rec, int h, int w, const HpConsts k) {
+  static_assert(kInv == kCore || kInv == kDense, "B1's inverse is its own core's or the dense one");
   const long long o = block_origin(h, w);
   if (o < 0) return;
   float x[64];
-  ROWS(load_u8_shifted(img + ro, x + 8 * r));
-  fwd_block(x, k);
-  ROWS(store_i8(coef + ro, x + 8 * r));
-  inv_block(x, k);
-  ROWS(store_u8(rec + ro, x + 8 * r));
+  ROWS(load_u8_level(img + ro, x + 8 * r));
+  fwd_core<kCore>(x);
+  ROWS(quantize_store_i8(coef + ro, x + 8 * r, k.fq + 8 * r));
+  dequant_inverse<kInv>(x, k);
+  ROWS(store_u8_floor(rec + ro, x + 8 * r));
 }
 
 __global__ void k_encode_u8(const uint8_t* __restrict__ img, int8_t* __restrict__ coef,
@@ -168,16 +197,19 @@ __global__ void k_encode_u8(const uint8_t* __restrict__ img, int8_t* __restrict_
   ROWS(store_i8(coef + ro, x + 8 * r));
 }
 
-// With fwd, each int8 row is also copied to fwd as it is read: the decode
-// ring's hop (B15), forwarding the slot to the next rank while decoding it.
+// The u8 decode on the integer core kCore's add-only inverse, or kDense
+// (inv_block on the table a).  With fwd, each int8 row is also copied to fwd
+// as it is read: the decode ring's hop (B15), forwarding the slot to the
+// next rank while decoding it.
+template <int kCore>
 __global__ void k_decode_u8(const int8_t* __restrict__ coef, int8_t* __restrict__ fwd,
                             uint8_t* __restrict__ rec, int h, int w, const HpConsts k) {
   const long long o = block_origin(h, w);
   if (o < 0) return;
   float x[64];
   ROWS(load_forward_i8(coef, fwd, ro, x + 8 * r));
-  inv_block(x, k);
-  ROWS(store_u8(rec + ro, x + 8 * r));
+  dequant_inverse<kCore>(x, k);
+  ROWS(store_u8_floor(rec + ro, x + 8 * r));
 }
 
 // f32 image block -> quantized coefficients in x, on either core.
@@ -347,16 +379,27 @@ int launch_scaled_fc(int fc, const void* coef, void* out, int h, int w, int out_
 // Pointers are device pointers except `consts`, a host pointer to 320 floats
 // laid out as HpConsts.  hp_decode_u8_launch's `fwd` is null, or where to copy
 // the int8 map as it is read (another card's memory once ring_enable_peer in
-// ring.cu has given this card access to it).  Each function returns a cudaError_t value (0 = ok)
-// after checking the launch; it neither synchronizes nor allocates.
+// ring.cu has given this card access to it).  `core` picks the integer core
+// compiled in (hp_block.cuh's core_ts, kernels/cores.py's CORES) for B1's
+// forward.  B1's `inv` and B3's `core` pick the inverse: an integer core
+// (for B1, its forward's), or kDense (-1) for inv_block on the table `a`
+// (the "highest"/"high" tiers).  Each function
+// returns a cudaError_t value (0 = ok) after checking the launch; it neither
+// synchronizes nor allocates.
 
 extern "C" {
 
-int hp_rt_u8_launch(const void* img, void* coef, void* rec, int h, int w,
+int hp_rt_u8_launch(const void* img, void* coef, void* rec, int h, int w, int core, int inv,
                     const void* consts, void* stream, int device) {
+  using Kernel = decltype(&k_rt_u8<0, 0>);
+  static const Kernel kernels[2][kCores] = {
+      {k_rt_u8<0, 0>, k_rt_u8<1, 1>, k_rt_u8<2, 2>, k_rt_u8<3, 3>},
+      {k_rt_u8<0, kDense>, k_rt_u8<1, kDense>, k_rt_u8<2, kDense>, k_rt_u8<3, kDense>}};
+  if (core < 0 || core >= kCores || (inv != core && inv != kDense))
+    return static_cast<int>(cudaErrorInvalidValue);
   int err = prologue(device, h, w);
   if (err) return err;
-  k_rt_u8<<<grid_for(h, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernels[inv == kDense][core]<<<grid_for(h, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(img), static_cast<int8_t*>(coef), static_cast<uint8_t*>(rec), h, w,
       consts_of(consts));
   return static_cast<int>(cudaGetLastError());
@@ -371,11 +414,15 @@ int hp_encode_u8_launch(const void* img, void* coef, int h, int w, const void* c
   return static_cast<int>(cudaGetLastError());
 }
 
-int hp_decode_u8_launch(const void* coef, void* rec, int h, int w, void* fwd,
+int hp_decode_u8_launch(const void* coef, void* rec, int h, int w, void* fwd, int core,
                         const void* consts, void* stream, int device) {
+  using Kernel = decltype(&k_decode_u8<kDense>);
+  static const Kernel kernels[1 + kCores] = {k_decode_u8<kDense>, k_decode_u8<0>, k_decode_u8<1>,
+                                             k_decode_u8<2>, k_decode_u8<3>};
+  if (core < kDense || core >= kCores) return static_cast<int>(cudaErrorInvalidValue);
   int err = prologue(device, h, w);
   if (err) return err;
-  k_decode_u8<<<grid_for(h, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernels[core - kDense]<<<grid_for(h, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(coef), static_cast<int8_t*>(fwd), static_cast<uint8_t*>(rec), h,
       w, consts_of(consts));
   return static_cast<int>(cudaGetLastError());

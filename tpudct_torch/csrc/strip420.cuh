@@ -24,8 +24,9 @@
 // per luma pixel, which run 16 per clock per SM against 128 f32 operations,
 // so it was bound by instruction issue (30% and 20% of its byte bound).
 // Here:
-//  - An add-only inverse per integer core: Ts is compiled in (core_ts, one
-//    kernel instance per core), and each output sums only its nonzero terms
+//  - An add-only inverse per integer core (hp_block.cuh's inv_core, which
+//    B1, B3 and B15 run too): Ts is compiled in (core_ts, one kernel
+//    instance per core), and each output sums only its nonzero terms
 //    in the dense chain's k = 0..7 order, +-1 as an add or subtract and +-2
 //    as v + v.  Exact: a product by +-1 or +-2 is exact, and a product by 0
 //    adds +-0, which leaves every nonzero sum as it is, so only the sign of a
@@ -58,7 +59,7 @@
 #include <stdint.h>
 
 #include "color_px.cuh"  // ColorConsts (and B19's pixel chains)
-#include "hp_block.cuh"  // HpConsts, fwd_block (B19's chain)
+#include "hp_block.cuh"  // HpConsts, fwd_block (B19's chain); the add-only block decode and byte forms
 
 namespace {
 
@@ -76,118 +77,7 @@ __device__ __forceinline__ void strip_origin(int w, long long& r0, long long& c0
   c0 = static_cast<long long>(blockIdx.x % strips) * kStripCols;
 }
 
-// ---- the integer cores ------------------------------------------------------
-
-// The integer cores the strip is compiled for, in kernels/strip420.py's CORES
-// order (the launchers' `core` argument; cb2011 is rdct).
-constexpr int kCores = 4;
-
-// Entry e (row-major) of core `core`'s Ts (tpudct_torch/constants.py).
-__host__ __device__ constexpr int core_ts(int core, int e) {
-  constexpr signed char ts[kCores][64] = {
-      // haweel
-      { 1,  1,  1,  1,  1,  1,  1,  1,
-        1,  1,  0,  0,  0,  0, -1, -1,
-        2,  1, -1, -2, -2, -1,  1,  2,
-        0,  0, -1,  0,  0,  1,  0,  0,
-        1, -1, -1,  1,  1, -1, -1,  1,
-        1, -1,  0,  0,  0,  0,  1, -1,
-        1, -2,  2, -1, -1,  2, -2,  1,
-        0,  0,  0, -1,  1,  0,  0,  0},
-      // rdct
-      { 1,  1,  1,  1,  1,  1,  1,  1,
-        1,  1,  1,  0,  0, -1, -1, -1,
-        1,  0,  0, -1, -1,  0,  0,  1,
-        1,  0, -1, -1,  1,  1,  0, -1,
-        1, -1, -1,  1,  1, -1, -1,  1,
-        1, -1,  0,  1, -1,  0,  1, -1,
-        0, -1,  1,  0,  0,  1, -1,  0,
-        0, -1,  1, -1,  1, -1,  1,  0},
-      // wht
-      { 1,  1,  1,  1,  1,  1,  1,  1,
-        1,  1,  1,  1, -1, -1, -1, -1,
-        1,  1, -1, -1, -1, -1,  1,  1,
-        1,  1, -1, -1,  1,  1, -1, -1,
-        1, -1, -1,  1,  1, -1, -1,  1,
-        1, -1, -1,  1, -1,  1,  1, -1,
-        1, -1,  1, -1, -1,  1, -1,  1,
-        1, -1,  1, -1,  1, -1,  1, -1},
-      // bas
-      { 1,  1,  1,  1,  1,  1,  1,  1,
-        1,  1,  0,  0,  0,  0, -1, -1,
-        1,  0,  0, -1, -1,  0,  0,  1,
-        0,  0, -1,  0,  0,  1,  0,  0,
-        1, -1, -1,  1,  1, -1, -1,  1,
-        1, -1,  0,  0,  0,  0,  1, -1,
-        0, -1,  1,  0,  0,  1, -1,  0,
-        0,  0,  0, -1,  1,  0,  0,  0},
-  };
-  return ts[core][e];
-}
-
-// The dense chain's next step for a table entry a in {+-1, +-2}: acc + a v,
-// or a v where it starts the sum, without the product (v + v is 2 v).
-__device__ __forceinline__ float add_term(float acc, bool first, int a, float v) {
-  const float t = (a == 2 || a == -2) ? __fadd_rn(v, v) : v;
-  if (first) return a < 0 ? -t : t;
-  return a < 0 ? __fsub_rn(acc, t) : __fadd_rn(acc, t);
-}
-
-// x: the dequantized block M in, A^T M A + 128 out (A = Ts of kCore): the
-// dense inv_block's sums, their zero terms skipped.  Every index and table
-// entry is a constant once the loops unroll.
-template <int kCore>
-__device__ __forceinline__ void inv_core(float (&x)[64]) {
-  float u[64];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int l = 0; l < 8; ++l) {
-      float acc = 0.0f;
-      bool first = true;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int a = core_ts(kCore, k * 8 + i);
-        if (a != 0) {
-          acc = add_term(acc, first, a, x[k * 8 + l]);
-          first = false;
-        }
-      }
-      u[i * 8 + l] = acc;
-    }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float acc = 0.0f;
-      bool first = true;
-#pragma unroll
-      for (int l = 0; l < 8; ++l) {
-        const int a = core_ts(kCore, l * 8 + j);
-        if (a != 0) {
-          acc = add_term(acc, first, a, u[i * 8 + l]);
-          first = false;
-        }
-      }
-      x[i * 8 + j] = __fadd_rn(acc, 128.0f);
-    }
-}
-
-// ---- bytes and f32 without conversion instructions -------------------------
-
-constexpr float kTwo23 = 8388608.0f;  // 2^23: a float in [2^23, 2^24) has an ulp of 1
-
-// Byte e of w, xor 0x80 where w holds int8 (then the byte is v + 128), as
-// the float 2^23 + byte: its bits are 0x4B0000 and the byte.
-__device__ __forceinline__ float biased_byte(uint32_t w, int e) {
-  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440u + e));
-}
-
-// floor(clip(x, 0, 255)) (B3's clamp_trunc), as an exact f32 minus `shift`:
-// 2^23 + x rounded down is 2^23 + floor(x).
-__device__ __forceinline__ float clamp_floor(float x, float shift) {
-  return __fsub_rn(__fadd_rd(fminf(fmaxf(x, 0.0f), 255.0f), kTwo23), kTwo23 + shift);
-}
+// ---- the merge's round ------------------------------------------------------
 
 // trunc(clip(z) + 0.5) (color_px.cuh's trunc_u8) as an int: the same as
 // clip(floor(fl(z + 0.5)), 0, 255) for |z| < 2^22 (the clip moves only
@@ -197,11 +87,6 @@ __device__ __forceinline__ float clamp_floor(float x, float shift) {
 __device__ __forceinline__ uint32_t round_u8_bits(float z) {
   const int bits = __float_as_int(__fadd_rd(__fadd_rn(z, 0.5f), 12582912.0f));
   return static_cast<uint32_t>(__viaddmin_s32_relu(bits, -0x4B400000, 255));
-}
-
-// Four values in [0, 255] as the bytes of one little-endian word.
-__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
-  return __byte_perm(__byte_perm(a, b, 0x0040u), __byte_perm(c, d, 0x0040u), 0x5410u);
 }
 
 // ---- the strip ---------------------------------------------------------------
@@ -215,7 +100,9 @@ struct StripConsts {
 
 // One 8x8 int8 block, its rows as 8-byte words, decoded with the
 // multipliers s into rows 0..7 of plane (pitch floats apart), columns 8 g
-// to + 8, as exact f32 minus `shift` (128 for chroma).
+// to + 8, as exact f32 minus `shift` (128 for chroma).  The unpack is
+// bytes_minus_128's, written out beside its multiply: through the helper,
+// then a multiply loop, nvcc compiles B16 and B20 to other code.
 template <int kCore>
 __device__ __forceinline__ void decode_block(const uint2 (&v)[8], const float (&s)[64], float shift, float* plane,
                                              int pitch, int g) {

@@ -40,9 +40,9 @@ NVCC_FLAGS = (
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> argument types; every function returns a cudaError_t as int.
 _SIGNATURES = {
-    "hp_rt_u8_launch": (_P, _P, _P, _I, _I, _P, _P, _I),
+    "hp_rt_u8_launch": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _I),
     "hp_encode_u8_launch": (_P, _P, _I, _I, _P, _P, _I),
-    "hp_decode_u8_launch": (_P, _P, _I, _I, _P, _P, _P, _I),
+    "hp_decode_u8_launch": (_P, _P, _I, _I, _P, _I, _P, _P, _I),
     "hp_rt_f32_launch": (_P, _P, _P, _I, _I, _I, _P, _P, _I),
     "hp_dct_launch": (_P, _P, _I, _I, _I, _P, _P, _I),
     "hp_idct_launch": (_P, _P, _I, _I, _P, _P, _I),

@@ -27,7 +27,11 @@ in f64 and cast once to f32 exactly as the reference's ``_consts_int``/
 quantization table and ``retain_k`` ride the same kernels.  The literal
 tables (T, Q q_scale, the zonal mask) exist for every transform; the
 integer-core tables (Ts, the folded scale, the butterfly dequantization)
-only where the transform has an integer core.
+only where the transform has an integer core.  B1 and B3 (and the ring's
+B15) run an add-only chain with Ts compiled in, one instance per integer
+core: their wrappers pass the core's id (``kernels.cores``, checked against
+the packed Ts), and for the inverse the dense instance's on the
+"highest"/"high" tiers.
 
 ``decode_precision="high"`` is the reference's bf16x3 inverse, which exists
 because the TPU's matrix unit has no f32 path; here it runs the f32
@@ -44,6 +48,7 @@ import numpy as np
 import torch
 
 from tpudct_torch.constants import LEVEL_SHIFT, get_q_table, get_transform
+from tpudct_torch.kernels import cores
 from tpudct_torch.ops.blocks import as_block_grid, from_block_grid
 from tpudct_torch.ops.quant import retention_mask
 from tpudct_torch.ops.transform import to_uint8
@@ -206,6 +211,22 @@ def _args(transform, q_table, q_scale, retain_k, decode_precision, int_core) -> 
         a, s = k.t, k.q
     packed = np.concatenate([m.ravel() for m in (fwd, fq, mask, a, s)]).astype(np.float32)
     return _Args(fwd, fq, _frozen(mask), _frozen(a), s, _frozen(packed))
+
+
+@functools.lru_cache(maxsize=64)
+def _core_of(transform, q_table, q_scale, retain_k, decode_precision, int_core) -> tuple:
+    """The launchers' ids ``(core, inv)``: ``core``, B1's forward (with
+    ``int_core``; else None), is the id of the integer core compiled for
+    ``transform`` (``kernels.cores``); ``inv``, the inverse of B1 and
+    B3/B15, is that core's id on the butterfly tier and ``cores.DENSE``
+    (the dense f32 inverse) on the "highest"/"high" tiers.  Raises where a
+    table the add-only chain would read is not the compiled one."""
+    k = _args(transform, q_table, q_scale, retain_k, decode_precision, int_core)
+    kernel = "the add-only u8 codec"
+    core = cores.core_id(transform, k.fwd, kernel=kernel) if int_core else None
+    if _precision(decode_precision) != "butterfly":
+        return core, cores.DENSE
+    return core, cores.core_id(transform, k.a, kernel=kernel)
 
 
 # ---------------------------------------------------------------------------
@@ -377,12 +398,13 @@ def hp_roundtrip_u8(image_u8, q_scale: float = 1.0, q_table: str = "luma", retai
                     decode_precision: str = "butterfly", transform: str = "haweel"):
     """Fused u8 codec pass: uint8 (H, W) -> (int8 coefficients, uint8 recon)."""
     h, w = _check(image_u8, torch.uint8, "hp_roundtrip_u8")
+    core, inv = _core_of(transform, q_table, q_scale, retain_k, decode_precision, True)
     if image_u8.device.type == "cpu":
         return roundtrip_u8_plain(image_u8, q_scale, q_table, retain_k, decode_precision, transform)
     k = _args(transform, q_table, q_scale, retain_k, decode_precision, True)
     c = torch.empty((h, w), dtype=torch.int8, device=image_u8.device)
     r = torch.empty((h, w), dtype=torch.uint8, device=image_u8.device)
-    launch("hp_rt_u8_launch", (image_u8, c, r), h, w, k.packed)
+    launch("hp_rt_u8_launch", (image_u8, c, r), h, w, k.packed, core, inv)
     LAUNCHES["hp_roundtrip_u8"] += 1
     return c, r
 
@@ -405,11 +427,12 @@ def hp_decode_u8(coeffs_i8, q_scale: float = 1.0, q_table: str = "luma",
     """int8 (H, W) coefficients -> uint8 reconstruction (dequant, inverse,
     +128, truncation and clamp in one pass)."""
     h, w = _check(coeffs_i8, torch.int8, "hp_decode_u8")
+    inv = _core_of(transform, q_table, q_scale, None, decode_precision, False)[1]
     if coeffs_i8.device.type == "cpu":
         return decode_u8_plain(coeffs_i8, q_scale, q_table, decode_precision, transform)
     k = _args(transform, q_table, q_scale, None, decode_precision, False)
     r = torch.empty((h, w), dtype=torch.uint8, device=coeffs_i8.device)
-    launch("hp_decode_u8_launch", (coeffs_i8, r), h, w, k.packed, None)  # no forward (B15 has one)
+    launch("hp_decode_u8_launch", (coeffs_i8, r), h, w, k.packed, None, inv)  # no forward (B15 has one)
     LAUNCHES["hp_decode_u8"] += 1
     return r
 

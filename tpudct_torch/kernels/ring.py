@@ -20,10 +20,11 @@ tensors runs the twin; given CUDA tensors it launches the kernel or raises,
 and counts the launch in ``LAUNCHES``.  B15 and B16 decode with the
 butterfly tier (the reference's rings do, whatever ``decode_precision``),
 with tables from ``kernels.hp``'s ``kernel_constants``, so they raise for a
-transform without an integer core as ``hp_decode_u8`` does; B16 runs the
-strip body compiled for the transform's integer core
-(``kernels.strip420``), which checks that the core's compiled table is the
-transform's Ts.
+transform without an integer core as ``hp_decode_u8`` does; both run the
+add-only inverse compiled for the transform's integer core (B15 B3's
+instance, B16 the strip body's, ``kernels.strip420``), and the wrappers
+check that the core's compiled table is the transform's Ts
+(``kernels.cores``).
 """
 
 from __future__ import annotations
@@ -124,6 +125,7 @@ def ring_forward_decode(coef, fwd, rec, q_scale: float = 1.0, q_table: str = "lu
     _check(rec, torch.uint8, (h, w), "ring_forward_decode", "rec")
     if fwd is not None:
         _check(fwd, torch.int8, (h, w), "ring_forward_decode", "fwd")
+    inv = hp._core_of(transform, q_table, q_scale, None, "butterfly", False)[1]
     if not _on_cuda("ring_forward_decode", coef, fwd, rec):
         return forward_decode_plain(coef, fwd, rec, q_scale, q_table, transform)
     if rec.device != coef.device:
@@ -132,8 +134,8 @@ def ring_forward_decode(coef, fwd, rec, q_scale: float = 1.0, q_table: str = "lu
         if t is not None:
             hp.check_placement(t, "ring_forward_decode")
     consts = _packed(transform, q_table, q_scale)
-    call("hp_decode_u8_launch", coef.device, coef.data_ptr(), rec.data_ptr(), h, w, _ptr(fwd),
-            consts.ctypes.data)
+    call("hp_decode_u8_launch", coef.device, coef.data_ptr(), rec.data_ptr(), h, w, _ptr(fwd), inv,
+         consts.ctypes.data)
     LAUNCHES["ring_forward_decode"] += 1
 
 
