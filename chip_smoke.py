@@ -12,10 +12,11 @@ order:
   1. prints the card (name, power limit), the torch version and nvcc's;
   2. builds the kernels (one nvcc per source, in parallel) and prints
      nvcc's register/stack/spill lines, and from ``cuobjdump -sass`` of the
-     library each B1, B3 (B15), B16 and B20 instance's count of
+     library each B1, B2, B3 (B15), B16, B19 and B20 instance's count of
      instructions, of conversion instructions (I2F, I2FP, F2I, F2IP, FRND,
-     F2F) and MUFU, beside its registers and spills; a B1/B3 instance with
-     an FRND, a spill, or more I2F or F2I than B6's block index fails;
+     F2F) and MUFU, beside its registers and spills, and B8's
+     (k_color_split<2, 2>); a B1/B2/B3/B19 instance with an FRND, a spill,
+     or more I2F or F2I than B6's block index fails;
   3. turns TF32 off and prints both flags;
   4. holds each kernel against its plain torch twin at 512^2 and 8192^2,
      q_scale 1 and 2.5, retain_k None and 6 (where the kernel takes it),
@@ -54,8 +55,10 @@ order:
      outputs; both kernels also on a ragged 3x1001 map, whose bytes end
      off the 16-byte vectors), the
      fused encode and decode at the default config and at q_scale 2.5 with
-     retain_k 6; B16 and B20 (csrc/strip420.cuh's one body) on uniform int8
-     noise planes (so the decode's clamps are reached) at 512^2 and 8192^2,
+     retain_k 6, the fused encode also for every integer core and cb2011 and
+     on saturated RGB (all 0, all 255, the pure primaries, and every
+     (r, g, b) triple, whose luma lands on both sides of every .5 tie);
+     B16 and B20 (csrc/strip420.cuh's one body) on uniform int8 noise planes (so the decode's clamps are reached) at 512^2 and 8192^2,
      for every integer core and the alias cb2011, at q_scale 1 and 2.5, B16
      on every ring slot at n = 1, 2, 4, 8, with its forwards; B1 (u8 noise
      with all-0, all-255 and checkerboard blocks; its coefficients equal to
@@ -166,8 +169,9 @@ _CV, _CV2, _INV = (f"benchmarks/{n}.py" for n in ("color_variants", "color_varia
 # rounding per chroma sample; a ring launch is counted over a whole slot with
 # its forward, per luma pixel (B16: the luma decode, two quarter-size chroma
 # decodes and the merge); the fused color encode counts B8's chain with the
-# f32 luma (24) plus B2's forward on the luma and half as much on the
-# chroma (25.5), the fused decode B16's chain; the color variants count as B8
+# f32 luma (24) plus the u8 encode's (B2, B1's encode half: the forward and
+# the quantizer) on the luma and half as much on the chroma (25.5), the
+# fused decode B16's chain; the color variants count as B8
 # and B9, idct_x "b" as B6 and "c" as the inverse's dequantization and shift
 # (2) plus, per direction, three digits' products (24) and sums (2) and the
 # digit splits (5): 64.  Every kernel here is bound by its bytes at these
@@ -270,18 +274,26 @@ CONVERSIONS = ("I2F", "I2FP", "F2I", "F2IP", "FRND", "F2F")
 
 def _instance(fn: str):
     """(label, kind) of a SASS or ptxas function name that is an instance of
-    B1 (k_rt_u8<core, inv>), B3/B15 (k_decode_u8<core>), B16
-    (k_ring_forward_decode_color<core>), B20 (k_color_decode_420<core>) or
-    B6 (k_idct, the block index's conversions alone), else None; kind is
-    "u8" for B1/B3, "strip" for B16/B20, "idct" for B6."""
+    B1 (k_rt_u8<core, inv>), B2 (k_encode_u8<core>), B3/B15
+    (k_decode_u8<core>), B19 (k_color_encode_420<core>), B16
+    (k_ring_forward_decode_color<core>), B20 (k_color_decode_420<core>), B8
+    (k_color_split<2, 2>) or B6 (k_idct, the block index's conversions
+    alone), else None; kind is "u8" for B1/B2/B3, "encode420" for B19,
+    "strip" for B16/B20, "split" for B8, "idct" for B6."""
     from tpudct_torch.kernels.cores import CORES
 
     if m := re.search(r"k_rt_u8ILi(\d)ELi(n1|\d)E", fn):  # n1: kDense, -1
         return f"k_rt_u8<{CORES[int(m.group(1))]}, {'dense' if m.group(2) == 'n1' else 'add-only'} inverse>", "u8"
+    if m := re.search(r"k_encode_u8ILi(\d)E", fn):
+        return f"k_encode_u8<{CORES[int(m.group(1))]}>", "u8"
     if m := re.search(r"k_decode_u8ILi(n1|\d)E", fn):  # n1: kDense, -1
         return f"k_decode_u8<{'dense' if m.group(1) == 'n1' else CORES[int(m.group(1))]}>", "u8"
+    if m := re.search(r"k_color_encode_420ILi(\d)E", fn):
+        return f"k_color_encode_420<{CORES[int(m.group(1))]}>", "encode420"
     if m := re.search(r"(k_ring_forward_decode_color|k_color_decode_420)ILi(\d)E", fn):
         return f"{m.group(1)}<{CORES[int(m.group(2))]}>", "strip"
+    if re.search(r"k_color_splitILi2ELi2ELb0E", fn):
+        return "k_color_split<2, 2>", "split"
     if re.search(r"\d+k_idctE", fn):
         return "k_idct", "idct"
     return None
@@ -304,11 +316,12 @@ def _ptxas_instances(log: str) -> dict:
 
 def _sass_conversions(lib, log: str) -> None:
     """Static counts of conversion instructions (and MUFU) in each instance
-    of B1, B3 (B15), B16 and B20 (one per integer core; B1 and B3 also on
-    the dense inverse), from cuobjdump -sass of the built library, beside
-    ptxas's registers and spills.  Fails where a B1/B3 instance has an FRND,
-    more I2F/I2FP or F2I/F2IP than B6 (k_idct: the block index's division,
-    no conversion per pixel), or spills."""
+    of B1, B2, B3 (B15), B16, B19 and B20 (one per integer core; B1 and B3
+    also on the dense inverse) and in B8 (k_color_split<2, 2>), from
+    cuobjdump -sass of the built library, beside ptxas's registers and
+    spills.  Fails where a B1/B2/B3/B19 instance has an FRND, more I2F/I2FP
+    or F2I/F2IP than B6 (k_idct: the block index's division, no conversion
+    per pixel), or spills."""
     from tpudct_torch.kernels._build import nvcc_path
     from tpudct_torch.kernels.cores import CORES
 
@@ -327,12 +340,12 @@ def _sass_conversions(lib, log: str) -> None:
               + ", ".join(f"{k} {ops[k]}" for k in CONVERSIONS + ("MUFU",))
               + f"; ptxas {r} registers, {st} + {ld} bytes spilled")
     kinds = collections.Counter(kind for _, kind in counts)
-    want = {"strip": 2 * len(CORES), "u8": 3 * len(CORES) + 1, "idct": 1}
+    want = {"strip": 2 * len(CORES), "u8": 4 * len(CORES) + 1, "encode420": len(CORES), "split": 1, "idct": 1}
     if kinds != want:
         _fail(f"cuobjdump -sass shows instances {dict(kinds)}, not {want}")
     base = next(ops for (_, kind), ops in counts.items() if kind == "idct")
     for (label, kind), ops in counts.items():
-        if kind != "u8":
+        if kind not in ("u8", "encode420"):
             continue
         i2f, f2i = ops["I2F"] + ops["I2FP"], ops["F2I"] + ops["F2IP"]
         if ops["FRND"] or i2f > base["I2F"] + base["I2FP"] or f2i > base["F2I"] + base["F2IP"]:
@@ -523,8 +536,11 @@ def _compare_study(dev, errs: dict) -> None:
     copies at 512^2, 8192^2 and on a ragged 3x1001 map (a byte tail past the
     16-byte vectors), B17 in place, B18's u8 and int8 outputs; the fused
     encode and decode at 512^2 and 8192^2 at the default config and at
-    q_scale 2.5 with retain_k 6."""
+    q_scale 2.5 with retain_k 6; the fused encode also for every integer
+    core and cb2011 at both configs, and on saturated RGB (_saturated_rgb),
+    where its conversion-free round meets the clip and the .5 ties."""
     from tpudct_torch.kernels import study
+    from tpudct_torch.kernels.cores import CORES
 
     maps = [(f"{s}^2", _noise(s, s, seed=s + 3, dev=dev)) for s in COMPARE_SIZES]
     maps.append(("3x1001", _noise(3, 1001, seed=4, dev=dev)))
@@ -537,21 +553,39 @@ def _compare_study(dev, errs: dict) -> None:
         _equal(f"u8_copy {label} values", out, x)
         for part, a, b in zip(("u8", "int8"), study.u8_copy2(x.clone()), study.copy2_plain(x.clone())):
             errs["u8_copy2"] = max(errs["u8_copy2"], _same(f"u8_copy2 {label} {part}", a, b))
-    for s in COMPARE_SIZES:
-        rgb = _rgb_noise(s, s, seed=s + 5, dev=dev)
-        for kw in ({}, {"q_scale": 2.5, "retain_k": 6}):
-            tag = f"{s}^2 {kw or 'default'}"
-            planes = study.color_encode_420_u8(rgb, **kw)
-            for plane, a, b in zip(("y", "cb", "cr"), planes, study.encode_420_plain(rgb, **kw)):
-                errs["color_encode_420_u8"] = max(errs["color_encode_420_u8"],
-                                                  _same(f"color_encode_420_u8 {tag} {plane}", a, b))
-            qs = kw.get("q_scale", 1.0)
-            e = _same(f"color_decode_420_u8 {tag}", study.color_decode_420_u8(*planes, q_scale=qs),
-                      study.decode_420_plain(*planes, q_scale=qs))
-            errs["color_decode_420_u8"] = max(errs["color_decode_420_u8"], e)
+    inputs = [(f"{s}^2 noise", _rgb_noise(s, s, seed=s + 5, dev=dev)) for s in COMPARE_SIZES]
+    inputs += list(_saturated_rgb(dev))
+    for label, rgb in inputs:
+        for core in CORES + ("cb2011",):
+            for kw in ({}, {"q_scale": 2.5, "retain_k": 6}):
+                tag = f"{label} {core} {kw or 'default'}"
+                planes = study.color_encode_420_u8(rgb, transform=core, **kw)
+                for plane, a, b in zip(("y", "cb", "cr"), planes, study.encode_420_plain(rgb, transform=core, **kw)):
+                    errs["color_encode_420_u8"] = max(errs["color_encode_420_u8"],
+                                                      _same(f"color_encode_420_u8 {tag} {plane}", a, b))
+                if label.endswith("noise") and core == "haweel":  # B20 on every core: _compare_strip
+                    qs = kw.get("q_scale", 1.0)
+                    e = _same(f"color_decode_420_u8 {tag}", study.color_decode_420_u8(*planes, q_scale=qs),
+                              study.decode_420_plain(*planes, q_scale=qs))
+                    errs["color_decode_420_u8"] = max(errs["color_decode_420_u8"], e)
     print(f"  u8_copy and u8_copy2 at {', '.join(label for label, _ in maps)}, color_encode_420_u8 and "
           f"color_decode_420_u8 at {', '.join(f'{s}^2' for s in COMPARE_SIZES)} (default; q_scale 2.5, "
-          "retain_k 6) bit-identical to their twins")
+          f"retain_k 6), color_encode_420_u8 also on {', '.join(label for label, _ in inputs)} for "
+          f"{', '.join(CORES)} and cb2011: bit-identical to their twins")
+
+
+def _saturated_rgb(dev):
+    """(label, (3, H, W) u8 RGB) inputs that reach the fused encode's clip
+    and .5 ties: 512^2 of all-0, all-255 and pure red, green, blue, cyan,
+    magenta and yellow bands, and 4096^2 holding every (r, g, b) triple
+    once (so every luma value, and each side of every .5 tie, occurs)."""
+    s = COMPARE_SIZES[0]
+    colors = torch.tensor([[0, 0, 0], [255, 255, 255], [255, 0, 0], [0, 255, 0], [0, 0, 255],
+                           [0, 255, 255], [255, 0, 255], [255, 255, 0]], dtype=torch.uint8)
+    band = torch.arange(s) * len(colors) // s
+    yield f"{s}^2 saturated bands", colors[band].T[:, None, :].expand(3, s, s).contiguous().to(dev)
+    n = torch.arange(1 << 24, dtype=torch.int32, device=dev).reshape(4096, 4096)
+    yield "4096^2 every RGB triple", torch.stack([((n >> sh) & 255).to(torch.uint8) for sh in (16, 8, 0)])
 
 
 def _i8_noise(shape, seed: int, dev) -> torch.Tensor:

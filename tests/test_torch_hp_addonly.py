@@ -239,7 +239,7 @@ def test_rt_u8_chain_equals_the_twin(transform, q_table, q_scale, retain_k):
         pc, pr = hp.roundtrip_u8_plain(torch.as_tensor(img), q_scale, q_table, retain_k, tier, transform)
         assert np.array_equal(c, pc.numpy()), tier
         assert np.array_equal(r, pr.numpy()), tier
-    # B2 (the dense forward) codes the same coefficients
+    # B2 (B1's encode half) codes the same coefficients
     assert np.array_equal(c, hp.encode_u8_plain(torch.as_tensor(img), q_scale, q_table, retain_k, transform).numpy())
 
 
@@ -402,20 +402,24 @@ def test_the_chain_has_no_conversion_in_its_source():
     """No function of the chain converts between int and float (no casts,
     truncf or __float2int), and the kernels run the chain, not the dense
     forward or the converting row helpers (the card's SASS counts:
-    chip_smoke.py phase 2)."""
+    chip_smoke.py phase 2): B1 and B2 through one encode function
+    (encode_block_u8), B1 and B3 through dequant_inverse."""
     text = (_CSRC / "hp_block.cuh").read_text()
-    for name in _CHAIN:
-        body = _function_body(text, name)
+    src = (_CSRC / "hp_codec.cu").read_text()
+    bodies = {name: _function_body(text, name) for name in _CHAIN}
+    bodies["encode_block_u8"] = _function_body(src, "encode_block_u8")
+    for name, body in bodies.items():
         for banned in ("truncf", "__float2int", "static_cast<int", "(int)", "round_away(", "roundf", "rintf"):
             assert banned not in body, (name, banned)
     assert "static_cast<float>(t)" in _function_body(text, "core_dot")  # a compile-time table constant
-    src = (_CSRC / "hp_codec.cu").read_text()
-    for kernel in ("k_rt_u8", "k_decode_u8"):
+    for kernel in ("k_rt_u8", "k_encode_u8", "k_decode_u8", "encode_block_u8"):
         body = _function_body(src, kernel)
         for banned in ("fwd_block", "inv_block", "load_u8_shifted", "store_i8", "store_u8", "load_i8"):
             assert not re.search(r"\b" + banned + r"\(", body), (kernel, banned)
     assert "dequant_inverse<kCore>" in _function_body(src, "k_decode_u8")
-    assert "fwd_core<kCore>" in _function_body(src, "k_rt_u8")
+    for kernel in ("k_rt_u8", "k_encode_u8"):
+        assert "encode_block_u8<kCore>" in _function_body(src, kernel)
+    assert "fwd_core<kCore>" in bodies["encode_block_u8"]
 
 
 # ---------------------------------------------------------------------------

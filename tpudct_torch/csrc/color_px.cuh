@@ -1,9 +1,10 @@
-// The color codec's per-pixel chains and byte access helpers, shared by
-// color_codec.cu (B8-B13 and the study variants B23-B26) and study.cu (B19),
-// so the fused 4:2:0 encode splits exactly as color_split_420_u8 does; the
-// 4:2:0 strip (B16, B20, strip420.cuh) reads ColorConsts and merges with the
-// same chain, its round without a conversion instruction.  See
-// color_codec.cu's header for the value chain and its rounding.
+// The color codec's per-pixel chains and byte access helpers of
+// color_codec.cu (B8-B13 and the study variants B23-B26).  The 4:2:0 strip
+// (B16, B20, strip420.cuh) reads ColorConsts and merges with the same
+// chain, and study.cu's fused 4:2:0 encode (B19) runs luma_f32 and
+// split_chroma's chain, both with their rounds in forms without conversion
+// instructions.  See color_codec.cu's header for the value chain and its
+// rounding.
 
 #pragma once
 

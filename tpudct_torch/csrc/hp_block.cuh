@@ -1,19 +1,20 @@
 // The hp codec's 8x8 block chains, one thread holding one 8x8 block in
 // registers (see hp_codec.cu's header for the value chain and its
 // rounding):
-//  - the dense forward and quantizer fwd_block (B2, B4, B5, and study.cu's
-//    B19, so the fused encode codes exactly as hp_encode_u8 does) and the
-//    dense inverse inv_block (B4, B6, B7, and the "highest"/"high" tiers of
-//    B1 and B3), with conversion instructions at the bytes (B2, B7, B19);
-//  - the add-only chain of B1, B3 and B15 on the butterfly tier, shared
-//    with strip420.cuh's 4:2:0 strip (B16, B20): each integer core's Ts
-//    compiled in (core_ts, one kernel instance per core), the forward by
-//    even/odd butterflies, the inverse summing only its nonzero terms in
-//    the dense order, and no conversion instruction per pixel (bytes <->
-//    f32 by bit patterns, floors and truncations by directed-rounding adds
-//    of 2^23, bytes packed by PRMT).
+//  - the dense forward and quantizer fwd_block (B4, B5) and the dense
+//    inverse inv_block (B4, B6, B7, and the "highest"/"high" tiers of B1
+//    and B3), with conversion instructions at the bytes (B7);
+//  - the add-only chain of B1, B2, B3 and B15 on the butterfly tier, shared
+//    with strip420.cuh's 4:2:0 strip (B16, B20) and study.cu's fused 4:2:0
+//    encode (B19, so it codes exactly as hp_encode_u8 does): each integer
+//    core's Ts compiled in (core_ts, one kernel instance per core), the
+//    forward by even/odd butterflies, the inverse summing only its nonzero
+//    terms in the dense order, and no conversion instruction per pixel
+//    (bytes <-> f32 by bit patterns, floors and truncations by
+//    directed-rounding adds of 2^23, bytes packed by PRMT).
 // Every form gives the dense chain's values bit for bit (tests/
-// test_torch_hp_addonly.py and test_torch_strip420.py emulate them).
+// test_torch_hp_addonly.py, test_torch_strip420.py and
+// test_torch_encode_addonly.py emulate them).
 
 #pragma once
 
@@ -269,7 +270,8 @@ __device__ __forceinline__ void bytes_minus_128(uint32_t lo, uint32_t hi, float*
   }
 }
 
-// 8 u8 pixels (8-byte aligned) -> the level-shifted x - 128, exact f32.
+// 8 u8 pixels (8-byte aligned, in device or shared memory) -> the
+// level-shifted x - 128, exact f32.
 __device__ __forceinline__ void load_u8_level(const uint8_t* p, float* x) {
   const uint2 v = *reinterpret_cast<const uint2*>(p);
   bytes_minus_128(v.x, v.y, x);
@@ -354,7 +356,7 @@ __device__ __forceinline__ void dequant_inverse(float (&x)[64], const HpConsts& 
   }
 }
 
-// ---- rows with conversion instructions (B2, B7, B19) ----------------------
+// ---- rows with conversion instructions (B7) --------------------------------
 
 // 8 int8 values, held as the raw 8 bytes of one row, -> f32.
 __device__ __forceinline__ void unpack_i8(uint2 v, float* x) {
@@ -367,27 +369,6 @@ __device__ __forceinline__ void unpack_i8(uint2 v, float* x) {
 
 __device__ __forceinline__ void load_i8(const int8_t* p, float* x) {
   unpack_i8(*reinterpret_cast<const uint2*>(p), x);
-}
-
-// 8 u8 pixels (device or shared memory, 8-byte aligned) -> level-shifted f32.
-__device__ __forceinline__ void load_u8_shifted(const uint8_t* p, float* x) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    x[e] = static_cast<float>(static_cast<int>((v.x >> (8 * e)) & 0xffu) - 128);
-    x[4 + e] = static_cast<float>(static_cast<int>((v.y >> (8 * e)) & 0xffu) - 128);
-  }
-}
-
-// 8 quantized coefficients (integral f32 in int8 range) -> one 8-byte row.
-__device__ __forceinline__ void store_i8(int8_t* p, const float* c) {
-  uint2 v = {0u, 0u};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    v.x |= (static_cast<uint32_t>(__float2int_rz(c[e])) & 0xffu) << (8 * e);
-    v.y |= (static_cast<uint32_t>(__float2int_rz(c[4 + e])) & 0xffu) << (8 * e);
-  }
-  *reinterpret_cast<uint2*>(p) = v;
 }
 
 __device__ __forceinline__ float clamp_trunc(float x) {

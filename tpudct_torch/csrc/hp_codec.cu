@@ -65,19 +65,22 @@
 // window crosses a block) and is instantiated per (fr, fc) so that every
 // register index is static.
 //
-// B1 and B3 (and so B15) run hp_block.cuh's add-only chain, one instance
-// per integer core (the launchers' `core`): their dense form was bound by
-// instruction issue, not bytes (about 31 rounded f32 operations per
-// coefficient for the inverse and 3 (B3) or 5 (B1) type conversions per
-// pixel, which issue 16 per clock per SM against 128 f32 operations).  Now:
+// B1, B2 and B3 (and so B15) run hp_block.cuh's add-only chain, one
+// instance per integer core (the launchers' `core`): their dense form was
+// bound by instruction issue, not bytes (16 FMAs per pixel for the forward,
+// about 31 rounded f32 operations per coefficient for the inverse and 3
+// (B2, B3) or 5 (B1) type conversions per pixel, which issue 16 per clock
+// per SM against 128 f32 operations).  B2 is B1's encode half, one
+// device function (encode_block_u8), so the two code the same coefficients
+// by construction.  Now:
 //   - bytes become exact f32 by bit patterns (PRMT, then - 2^23 - 128), the
 //     decode floors and clamps by min/max and a round-down add of 2^23, and
 //     the bytes are packed by PRMT: no I2F, F2I or FRND per pixel;
-//   - B1's forward Ts X Ts^T is exact integer arithmetic in f32, so it
+//   - the forward Ts X Ts^T is exact integer arithmetic in f32, so it
 //     runs in any order: even/odd butterflies, then each output's nonzero
 //     terms (+-2 as one FMA), about 4.5 adds per pixel for haweel against
 //     the dense form's 16 FMAs;
-//   - B1's quantizer keeps the double rounding (fl(core * scale), then
+//   - the quantizer keeps the double rounding (fl(core * scale), then
 //     fl(+ copysign(0.5))), and truncates by a round-down add of 2^23 to
 //     the magnitude, the sign restored by copysign; the int8 byte is the
 //     low byte of 1.5 * 2^23 + c;
@@ -90,11 +93,12 @@
 //
 // Bound: memory.  The fused u8 pass moves 3 bytes per pixel (read u8, write
 // int8 + u8): 192 MiB at 8192^2, about 60 us at the H100 SXM's 3.35 TB/s;
-// the u8 decode 2 (B15 3, with its forward); hp_dct and hp_idct move 8, the
-// f32 roundtrips 12, the scaled u8 decode 1 + 1/(fr fc), the split3 inverse
-// 8.  The arithmetic is ~2k f32 operations per block for the dense chains
-// (the literal forward adds 64 IEEE divisions; split3 does three times the
-// inverse's products and sums, plus 5 operations per digit split, ~7k);
+// the u8 encode and decode 2 (B15 3, with its forward); hp_dct and hp_idct
+// move 8, the f32 roundtrips 12, the scaled u8 decode 1 + 1/(fr fc), the
+// split3 inverse 8.  The arithmetic is ~2k f32 operations per block for the
+// dense chains (the literal forward adds 64 IEEE divisions; split3 does
+// three times the inverse's products and sums, plus 5 operations per digit
+// split, ~7k);
 // the add-only chains' SASS instruction counts and times are in PERF.md
 // (sections 6 and 7).
 
@@ -170,9 +174,22 @@ __device__ __forceinline__ void store_f32(float* p, const float* x) { store_row_
 
 // ---- kernels ---------------------------------------------------------------
 
-// The fused u8 pass on the integer core kCore: the add-only forward, the
-// quantizer without FRND/F2I, then the decode half on the inverse kInv:
-// kCore's add-only inverse, or kDense (the "highest"/"high" tiers).
+// The u8 encode of the block at element offset o on the integer core kCore:
+// its rows level-shifted to exact f32, the add-only forward, the quantizer
+// without FRND/F2I, the int8 rows stored; x keeps the quantized
+// coefficients.  B2 is this alone, B1 this and then its decode half, so
+// both code the same coefficients by construction.
+template <int kCore>
+__device__ __forceinline__ void encode_block_u8(const uint8_t* __restrict__ img, int8_t* __restrict__ coef,
+                                                long long o, int w, float (&x)[64], const HpConsts& k) {
+  ROWS(load_u8_level(img + ro, x + 8 * r));
+  fwd_core<kCore>(x);
+  ROWS(quantize_store_i8(coef + ro, x + 8 * r, k.fq + 8 * r));
+}
+
+// The fused u8 pass on the integer core kCore: the encode, then the decode
+// half on the inverse kInv: kCore's add-only inverse, or kDense (the
+// "highest"/"high" tiers).
 template <int kCore, int kInv>
 __global__ void k_rt_u8(const uint8_t* __restrict__ img, int8_t* __restrict__ coef,
                         uint8_t* __restrict__ rec, int h, int w, const HpConsts k) {
@@ -180,21 +197,18 @@ __global__ void k_rt_u8(const uint8_t* __restrict__ img, int8_t* __restrict__ co
   const long long o = block_origin(h, w);
   if (o < 0) return;
   float x[64];
-  ROWS(load_u8_level(img + ro, x + 8 * r));
-  fwd_core<kCore>(x);
-  ROWS(quantize_store_i8(coef + ro, x + 8 * r, k.fq + 8 * r));
+  encode_block_u8<kCore>(img, coef, o, w, x, k);
   dequant_inverse<kInv>(x, k);
   ROWS(store_u8_floor(rec + ro, x + 8 * r));
 }
 
+template <int kCore>
 __global__ void k_encode_u8(const uint8_t* __restrict__ img, int8_t* __restrict__ coef,
                             int h, int w, const HpConsts k) {
   const long long o = block_origin(h, w);
   if (o < 0) return;
   float x[64];
-  ROWS(load_u8_shifted(img + ro, x + 8 * r));
-  fwd_block(x, k);
-  ROWS(store_i8(coef + ro, x + 8 * r));
+  encode_block_u8<kCore>(img, coef, o, w, x, k);
 }
 
 // The u8 decode on the integer core kCore's add-only inverse, or kDense
@@ -380,11 +394,11 @@ int launch_scaled_fc(int fc, const void* coef, void* out, int h, int w, int out_
 // laid out as HpConsts.  hp_decode_u8_launch's `fwd` is null, or where to copy
 // the int8 map as it is read (another card's memory once ring_enable_peer in
 // ring.cu has given this card access to it).  `core` picks the integer core
-// compiled in (hp_block.cuh's core_ts, kernels/cores.py's CORES) for B1's
-// forward.  B1's `inv` and B3's `core` pick the inverse: an integer core
-// (for B1, its forward's), or kDense (-1) for inv_block on the table `a`
-// (the "highest"/"high" tiers).  Each function
-// returns a cudaError_t value (0 = ok) after checking the launch; it neither
+// compiled in (hp_block.cuh's core_ts, kernels/cores.py's CORES) for the
+// forward of B1 and B2.  B1's `inv` and B3's `core` pick the inverse: an
+// integer core (for B1, its forward's), or kDense (-1) for inv_block on the
+// table `a` (the "highest"/"high" tiers).  Each function returns a
+// cudaError_t value (0 = ok) after checking the launch; it neither
 // synchronizes nor allocates.
 
 extern "C" {
@@ -405,11 +419,14 @@ int hp_rt_u8_launch(const void* img, void* coef, void* rec, int h, int w, int co
   return static_cast<int>(cudaGetLastError());
 }
 
-int hp_encode_u8_launch(const void* img, void* coef, int h, int w, const void* consts,
+int hp_encode_u8_launch(const void* img, void* coef, int h, int w, int core, const void* consts,
                         void* stream, int device) {
+  using Kernel = decltype(&k_encode_u8<0>);
+  static const Kernel kernels[kCores] = {k_encode_u8<0>, k_encode_u8<1>, k_encode_u8<2>, k_encode_u8<3>};
+  if (core < 0 || core >= kCores) return static_cast<int>(cudaErrorInvalidValue);
   int err = prologue(device, h, w);
   if (err) return err;
-  k_encode_u8<<<grid_for(h, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernels[core]<<<grid_for(h, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(img), static_cast<int8_t*>(coef), h, w, consts_of(consts));
   return static_cast<int>(cudaGetLastError());
 }

@@ -58,8 +58,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "color_px.cuh"  // ColorConsts (and B19's pixel chains)
-#include "hp_block.cuh"  // HpConsts, fwd_block (B19's chain); the add-only block decode and byte forms
+#include "color_px.cuh"  // ColorConsts, luma_f32 (B19's luma)
+#include "hp_block.cuh"  // HpConsts; the add-only block chain (B19's forward) and byte forms
 
 namespace {
 

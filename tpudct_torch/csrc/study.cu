@@ -21,12 +21,13 @@
 //   B19  (3, H, W) u8 RGB -> int8 coefficients of Y (H, W), Cb and Cr
 //        (H/2, W/2) in one pass.  Luma: the f32 BT.601 KR r + KG g + KB b,
 //        every product and sum rounded on its own (luma_f32), then _to_u8
-//        (round_u8: clip, floor, +1 where frac >= 0.5) and the level shift;
-//        NOT the production split's 16-bit fixed-point luma (B8), so B19's Y
-//        differs from the composed path's by +-1 where the two roundings
-//        part.  Chroma: B8's exact 2x2 pool, BT.601 and round (split_chroma).
-//        Then B2's exact integer forward and quantizer (fwd_block) with the
-//        luma table for Y and the chroma table for Cb and Cr.
+//        (the compare form: clip, floor, +1 where frac >= 0.5) and the level
+//        shift; NOT the production split's 16-bit fixed-point luma (B8), so
+//        B19's Y differs from the composed path's by +-1 where the two
+//        roundings part.  Chroma: B8's exact 2x2 pool, BT.601 and round
+//        (split_chroma's chain).  Then B2's exact integer forward and
+//        quantizer with the luma table for Y and the chroma table for Cb and
+//        Cr, on the integer core `core` (one instance per core).
 //   B20  Y, Cb, Cr int8 -> (3, H, W) u8 RGB in one pass: B3's butterfly
 //        decode of every block, trunc and clamp, nearest 2x2 chroma
 //        replication and the BT.601 inverse.  Its twin rounds with the
@@ -43,26 +44,34 @@
 // TMA bulk copies through a ring of shared-memory stages, one block per SM,
 // in place allowed; B18 stores each tile twice).  B19: one thread block of
 // 128 threads per 16 x 256 luma strip; each thread first reads a 2 x 16
-// window of the three planes (16 bytes a row), writes its 32 shifted-luma
-// bytes and its 8 Cb and 8 Cr bytes into shared memory, then threads 0-63
-// each run the forward of one luma block and threads 64-95 of one chroma
-// block from shared memory (one 8x8 block of f32 live per thread).  B20:
-// strip420.cuh's body, B16's without the forward (see its header: one
-// thread block per 16 x 256 luma strip, an add-only inverse compiled per
-// integer core, no conversion instructions per pixel).
+// window of the three planes (16 bytes a row), writes its 32 luma bytes and
+// its 8 Cb and 8 Cr bytes into shared memory, then threads 0-63 each run
+// the encode of one luma block and threads 64-95 of one chroma block from
+// shared memory: B2's add-only chain (hp_block.cuh: load_u8_level, the
+// butterfly forward fwd_core, quantize_store_i8; one 8x8 block of f32 live
+// per thread).  No conversion instruction per pixel: a byte becomes f32 as
+// biased_byte - 2^23, the chroma window sums stay exact in f32, and the
+// compare-form round is two round-down adds (round_u8_2p23), its byte
+// packed by PRMT.  B20: strip420.cuh's body, B16's without the forward (see
+// its header: one thread block per 16 x 256 luma strip, an add-only inverse
+// compiled per integer core, no conversion instructions per pixel).  Timed
+// beside B19 and dropped (PERF.md section 6): B20's 96-thread shape, each
+// luma thread taking its own block's luma in registers (95 registers, only
+// 64 of 96 threads staging: 1.23x B19's time).
 //
 // Bound: memory.  Bytes per luma pixel (each input read once, each output
 // written once): B17 2, B18 3, B19 and B20 4.5 (RGB 3, coefficients 1.5); at
 // 8192^2 and 3.35 TB/s 0.040, 0.060 and 0.090 ms.  The arithmetic (B19: B8's
-// and B2's chains plus the f32 luma, about 50 operations per pixel; B20: B3's
-// 1.5 times plus B9's, about 53 instructions per luma pixel) is under that at
-// the card's f32 rate.
+// chain with the f32 luma and B2's on 1.5 coefficients, about 50 operations
+// per luma pixel; B20: B3's 1.5 times plus B9's, about 53 instructions per
+// luma pixel) is under that at the card's f32 rate, but its instructions
+// take about as long to issue (0.09-0.11 ms at 8192^2 and 1.98 GHz).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "copy.cuh"      // the copy body (B17, B18)
-#include "strip420.cuh"  // the strip body (B20) and geometry (B19); HpConsts, fwd_block; ColorConsts, luma_f32
+#include "strip420.cuh"  // the strip body (B20) and geometry (B19); the add-only block chain; ColorConsts, luma_f32
 
 namespace {
 
@@ -73,26 +82,74 @@ __global__ void __launch_bounds__(kCopyThreads)
   copy_bytes<kI8>(src, dst, i8, n);
 }
 
+// ---- B19: the fused 4:2:0 encode ----------------------------------------------
+
+// B19's constants: the luma and chroma quantizer scales (the integer core's
+// fq, retain_k folded in), then the color chain's.
+struct EncodeConsts {
+  float fl[64], fc[64];
+  ColorConsts kk;
+};
+
+// Byte e of w as an exact f32: the bits 0x4B000000 and the byte, minus 2^23.
+__device__ __forceinline__ float byte_f32(uint32_t w, int e) { return __fsub_rn(biased_byte(w, e), kTwo23); }
+
+// 2^23 + round_u8(z), the compare form _to_u8 (color_px.cuh's round_u8:
+// zp = clip(z, 0, 255), then floor(zp) + [zp - floor(zp) >= 0.5]), without
+// FRND or F2I: that difference is exact, so round_u8 is floor(zp + 0.5)
+// taken exactly; zp + 0.5 rounded down is no less than that integer (which
+// is representable and no larger than the exact sum) and less than the next,
+// and 2^23 + it rounded down has the floor, the byte, in its low mantissa
+// bits.
+__device__ __forceinline__ float round_u8_2p23(float z) {
+  return __fadd_rd(__fadd_rd(fminf(fmaxf(z, 0.0f), 255.0f), 0.5f), kTwo23);
+}
+
+// One chroma sample from the sums sr, sg, sb of r, g, b over its 2 x 2
+// window (exact f32) -> words whose low bytes are cb and cr: split_chroma's
+// chain.  Its pooled channel sum * 0.25 + 128 over the sums of (c - 128) is
+// the window sum * 0.25 here, both exact (a multiple of 1/4 below 256).
+__device__ __forceinline__ void split_chroma_420(float sr, float sg, float sb, const ColorConsts& k, uint32_t& cb,
+                                                 uint32_t& cr) {
+  const float pr = __fmul_rn(sr, 0.25f), pg = __fmul_rn(sg, 0.25f), pb = __fmul_rn(sb, 0.25f);
+  const float yp = luma_f32(pr, pg, pb, k);
+  cb = __float_as_uint(round_u8_2p23(__fadd_rn(__fmul_rn(__fsub_rn(pb, yp), k.kcb), 128.0f)));
+  cr = __float_as_uint(round_u8_2p23(__fadd_rn(__fmul_rn(__fsub_rn(pr, yp), k.kcr), 128.0f)));
+}
+
+// x: a block's level-shifted samples in, its coefficients out and stored as
+// 8 int8 rows at p (pitch elements apart): fwd_core and quantize_store_i8,
+// B2's chain, on the scales fq.
+template <int kCore>
+__device__ __forceinline__ void encode_rows(float (&x)[64], int8_t* p, long long pitch, const float* fq) {
+  fwd_core<kCore>(x);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) quantize_store_i8(p + r * pitch, x + 8 * r, fq + 8 * r);
+}
+
+// One block of 128 threads per 16 x 256 luma strip.  Thread t first reads a
+// 2 x 16 window of the three planes (16 bytes a row), rows 2 (t / 16) and
+// the next, columns 16 (t % 16) to + 16 of the strip, and stages its 32
+// luma bytes and its 8 cb and 8 cr bytes in shared memory; after one
+// barrier, threads 0-63 run the encode of luma block (t / 32, t % 32) and
+// thread 64 + 16 p + b that of block b of chroma plane p (cb, cr), each
+// from shared memory.
 constexpr int kWinCols = 16;                                               // luma columns of a window
 constexpr int kEncThreads = (kStripRows / 2) * (kStripCols / kWinCols);  // 2 x 16 windows: 128
 
+template <int kCore>
 __global__ void __launch_bounds__(kEncThreads)
-    k_color_encode_420(const uint8_t* __restrict__ rgb, int8_t* __restrict__ y,
-                       int8_t* __restrict__ cb, int8_t* __restrict__ cr, int h, int w,
-                       const HpConsts kl, const HpConsts kc, const ColorConsts kk) {
-  __shared__ __align__(16) uint8_t ys[kStripRows][kStripCols];                // luma u8
-  __shared__ __align__(16) uint8_t cs[2][kStripRows / 2][kStripCols / 2];  // cb, cr u8
+    k_color_encode_420(const uint8_t* __restrict__ rgb, int8_t* __restrict__ y, int8_t* __restrict__ cb,
+                       int8_t* __restrict__ cr, int h, int w, const EncodeConsts k) {
+  __shared__ __align__(16) uint8_t ys[kStripRows][kStripCols];
+  __shared__ __align__(16) uint8_t cs[2][kChromaRows][kChromaCols];
   long long r0, c0;
   strip_origin(w, r0, c0);
   const long long plane = static_cast<long long>(h) * w;
   const int t = threadIdx.x;
   {
-    const int a = t / (kStripCols / kWinCols), g = t % (kStripCols / kWinCols);  // window row pair, column
-    int sum[3][kWinCols / 2];
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-#pragma unroll
-      for (int v = 0; v < kWinCols / 2; ++v) sum[c][v] = 0;
+    const int a = t / (kStripCols / kWinCols), g = t % (kStripCols / kWinCols);
+    float sum[3][kWinCols / 2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = 2 * a + i;
@@ -100,26 +157,26 @@ __global__ void __launch_bounds__(kEncThreads)
       uint32_t px[3][4];
 #pragma unroll
       for (int c = 0; c < 3; ++c) load_bytes<16>(rgb + c * plane + ro, px[c]);
-      uint32_t yv[4] = {0u, 0u, 0u, 0u};
+      uint32_t yb[kWinCols];
 #pragma unroll
       for (int e = 0; e < kWinCols; ++e) {
-        const int r = byte_at(px[0], e), gg = byte_at(px[1], e), b = byte_at(px[2], e);
-        const float yf = luma_f32(static_cast<float>(r), static_cast<float>(gg), static_cast<float>(b), kk);
-        yv[e >> 2] |= round_u8(yf) << (8 * (e & 3));
-        sum[0][e / 2] += r - 128;
-        sum[1][e / 2] += gg - 128;
-        sum[2][e / 2] += b - 128;
+        float v[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          v[c] = byte_f32(px[c][e >> 2], e & 3);
+          sum[c][e / 2] = i == 0 && e % 2 == 0 ? v[c] : __fadd_rn(sum[c][e / 2], v[c]);
+        }
+        yb[e] = __float_as_uint(round_u8_2p23(luma_f32(v[0], v[1], v[2], k.kk)));
       }
+      const uint32_t yv[4] = {pack4(yb[0], yb[1], yb[2], yb[3]), pack4(yb[4], yb[5], yb[6], yb[7]),
+                              pack4(yb[8], yb[9], yb[10], yb[11]), pack4(yb[12], yb[13], yb[14], yb[15])};
       store_bytes<16>(&ys[row][g * kWinCols], yv);
     }
-    uint32_t cbv[2] = {0u, 0u}, crv[2] = {0u, 0u};
+    uint32_t zb[kWinCols / 2], zr[kWinCols / 2];
 #pragma unroll
-    for (int v = 0; v < kWinCols / 2; ++v) {
-      uint32_t zb, zr;
-      split_chroma(sum[0][v], sum[1][v], sum[2][v], 0.25f, kk, zb, zr);
-      cbv[v >> 2] |= zb << (8 * (v & 3));
-      crv[v >> 2] |= zr << (8 * (v & 3));
-    }
+    for (int v = 0; v < kWinCols / 2; ++v) split_chroma_420(sum[0][v], sum[1][v], sum[2][v], k.kk, zb[v], zr[v]);
+    const uint32_t cbv[2] = {pack4(zb[0], zb[1], zb[2], zb[3]), pack4(zb[4], zb[5], zb[6], zb[7])};
+    const uint32_t crv[2] = {pack4(zr[0], zr[1], zr[2], zr[3]), pack4(zr[4], zr[5], zr[6], zr[7])};
     store_bytes<8>(&cs[0][a][g * kWinCols / 2], cbv);
     store_bytes<8>(&cs[1][a][g * kWinCols / 2], crv);
   }
@@ -129,21 +186,14 @@ __global__ void __launch_bounds__(kEncThreads)
   if (t < kLumaBlocks) {
     const int by = t / (kStripCols / 8), bx = t % (kStripCols / 8);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) load_u8_shifted(&ys[by * 8 + i][bx * 8], x + 8 * i);
-    fwd_block(x, kl);
-    const long long o = (r0 + by * 8) * w + c0 + bx * 8;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) store_i8(y + o + i * static_cast<long long>(w), x + 8 * i);
+    for (int i = 0; i < 8; ++i) load_u8_level(&ys[by * 8 + i][bx * 8], x + 8 * i);
+    encode_rows<kCore>(x, y + (r0 + by * 8) * w + c0 + bx * 8, w, k.fl);
   } else {
-    const int q = t - kLumaBlocks, pl = q / (kStripCols / 16), bx = q % (kStripCols / 16);
+    const int q = t - kLumaBlocks, pl = q / (kChromaCols / 8), bx = q % (kChromaCols / 8);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) load_u8_shifted(&cs[pl][i][bx * 8], x + 8 * i);
-    fwd_block(x, kc);
+    for (int i = 0; i < 8; ++i) load_u8_level(&cs[pl][i][bx * 8], x + 8 * i);
     const int cw = w / 2;
-    const long long o = (r0 / 2) * cw + c0 / 2 + bx * 8;
-    int8_t* out = pl ? cr : cb;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) store_i8(out + o + i * static_cast<long long>(cw), x + 8 * i);
+    encode_rows<kCore>(x, (pl ? cr : cb) + (r0 / 2) * cw + c0 / 2 + bx * 8, cw, k.fc);
   }
 }
 
@@ -168,12 +218,11 @@ inline dim3 strip_grid(int h, int w) {
 
 // ---- C interface -------------------------------------------------------------
 // Pointers are device pointers (16-byte aligned, contiguous) except the
-// consts: for the encode host pointers to 320 floats laid out as HpConsts
-// (luma, chroma: the integer core's tables) or 9 floats laid out as
-// ColorConsts; for the decode a host pointer to 137 floats laid out as
-// StripConsts (the luma and chroma dequantization multipliers, then
-// ColorConsts), `core` picking the integer core (strip420.cuh's core_ts,
-// kernels/strip420.py's CORES).  u8_copy_launch copies n bytes of src
+// consts, a host pointer to 137 floats: for the encode laid out as
+// EncodeConsts (the luma and chroma quantizer scales, then ColorConsts),
+// for the decode as StripConsts (the luma and chroma dequantization
+// multipliers, then ColorConsts); `core` picks the integer core
+// (hp_block.cuh's core_ts, kernels/cores.py's CORES).  u8_copy_launch copies n bytes of src
 // to dst (which may be src) and, unless i8 is null, to i8; the color
 // launchers need h % 16 == 0 and w % 256 == 0.  Each function returns a
 // cudaError_t value (0 = ok; hp_error_string in hp_codec.cu names it) after
@@ -192,15 +241,17 @@ int u8_copy_launch(const void* src, void* dst, void* i8, long long n, void* stre
   return launch_copy(k_u8_copy<false>, n, s, x, d, static_cast<int8_t*>(nullptr), n);
 }
 
-int color_encode_420_launch(const void* rgb, void* y, void* cb, void* cr, int h, int w,
-                            const void* consts_luma, const void* consts_chroma, const void* color_consts,
-                            void* stream, int device) {
+int color_encode_420_launch(const void* rgb, void* y, void* cb, void* cr, int h, int w, int core,
+                            const void* consts, void* stream, int device) {
+  using Kernel = decltype(&k_color_encode_420<0>);
+  static const Kernel kernels[kCores] = {k_color_encode_420<0>, k_color_encode_420<1>, k_color_encode_420<2>,
+                                         k_color_encode_420<3>};
+  if (core < 0 || core >= kCores) return static_cast<int>(cudaErrorInvalidValue);
   int err = strip_prologue(device, h, w);
   if (err) return err;
-  k_color_encode_420<<<strip_grid(h, w), kEncThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernels[core]<<<strip_grid(h, w), kEncThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(rgb), static_cast<int8_t*>(y), static_cast<int8_t*>(cb),
-      static_cast<int8_t*>(cr), h, w, *static_cast<const HpConsts*>(consts_luma),
-      *static_cast<const HpConsts*>(consts_chroma), *static_cast<const ColorConsts*>(color_consts));
+      static_cast<int8_t*>(cr), h, w, *static_cast<const EncodeConsts*>(consts));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -41,7 +41,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> argument types; every function returns a cudaError_t as int.
 _SIGNATURES = {
     "hp_rt_u8_launch": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _I),
-    "hp_encode_u8_launch": (_P, _P, _I, _I, _P, _P, _I),
+    "hp_encode_u8_launch": (_P, _P, _I, _I, _I, _P, _P, _I),
     "hp_decode_u8_launch": (_P, _P, _I, _I, _P, _I, _P, _P, _I),
     "hp_rt_f32_launch": (_P, _P, _P, _I, _I, _I, _P, _P, _I),
     "hp_dct_launch": (_P, _P, _I, _I, _I, _P, _P, _I),
@@ -56,7 +56,7 @@ _SIGNATURES = {
     "ring_forward_decode_color_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P, _P, _I),
     "ring_enable_peer": (_I, _I),
     "u8_copy_launch": (_P, _P, _P, _L, _P, _I),
-    "color_encode_420_launch": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I),
+    "color_encode_420_launch": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I),
     "color_decode_420_launch": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I),
 }
 

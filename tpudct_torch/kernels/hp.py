@@ -27,11 +27,12 @@ in f64 and cast once to f32 exactly as the reference's ``_consts_int``/
 quantization table and ``retain_k`` ride the same kernels.  The literal
 tables (T, Q q_scale, the zonal mask) exist for every transform; the
 integer-core tables (Ts, the folded scale, the butterfly dequantization)
-only where the transform has an integer core.  B1 and B3 (and the ring's
-B15) run an add-only chain with Ts compiled in, one instance per integer
-core: their wrappers pass the core's id (``kernels.cores``, checked against
-the packed Ts), and for the inverse the dense instance's on the
-"highest"/"high" tiers.
+only where the transform has an integer core.  B1, B2 and B3 (and the
+ring's B15) run an add-only chain with Ts compiled in, one instance per
+integer core: their wrappers pass the core's id (``kernels.cores``, checked
+against the packed Ts), and for the inverse the dense instance's on the
+"highest"/"high" tiers.  B2 is B1's encode half: the u8 encode exists only
+for a transform with an integer core (``supports_u8``).
 
 ``decode_precision="high"`` is the reference's bf16x3 inverse, which exists
 because the TPU's matrix unit has no f32 path; here it runs the f32
@@ -215,8 +216,8 @@ def _args(transform, q_table, q_scale, retain_k, decode_precision, int_core) -> 
 
 @functools.lru_cache(maxsize=64)
 def _core_of(transform, q_table, q_scale, retain_k, decode_precision, int_core) -> tuple:
-    """The launchers' ids ``(core, inv)``: ``core``, B1's forward (with
-    ``int_core``; else None), is the id of the integer core compiled for
+    """The launchers' ids ``(core, inv)``: ``core``, the forward of B1 and
+    B2 (with ``int_core``; else None), is the id of the integer core compiled for
     ``transform`` (``kernels.cores``); ``inv``, the inverse of B1 and
     B3/B15, is that core's id on the butterfly tier and ``cores.DENSE``
     (the dense f32 inverse) on the "highest"/"high" tiers.  Raises where a
@@ -411,13 +412,14 @@ def hp_roundtrip_u8(image_u8, q_scale: float = 1.0, q_table: str = "luma", retai
 
 def hp_encode_u8(image_u8, q_scale: float = 1.0, q_table: str = "luma", retain_k=None,
                  transform: str = "haweel"):
-    """uint8 (H, W) image -> int8 quantized coefficients."""
+    """uint8 (H, W) image -> int8 quantized coefficients: B1's encode half."""
     h, w = _check(image_u8, torch.uint8, "hp_encode_u8")
+    core = _core_of(transform, q_table, q_scale, retain_k, "butterfly", True)[0]
     if image_u8.device.type == "cpu":
         return encode_u8_plain(image_u8, q_scale, q_table, retain_k, transform)
     k = _args(transform, q_table, q_scale, retain_k, "butterfly", True)
     c = torch.empty((h, w), dtype=torch.int8, device=image_u8.device)
-    launch("hp_encode_u8_launch", (image_u8, c), h, w, k.packed)
+    launch("hp_encode_u8_launch", (image_u8, c), h, w, k.packed, core)
     LAUNCHES["hp_encode_u8"] += 1
     return c
 

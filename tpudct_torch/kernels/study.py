@@ -31,9 +31,13 @@ inert.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from tpudct_torch.kernels import color as ck
+from tpudct_torch.kernels import cores
 from tpudct_torch.kernels import hp
 from tpudct_torch.kernels import strip420
 from tpudct_torch.kernels._build import call
@@ -49,10 +53,22 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _tables(transform: str, q_table: str, q_scale: float, retain_k):
-    """The 320 packed f32 the encode reads as HpConsts: the integer core's
-    forward and scale, with ``retain_k`` folded in."""
-    return hp._args(transform, q_table, q_scale, retain_k, "butterfly", True).packed
+@functools.lru_cache(maxsize=64)
+def encode_args(transform: str, q_scale: float, retain_k, y_q_table: str = "luma", c_q_table: str = "chroma"):
+    """(core id, the 137 packed f32 B19 reads as EncodeConsts: the luma and
+    chroma quantizer scales of the integer core, ``retain_k`` folded in,
+    then the color constants).
+
+    B19's forward is add-only, its core's Ts compiled in (``core_ts`` in
+    ``csrc/hp_block.cuh``); raises as ``kernels.hp`` does for a transform
+    without an integer core, and where the packed forward is not the table
+    compiled for the transform's core."""
+    kl = hp._args(transform, y_q_table, q_scale, retain_k, "butterfly", True)
+    kc = hp._args(transform, c_q_table, q_scale, retain_k, "butterfly", True)
+    core = cores.core_id(transform, kl.fwd, kc.fwd, kernel="color_encode_420_u8")
+    packed = np.concatenate([kl.fq.ravel(), kc.fq.ravel(), ck._consts()]).astype(np.float32)
+    packed.setflags(write=False)
+    return core, packed
 
 
 # ---------------------------------------------------------------------------
@@ -136,16 +152,15 @@ def color_encode_420_u8(rgb_planar_u8, q_scale: float = 1.0, retain_k=None, tran
     if c != 3:
         raise ValueError(f"{name} takes (3, H, W) planar RGB, got shape {tuple(rgb_planar_u8.shape)}")
     ck._check_grid(h, w)
+    core, consts = encode_args(transform, q_scale, retain_k, y_q_table, c_q_table)
     if rgb_planar_u8.device.type == "cpu":
         return encode_420_plain(rgb_planar_u8, q_scale, retain_k, transform, y_q_table, c_q_table)
-    kl = _tables(transform, y_q_table, q_scale, retain_k)
-    kc = _tables(transform, c_q_table, q_scale, retain_k)
     dev = rgb_planar_u8.device
     y = torch.empty((h, w), dtype=torch.int8, device=dev)
     cb = torch.empty((h // 2, w // 2), dtype=torch.int8, device=dev)
     cr = torch.empty_like(cb)
     call("color_encode_420_launch", dev, rgb_planar_u8.data_ptr(), y.data_ptr(), cb.data_ptr(),
-         cr.data_ptr(), h, w, kl.ctypes.data, kc.ctypes.data, ck._consts().ctypes.data)
+         cr.data_ptr(), h, w, core, consts.ctypes.data)
     LAUNCHES[name] += 1
     return y, cb, cr
 
