@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (the hp codec B1-B7, the YCbCr split and
-merge B8-B13, the ring hops B14-B16 and the study kernels B17-B26: the u8
+merge B8-B13, the ring hops B14-B16 and the study kernels B17-B36: the u8
 copy floors, the fused 4:2:0 color encode and decode, the color split/merge
-variants and the inverse formulations) from ``tpudct_torch/csrc`` and, in
-order:
+variants, the inverse formulations and the u8 roundtrip and encode
+variants) from ``tpudct_torch/csrc`` and, in order:
 
   1. prints the card (name, power limit), the torch version and nvcc's;
   2. builds the kernels (one nvcc per source, in parallel) and prints
@@ -15,8 +15,9 @@ order:
      library each B1, B2, B3 (B15), B16, B19 and B20 instance's count of
      instructions, of conversion instructions (I2F, I2FP, F2I, F2IP, FRND,
      F2F) and MUFU, beside its registers and spills, and B8's
-     (k_color_split<2, 2>); a B1/B2/B3/B19 instance with an FRND, a spill,
-     or more I2F or F2I than B6's block index fails;
+     (k_color_split<2, 2>) and B30/B31's (k_enc_half); a B1/B2/B3/B19
+     instance with an FRND, a spill, or more I2F or F2I than B6's block
+     index fails;
   3. turns TF32 off and prints both flags;
   4. holds each kernel against its plain torch twin at 512^2 and 8192^2,
      q_scale 1 and 2.5, retain_k None and 6 (where the kernel takes it),
@@ -70,7 +71,12 @@ order:
      B8's planes, the splits V3, V5, idct_x "b" and "c" on hp_dct's
      coefficients), V1, V4, V6 also equal to B9's output and V3 to B8's, V12
      and V5 within +-1 on at most 0.5% of them (counts printed), idct_x "b"
-     equal to hp_idct, and idct_x leaving its input as it was;
+     equal to hp_idct, and idct_x leaving its input as it was; then the u8
+     study variants B27-B36 at 512^2 and 8192^2 on u8 noise with all-0,
+     all-255 and alternating 0/255 blocks: each bit for bit against its
+     twin, B27-B29 (q_scale 1 and 2.5) also equal to hp_roundtrip_u8 and
+     B32-B36 to hp_encode_u8, E2 (B30) saturating at both -128 and 127
+     (counts printed);
   5. runs the float64 golden-model correctness gate at 512^2 (u8 path with
      the encode/decode/roundtrip bit-identity check, the f32 path, and the
      f32-literal core under transform "dct") and the color420_u8, f32 and
@@ -110,7 +116,11 @@ order:
      equal to the composed path's and its Y +-1 on at most 0.5% of entries
      (count printed), the variant studies' checks (V1, V3, V4, V6 0
      differences from the shipped pair, V12 and V5 +-1 on at most 0.5%,
-     idct_x "b" and "c" within 1e-4 of the f64 golden); then the
+     idct_x "b" and "c" within 1e-4 of the f64 golden), and the u8 variant
+     drivers (u8_variants in modes int, bf, abbf, cs; enc_variants in modes
+     a, b, d, e; rt_split_ab with 3 trials; scaled_ab), each moving exactly
+     its counters and every difference count they report 0 (each of the ten
+     u8 variant counters must move); then the
      measurement path, its counters set to 0 just before it:
      tpudct_torch.benchmark's bench_pipeline for hp, batched, fast
      (1024^2) and cublas (256^2, its per-block loop, and 1024^2, above the
@@ -131,7 +141,8 @@ order:
      the luma and the chroma pack slots, then color_merge_420_u8), then per
      launch (B14 in turns with Tensor.copy_ of the same slot, B16 with its
      composed counterpart, with the slot's bound) and per whole ring at
-     n = 1, 2, 4, 8.
+     n = 1, 2, 4, 8; the u8 study variants B27-B36 with their twins on
+     their own 8192^2 noise map.
 
 Each phase prints its seconds.  Any failure ends the run with a non-zero
 exit.  The second-to-last line is a JSON summary of the kernels (launches
@@ -159,6 +170,7 @@ _CSRC, _CREF = "tpudct_torch/csrc/color_codec.cu", "tpudct/kernels/color_pallas.
 _RSRC, _RREF = "tpudct_torch/csrc/ring.cu", "tpudct/parallel/ring.py"
 _SSRC = "tpudct_torch/csrc/study.cu"
 _CV, _CV2, _INV = (f"benchmarks/{n}.py" for n in ("color_variants", "color_variants2", "inv_formulations"))
+_UV, _EV = "benchmarks/u8_variants.py", "benchmarks/enc_variants.py"
 # kernel -> (CUDA source, the TPU kernel it replaces, bytes moved per pixel
 # (each input read once, each output written once), operations per pixel).
 # Operations: the value chain's arithmetic per pixel, a multiply-add counted
@@ -207,6 +219,19 @@ KERNELS = {
     "color_split_v5": (_CSRC, f"{_CV2}:85", 4.5, 19),
     "idct_x_b": (_SRC, f"{_INV}:77", 8, 17),  # B6's k_idct
     "idct_x_c": (_SRC, f"{_INV}:81", 8, 64),
+    # the u8 study variants (kernels.variants): B27-B29 launch B1's kernel,
+    # B32-B36 B2's; B30 (E2) and B31 (E3) are one direction of B2's forward
+    # (E2 also scales by 12) and the quantizer with the saturation
+    "rt_u8_vint": (_SRC, f"{_UV}:40", 3, 36),
+    "rt_u8_vbf": (_SRC, f"{_UV}:80", 3, 36),
+    "rt_u8_vcs": (_SRC, f"{_UV}:120", 3, 36),
+    "enc_nosub": (_SSRC, f"{_EV}:39", 2, 12),
+    "enc_nolane": (_SSRC, f"{_EV}:60", 2, 11),
+    "enc_xor": (_SRC, f"{_EV}:75", 2, 17),
+    "enc_nibble": (_SRC, f"{_EV}:81", 2, 17),
+    "enc_truncless": (_SRC, f"{_EV}:119", 2, 17),
+    "enc_nibble_truncless": (_SRC, f"{_EV}:143", 2, 17),
+    "enc_k256": (_SRC, f"{_EV}:169", 2, 17),
 }
 # repetitions of each timed call in the measurement path (after one warm-up
 # call: device_time_ms)
@@ -277,9 +302,10 @@ def _instance(fn: str):
     B1 (k_rt_u8<core, inv>), B2 (k_encode_u8<core>), B3/B15
     (k_decode_u8<core>), B19 (k_color_encode_420<core>), B16
     (k_ring_forward_decode_color<core>), B20 (k_color_decode_420<core>), B8
-    (k_color_split<2, 2>) or B6 (k_idct, the block index's conversions
-    alone), else None; kind is "u8" for B1/B2/B3, "encode420" for B19,
-    "strip" for B16/B20, "split" for B8, "idct" for B6."""
+    (k_color_split<2, 2>), B6 (k_idct, the block index's conversions
+    alone) or B30/B31 (k_enc_half<dir>), else None; kind is "u8" for
+    B1/B2/B3, "encode420" for B19, "strip" for B16/B20, "split" for B8,
+    "idct" for B6, "enchalf" for B30/B31."""
     from tpudct_torch.kernels.cores import CORES
 
     if m := re.search(r"k_rt_u8ILi(\d)ELi(n1|\d)E", fn):  # n1: kDense, -1
@@ -296,6 +322,8 @@ def _instance(fn: str):
         return "k_color_split<2, 2>", "split"
     if re.search(r"\d+k_idctE", fn):
         return "k_idct", "idct"
+    if m := re.search(r"k_enc_halfILi(\d)E", fn):
+        return f"k_enc_half<{('kEncRows', 'kEncCols')[int(m.group(1))]}>", "enchalf"
     return None
 
 
@@ -317,7 +345,8 @@ def _ptxas_instances(log: str) -> dict:
 def _sass_conversions(lib, log: str) -> None:
     """Static counts of conversion instructions (and MUFU) in each instance
     of B1, B2, B3 (B15), B16, B19 and B20 (one per integer core; B1 and B3
-    also on the dense inverse) and in B8 (k_color_split<2, 2>), from
+    also on the dense inverse), in B8 (k_color_split<2, 2>) and in B30/B31
+    (k_enc_half, whose round keeps the reference's trunc: printed only), from
     cuobjdump -sass of the built library, beside ptxas's registers and
     spills.  Fails where a B1/B2/B3/B19 instance has an FRND, more I2F/I2FP
     or F2I/F2IP than B6 (k_idct: the block index's division, no conversion
@@ -340,7 +369,8 @@ def _sass_conversions(lib, log: str) -> None:
               + ", ".join(f"{k} {ops[k]}" for k in CONVERSIONS + ("MUFU",))
               + f"; ptxas {r} registers, {st} + {ld} bytes spilled")
     kinds = collections.Counter(kind for _, kind in counts)
-    want = {"strip": 2 * len(CORES), "u8": 4 * len(CORES) + 1, "encode420": len(CORES), "split": 1, "idct": 1}
+    want = {"strip": 2 * len(CORES), "u8": 4 * len(CORES) + 1, "encode420": len(CORES), "split": 1, "idct": 1,
+            "enchalf": 2}
     if kinds != want:
         _fail(f"cuobjdump -sass shows instances {dict(kinds)}, not {want}")
     base = next(ops for (_, kind), ops in counts.items() if kind == "idct")
@@ -450,6 +480,7 @@ def phase_compare(dev) -> dict:
     _compare_strip(dev, errs)
     _compare_u8_cores(dev, errs)
     _compare_variants(dev, errs)
+    _compare_u8_variants(dev, errs)
     torch.cuda.synchronize()
     return errs
 
@@ -501,6 +532,56 @@ def _compare_variants(dev, errs: dict) -> None:
         print(f"  {s}^2: the six color variants and idct_x b, c bit-identical to their twins; against B8/B9 "
               f"differing: {', '.join(counts)}; idct_x b equals hp_idct, c within "
               f"{float((rc - rb).abs().max()):.2e} of it")
+
+
+def _saturating_u8(h: int, w: int, seed: int, dev) -> torch.Tensor:
+    """u8 noise with all-0, all-255 and alternating 0/255 8x8 blocks in every
+    fourth block row: the level shift's extremes, which drive E2 (B30) to
+    both ends of int8."""
+    x = _noise(h, w, seed=seed, dev=dev)
+    alt = ((torch.arange(8)[:, None] + torch.arange(8)) % 2 * 255).to(torch.uint8)
+    pats = torch.stack([torch.zeros_like(alt), torch.full_like(alt, 255), alt]).to(dev)
+    rows = x.view(h // 8, 8, w // 8, 8)[::4]
+    i = torch.arange(rows.shape[0], device=dev)[:, None]
+    j = torch.arange(w // 8, device=dev)[None, :]
+    rows.copy_(pats[(i + j) % 3].permute(0, 2, 1, 3))
+    return x
+
+
+def _compare_u8_variants(dev, errs: dict) -> None:
+    """The u8 study variants (B27-B36) at 512^2 and 8192^2 on u8 noise with
+    saturating blocks (_saturating_u8): each bit for bit against its twin;
+    B27-B29 (q_scale 1 and 2.5) also equal to hp_roundtrip_u8 (B1), B32-B36
+    to hp_encode_u8 (B2) on the same input; E2's saturated entries counted
+    (fails unless both -128 and 127 occur)."""
+    from tpudct_torch.kernels import hp
+    from tpudct_torch.kernels import variants as V
+
+    for s in COMPARE_SIZES:
+        x = _saturating_u8(s, s, seed=s + 15, dev=dev)
+        for f in (V.rt_u8_vint, V.rt_u8_vbf, V.rt_u8_vcs):
+            for qs in (1.0, 2.5):
+                (c, r), (pc, pr) = f(x, q_scale=qs), hp.roundtrip_u8_plain(x, q_scale=qs)
+                tag = f"{f.__name__} {s}^2 q_scale={qs}"
+                errs[f.__name__] = max(errs[f.__name__], _same(f"{tag} coeffs", c, pc), _same(f"{tag} recon", r, pr))
+                c1, r1 = hp.hp_roundtrip_u8(x, q_scale=qs)
+                _equal(f"{tag} coeffs vs hp_roundtrip_u8", c, c1)
+                _equal(f"{tag} recon vs hp_roundtrip_u8", r, r1)
+        b2 = hp.hp_encode_u8(x)
+        for kern in (V._k_enc_nosub, V._k_enc_nolane, V._k_enc_xor, V._k_enc_nibble, V._k_enc_truncless,
+                     V._k_enc_nibble_truncless, V._k_enc_k256):
+            out = V._mk(kern, 128, 512)(x)
+            errs[kern.name] = max(errs[kern.name], _same(f"{kern.name} {s}^2", out, kern.plain(x)))
+            if kern is V._k_enc_nosub:
+                lo, hi = int((out == -128).sum()), int((out == 127).sum())
+                if not lo or not hi:
+                    _fail(f"enc_nosub {s}^2: saturated entries -128: {lo}, 127: {hi} (both ends expected)")
+            elif kern is not V._k_enc_nolane:
+                _equal(f"{kern.name} {s}^2 vs hp_encode_u8", out, b2)
+        print(f"  {s}^2: rt_u8_vint/vbf/vcs bit-identical to their twins and to hp_roundtrip_u8 (q_scale 1, 2.5); "
+              f"enc_nosub, enc_nolane bit-identical to their twins, enc_nosub saturated at -128 on {lo} and at 127 "
+              f"on {hi} of {out.numel()} entries; enc_xor, nibble, truncless, nibble_truncless, k256 equal to "
+              f"hp_encode_u8 and their twins")
 
 
 def _zero(label: str, n: int, mx: int, total: int) -> None:
@@ -1499,7 +1580,7 @@ def phase_multi_main_path(dev) -> dict:
 
 
 def phase_study_path(dev) -> dict:
-    """The five study drivers at SQUARE^2, the counters set to 0 just before
+    """The nine study drivers at SQUARE^2, the counters set to 0 just before
     and read just after; each driver moves exactly its counters (one
     warm-up and REPS timed calls per measurement, plus its checks)."""
     from tpudct_torch.kernels import color as ck
@@ -1540,6 +1621,7 @@ def phase_study_path(dev) -> dict:
     inv = step(f"{SQUARE}^2 studies.inv_formulations.main",
                {"hp_dct": 2, "idct_x_b": 1 + k, "idct_x_c": 1 + k, "hp_idct": 3 * k},
                lambda: inv_formulations.main(SQUARE, dev))
+    _u8_variant_studies(step, dev)
     launches = counts()
     n_m, n_l, n_c = (cv["entries"][k] for k in ("merge", "y", "chroma"))
     for out, key, total in ((cv, "v1", n_m), (cv, "v3_y", n_l), (cv, "v3_cb", n_c), (cv, "v3_cr", n_c),
@@ -1571,6 +1653,42 @@ def phase_study_path(dev) -> dict:
             _fail(f"study path never launched {name}")
     print("  launches:", json.dumps(launches))
     return launches
+
+
+def _u8_variant_studies(step, dev) -> None:
+    """The u8 variant drivers at SQUARE^2 through ``step``: u8_variants and
+    enc_variants in every mode, rt_split_ab and scaled_ab; each moves
+    exactly its counters (checks once, each timing one warm-up and REPS
+    calls, each A/B TRIALS turns) and reports 0 differences."""
+    from tpudct_torch.studies import enc_variants, rt_split_ab, scaled_ab, u8_variants
+
+    k, t = 1 + u8_variants.REPS, u8_variants.TRIALS
+    expected = {"int": {"hp_roundtrip_u8": 1, "rt_u8_vint": 1 + k},
+                "bf": {"hp_roundtrip_u8": 1, "rt_u8_vbf": 1 + 2 * k},
+                "abbf": {"hp_roundtrip_u8": t * k, "rt_u8_vbf": t * k},
+                "cs": {"hp_roundtrip_u8": 1 + t * k, "rt_u8_vcs": 1 + t * k}}
+    outs = [step(f"{SQUARE}^2 studies.u8_variants.main {w}", expected[w],
+                 lambda w=w: u8_variants.main(SQUARE, w, dev)) for w in u8_variants.MODES]
+    k = 1 + enc_variants.REPS
+    expected = {"a": {"enc_nosub": k}, "b": {"enc_nolane": k, "enc_xor": 1 + k, "hp_encode_u8": 1},
+                "d": {"hp_encode_u8": 3 + k, "enc_truncless": 1 + k, "enc_nibble": 1 + k,
+                      "enc_nibble_truncless": 1 + k},
+                "e": {"hp_encode_u8": 1 + k, "enc_k256": 1 + k}}
+    outs += [step(f"{SQUARE}^2 studies.enc_variants.main {w}", expected[w],
+                  lambda w=w: enc_variants.main(w, SQUARE, dev)) for w in enc_variants.MODES]
+    n = 1 + 3 * (1 + rt_split_ab.REPS)
+    outs.append(step(f"{SQUARE}^2 studies.rt_split_ab.main (3 trials)",
+                     {"hp_roundtrip_u8": n, "hp_encode_u8": n, "hp_decode_u8": n},
+                     lambda: rt_split_ab.main(SQUARE, 3, dev)))
+    n = 2 * (2 + scaled_ab.REPS)
+    outs.append(step(f"{SQUARE}^2 studies.scaled_ab.main", {"hp_encode_u8": 1, "hp_scaled_decode_u8": n,
+                                                            "hp_decode_u8": n}, lambda: scaled_ab.main(SQUARE, dev)))
+    names = [f"u8_variants {w}" for w in u8_variants.MODES] + [f"enc_variants {w}" for w in enc_variants.MODES]
+    counts = {f"{name} {key}": v for name, o in zip(names + ["rt_split_ab", "scaled_ab"], outs)
+              for key, v in o.items() if key.endswith("differ")}
+    if any(counts.values()):
+        _fail(f"the u8 variant studies report differences: {counts}")
+    print(f"  u8 variant studies' checks: {json.dumps(counts)}")
 
 
 def phase_measurement_path(dev, card: str) -> dict:
@@ -1723,6 +1841,13 @@ def phase_timing(dev, card: str) -> dict:
             for v in ("b", "c"):
                 fns[f"idct_x_{v}"] = (lambda v=v: V.idct_x(cf, v),
                                       lambda t=(hp.idct_plain if v == "b" else V.idct_c_plain): t(cf))
+            # the u8 study variants on their own noise map (the tiles are inert)
+            xv = _noise(h, w, seed=16, dev=dev)
+            for f in (V.rt_u8_vint, V.rt_u8_vbf, V.rt_u8_vcs):
+                fns[f.__name__] = (lambda f=f: f(xv), lambda: hp.roundtrip_u8_plain(xv))
+            for kern in (V._k_enc_nosub, V._k_enc_nolane, V._k_enc_xor, V._k_enc_nibble, V._k_enc_truncless,
+                         V._k_enc_nibble_truncless, V._k_enc_k256):
+                fns[kern.name] = (lambda g=V._mk(kern, 128, 512): g(xv), lambda t=kern.plain: t(xv))
         # variants off the main path's default (bytes per pixel, kernel, twin),
         # timed and printed beside it
         hi = dict(decode_precision="highest")

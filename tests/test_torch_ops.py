@@ -1,11 +1,16 @@
 """tpudct_torch.ops against tpudct.ops on the same seeded inputs.
 
 Tolerances: layout, padding, rounding, quantization and retention are
-exact (bit-identical).  The f32 blockwise transforms agree to 2e-4
-absolute on outputs of magnitude up to ~2000 (about 2^-23 relative): both
-sides contract the same f32 inputs in f32, in a different order (the
-reference's K=128 lane matmuls, the port's 8x8 einsum).
+exact (bit-identical).  The f32 blockwise transforms are bit-identical too:
+the port sums in the order XLA's CPU products sum (``ops.transform``: an
+FMA chain per output on 128-tiled shapes, four FMA chains added pairwise in
+the K = 8 einsum), each FMA emulated exactly (``fma32``, checked here
+against exact rational arithmetic).  So are the ``batched`` pipeline's
+coefficients and f32 reconstructions, at every q_scale.  The first
+transform test keeps its 2e-4 bound (it predates the exact order).
 """
+
+import fractions
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +21,9 @@ import tpudct.ops.blocks as RB
 import tpudct.ops.padding as RP
 import tpudct.ops.quant as RQ
 import tpudct.ops.rounding as RR
+import tpudct
 import tpudct.ops.transform as RT
+import tpudct_torch
 import tpudct_torch.ops.blocks as PB
 import tpudct_torch.ops.padding as PP
 import tpudct_torch.ops.quant as PQ
@@ -124,3 +131,78 @@ def test_blockwise_transforms_match_reference(shape, transform):
     z_ref = np.asarray(RT.idct2_blocks(jnp.asarray(y.numpy()), transform=transform))
     assert np.abs(z.numpy() - z_ref).max() <= 2e-4
     assert np.abs(z.numpy() - x).max() <= 1e-3  # orthogonal: the inverse inverts
+
+
+def _rn32(v: fractions.Fraction) -> float:
+    """An exact rational rounded once to the nearest f32, ties to even
+    (normal range)."""
+    if v == 0:
+        return 0.0
+    sign, a = (-1 if v < 0 else 1), abs(v)
+    e = a.numerator.bit_length() - a.denominator.bit_length()
+    while a >= fractions.Fraction(2) ** (e + 1):
+        e += 1
+    while a < fractions.Fraction(2) ** e:
+        e -= 1
+    m = a / fractions.Fraction(2) ** (e - 23)  # in [2^23, 2^24)
+    n = m.numerator // m.denominator
+    rest = m - n
+    if rest > fractions.Fraction(1, 2) or (rest == fractions.Fraction(1, 2) and n % 2):
+        n += 1
+    return sign * float(n * fractions.Fraction(2) ** (e - 23))
+
+
+def test_fma32_rounds_once():
+    """fma32(a, b, c) is RN32(a b + c) exactly: on random triples of mixed
+    magnitudes and on triples whose float64 sum lands exactly on an f32
+    tie while the exact sum does not (a = 1 + i 2^-23, b = 1 - i 2^-23 make
+    a b = 1 - i^2 2^-46; c = 2^24 + 2 j puts a b + c just below a tie; the
+    naive double rounding gets half of these wrong)."""
+    rng = np.random.default_rng(11)
+    n = 4000
+    a = (rng.standard_normal(n) * 2.0 ** rng.integers(-8, 9, n)).astype(np.float32)
+    b = (rng.standard_normal(n) * 2.0 ** rng.integers(-8, 9, n)).astype(np.float32)
+    c = (rng.standard_normal(n) * 2.0 ** rng.integers(-8, 12, n)).astype(np.float32)
+    i = np.arange(1, 65, dtype=np.float64)
+    ta = np.concatenate([1 + i * 2.0 ** -23, -(1 + i * 2.0 ** -23)]).astype(np.float32)
+    tb = np.concatenate([1 - i * 2.0 ** -23, 1 - i * 2.0 ** -23]).astype(np.float32)
+    tc = np.concatenate([2.0 ** 24 + 2 * i, -(2.0 ** 24 + 2 * i)]).astype(np.float32)
+    a, b, c = (np.concatenate(v) for v in ((a, ta, ta * 4), (b, tb, tb), (c, tc, tc * 4)))
+    got = PT.fma32(*(torch.as_tensor(v) for v in (a, b, c))).numpy()
+    want = np.array([_rn32(fractions.Fraction(float(x)) * fractions.Fraction(float(y)) + fractions.Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], np.float32)
+    assert np.array_equal(got, want)
+    naive = (a.astype(np.float64) * b + c).astype(np.float32)
+    assert (naive != want).sum() >= 64  # the ties are there to be missed
+
+
+@pytest.mark.parametrize("transform", ["haweel", "rdct", "wht", "bas", "dct"])
+@pytest.mark.parametrize("shape", [(128, 256), (128, 136), (40, 56)])
+def test_blockwise_value_chain_is_the_reference(shape, transform):
+    """dct2_blocks and idct2_blocks in f32 equal the reference's bit for bit:
+    on 128-tiled shapes (the lane product, then the rows) and off that grid
+    (the three-operand einsum, rows then lanes)."""
+    rng = np.random.default_rng(shape[0] + shape[1])
+    x = rng.integers(0, 256, size=shape).astype(np.float32) - 128
+    y = PT.dct2_blocks(torch.as_tensor(x), transform=transform)
+    assert np.array_equal(y.numpy(), np.asarray(RT.dct2_blocks(jnp.asarray(x), transform=transform)))
+    c = (rng.integers(-60, 60, size=shape) * rng.random(shape) * 7).astype(np.float32)
+    z = PT.idct2_blocks(torch.as_tensor(c), transform=transform)
+    assert np.array_equal(z.numpy(), np.asarray(RT.idct2_blocks(jnp.asarray(c), transform=transform)))
+
+
+@pytest.mark.parametrize("q_scale", [0.1, 0.25, 0.5, 1.0])
+@pytest.mark.parametrize("transform", ["haweel", "rdct", "wht", "bas", "dct"])
+def test_batched_coefficients_are_the_reference(transform, q_scale):
+    """The batched pipeline's coefficients and its f32 reconstruction equal
+    the reference's on 128-tiled u8 noise: 0 differences (wht's values sit
+    on many exact .5 ties, so one ulp of another order flips coefficients;
+    off the grid the transforms alone are held above)."""
+    cfg = tpudct_torch.CodecConfig(q_scale=q_scale, transform=transform)
+    rcfg = tpudct.CodecConfig(q_scale=q_scale, transform=transform)
+    p, rp = tpudct_torch.get_pipeline("batched"), tpudct.get_pipeline("batched")
+    img = np.random.default_rng(int(100 * q_scale)).integers(0, 256, size=(128, 256)).astype(np.float32)
+    c = p.dct(torch.as_tensor(img), cfg)
+    c_ref = np.asarray(rp.dct(jnp.asarray(img), rcfg))
+    assert np.array_equal(c.numpy(), c_ref)
+    assert np.array_equal(p.idct(c, cfg).numpy(), np.asarray(rp.idct(jnp.asarray(c_ref), rcfg)))

@@ -167,3 +167,36 @@ def test_scaled_decode_u8_matches_reference(kw, fused, out_u8, monkeypatch):
     # the fused kernel runs where the effective tier is butterfly; the
     # composed branch follows the config, it is not a fallback
     assert len(calls) == (3 if fused else 0)
+
+
+# decode_gray_scaled_auto's u8 M/8 upscales (m > 8) against the reference on
+# 64x128 u8 noise (seed 3), coded by each side's hp encode (the same
+# coefficients): pixels differing, by 1 each; every other (transform, m)
+# gives 0.  Cause: wht's upscaled values land on exact integers, where the
+# reference's f32 product chains (the K = 128 lane product's FMA chain, then
+# the K = 8 row einsum's four FMA chains added pairwise, which reproduce
+# its f32 output bit for bit at these m) can fall one ulp below the integer
+# that the port's float64 contraction, rounded once, gives; the u8
+# truncation then takes the integer below.
+UPSCALE_U8_DIFFER = {("wht", 12): 44, ("wht", 16): 124}
+
+
+@pytest.mark.parametrize("m", [12, 16])
+@pytest.mark.parametrize("transform", ["haweel", "rdct", "wht", "bas", "dct"])
+def test_u8_upscale_differences_per_transform(transform, m):
+    """The u8 M/8 upscale's count of differing pixels per transform, held to
+    the recorded count (UPSCALE_U8_DIFFER), each by at most 1."""
+    from tpudct.models import dispatch as RD
+    from tpudct_torch.models import dispatch as PD
+
+    cfg, rcfg = tpudct_torch.CodecConfig(transform=transform), tpudct.CodecConfig(transform=transform)
+    p, rp = tpudct_torch.get_pipeline("hp"), tpudct.get_pipeline("hp")
+    img = np.random.default_rng(3).integers(0, 256, (64, 128)).astype(np.uint8)
+    c, hw = PD.encode_gray_auto(p, img, cfg, device="cpu")
+    r = PD.decode_gray_scaled_auto(p, c.numpy(), cfg, hw, m, device="cpu")
+    r_ref = np.asarray(RD.decode_gray_scaled_auto(rp, c.numpy(), rcfg, hw, m))
+    assert r.shape == r_ref.shape == (64 * m // 8, 128 * m // 8) and r.dtype == np.uint8
+    d = np.abs(r.astype(np.int64) - r_ref.astype(np.int64))
+    n = int((d > 0).sum())
+    print(f"{transform} m={m}: {n} of {d.size} u8 pixels differ from the reference")
+    assert d.max() <= 1 and n == UPSCALE_U8_DIFFER.get((transform, m), 0)

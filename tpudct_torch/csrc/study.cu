@@ -10,6 +10,11 @@
 //                                  color_fused_ab.py color_encode_420_u8 (_k_color_enc)
 //   color_decode_420_launch   B20  k_color_decode_420
 //                                  color_fused_ab.py color_decode_420_u8 (_k_color_dec)
+//   enc_half_launch, dir 0    B30  k_enc_half<kEncRows>  enc_variants.py E2 (_k_enc_nosub)
+//   enc_half_launch, dir 1    B31  k_enc_half<kEncCols>  enc_variants.py E3 (_k_enc_nolane)
+// (The other eight kernels of u8_variants.py and enc_variants.py, B27-B29 and
+// B32-B36, compute B1's and B2's values and launch their kernels,
+// hp_codec.cu's k_rt_u8 and k_encode_u8: kernels/variants.py.)
 //
 // What they compute.
 //   B17  an (H, W) u8 map copied onto itself (dst may equal src: the
@@ -34,6 +39,13 @@
 //        compare form _to_u8; the kernel with the production merge's add
 //        form (B9), which equals it on every (y, cb, cr) triple, so B20 is
 //        bit-identical to its twin and to decode_color_u8 (B3 twice, B9).
+//   B30  (H, W) u8 -> int8, haweel, luma table, q_scale 1: the TPU study's
+//        forward with its column half replaced by a scaling, so other values
+//        than B2's: per 8x8 block round_away(fl(f32(12 (X - 128) Ts^T) S)),
+//        saturated to [-128, 127] (S: B2's fused scale, by position in the
+//        block).
+//   B31  the same with the row half left out instead:
+//        round_away(fl(f32(Ts (X - 128)) S)) (|value| <= 17, never saturated).
 // The TPU kernels stack Cb over Cr for one K=128 contraction and pool with
 // 0/1 matrices on the MXU; the integer forward is exact per 8x8 block, so
 // here each chroma block is transformed on its own.  The plain twins in
@@ -60,9 +72,9 @@
 // 64 of 96 threads staging: 1.23x B19's time).
 //
 // Bound: memory.  Bytes per luma pixel (each input read once, each output
-// written once): B17 2, B18 3, B19 and B20 4.5 (RGB 3, coefficients 1.5); at
-// 8192^2 and 3.35 TB/s 0.040, 0.060 and 0.090 ms.  The arithmetic (B19: B8's
-// chain with the f32 luma and B2's on 1.5 coefficients, about 50 operations
+// written once): B17 2, B18 3, B19 and B20 4.5 (RGB 3, coefficients 1.5),
+// B30 and B31 2; at 8192^2 and 3.35 TB/s 0.040, 0.060, 0.090 and 0.040 ms.
+// The arithmetic (B19: B8's chain with the f32 luma and B2's on 1.5 coefficients, about 50 operations
 // per luma pixel; B20: B3's 1.5 times plus B9's, about 53 instructions per
 // luma pixel) is under that at the card's f32 rate, but its instructions
 // take about as long to issue (0.09-0.11 ms at 8192^2 and 1.98 GHz).
@@ -205,6 +217,52 @@ __global__ void __launch_bounds__(kStripThreads)
   decode_merge_strip_420<kCore>(y, cb, cr, nullptr, nullptr, nullptr, rgb, static_cast<long long>(h) * w, w, k);
 }
 
+// ---- B30 and B31: one direction of B2's forward -------------------------------
+
+// The direction k_enc_half transforms (enc_half_launch's `dir`), and the
+// integer core it runs: haweel, core_ts's first table (the reference's
+// study kernels run haweel only; kernels/variants.py checks the table).
+constexpr int kEncRows = 0;  // B30 (E2): 12 (X - 128) Ts^T, each block row alone
+constexpr int kEncCols = 1;  // B31 (E3): Ts (X - 128), each block column alone
+constexpr int kHaweel = 0;
+
+// One row of 8 sums v -> the int8 bytes of round_away(fl(v s)), saturated
+// to [-128, 127] as the reference's f32 -> int8 cast saturates (a plain
+// cast would wrap), in one 8-byte store at p.
+__device__ __forceinline__ void store_sat_i8(int8_t* p, const float* v, const float* s) {
+  uint32_t b[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    b[e] = i8_bits(fminf(fmaxf(round_away(__fmul_rn(v[e], s[e])), -128.0f), 127.0f));
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack4(b[0], b[1], b[2], b[3]), pack4(b[4], b[5], b[6], b[7]));
+}
+
+// One thread per 8x8 block, as B2: the block's u8 rows level-shifted to
+// exact f32, one direction of the butterfly forward (fwd8; E2 first scales
+// by 12, so every partial sum is an integer of magnitude at most
+// 12 * 128 * 12 = 18432 < 2^24 and exact), then the fused scale k.fq, the
+// round and the saturation per entry.
+template <int kDir>
+__global__ void k_enc_half(const uint8_t* __restrict__ img, int8_t* __restrict__ out, int h, int w,
+                           const HpConsts k) {
+  const long long o = block_origin(h, w);
+  if (o < 0) return;
+  float x[64];
+  ROWS(load_u8_level(img + ro, x + 8 * r));
+  if constexpr (kDir == kEncRows) {
+#pragma unroll
+    for (int e = 0; e < 64; ++e) x[e] = __fmul_rn(x[e], 12.0f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) fwd8<kHaweel, 1>(x + 8 * i);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) fwd8<kHaweel, 8>(x + c);
+  }
+  ROWS(store_sat_i8(out + ro, x + 8 * r, k.fq + 8 * r));
+}
+
+constexpr int kEncHalfThreads = 128;
+
 inline int strip_prologue(int device, int h, int w) {
   if (h <= 0 || w <= 0 || h % kStripRows || w % kStripCols) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaSetDevice(device));
@@ -224,7 +282,9 @@ inline dim3 strip_grid(int h, int w) {
 // multipliers, then ColorConsts); `core` picks the integer core
 // (hp_block.cuh's core_ts, kernels/cores.py's CORES).  u8_copy_launch copies n bytes of src
 // to dst (which may be src) and, unless i8 is null, to i8; the color
-// launchers need h % 16 == 0 and w % 256 == 0.  Each function returns a
+// launchers need h % 16 == 0 and w % 256 == 0.  enc_half_launch reads the
+// consts as HpConsts (320 floats, kernels/hp.py's packed tables; it reads
+// the fused scale fq) and needs h % 8 == 0 and w % 8 == 0.  Each function returns a
 // cudaError_t value (0 = ok; hp_error_string in hp_codec.cu names it) after
 // checking the launch; it neither synchronizes nor allocates.
 
@@ -266,6 +326,21 @@ int color_decode_420_launch(const void* y, const void* cb, const void* cr, void*
   return launch_strips(kernels[core], h, w, static_cast<cudaStream_t>(stream), static_cast<const int8_t*>(y),
                        static_cast<const int8_t*>(cb), static_cast<const int8_t*>(cr), static_cast<uint8_t*>(rgb),
                        h, w, *static_cast<const StripConsts*>(consts));
+}
+
+int enc_half_launch(const void* img, void* out, int h, int w, int dir, const void* consts, void* stream,
+                    int device) {
+  if (h <= 0 || w <= 0 || h % 8 || w % 8 || (dir != kEncRows && dir != kEncCols))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = static_cast<int>(cudaSetDevice(device));
+  if (err) return err;
+  const long long blocks = static_cast<long long>(h / 8) * (w / 8);
+  const dim3 grid(static_cast<unsigned>((blocks + kEncHalfThreads - 1) / kEncHalfThreads));
+  using Kernel = decltype(&k_enc_half<kEncRows>);
+  const Kernel kernel = dir == kEncRows ? k_enc_half<kEncRows> : k_enc_half<kEncCols>;
+  kernel<<<grid, kEncHalfThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(img), static_cast<int8_t*>(out), h, w, *static_cast<const HpConsts*>(consts));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -4,7 +4,7 @@
 pointer as B15, the study's split3 inverse B22),
 ``tpudct_torch/csrc/color_codec.cu`` (B8-B13 and the study variants B23,
 B26), ``tpudct_torch/csrc/ring.cu`` (B14, B16) and
-``tpudct_torch/csrc/study.cu`` (the study kernels B17-B20) are compiled by
+``tpudct_torch/csrc/study.cu`` (the study kernels B17-B20, B30, B31) are compiled by
 nvcc, one process per source, all started together, and linked into one
 shared library with a plain C
 interface, loaded with ctypes; :func:`call` launches one of its functions.
@@ -58,6 +58,7 @@ _SIGNATURES = {
     "u8_copy_launch": (_P, _P, _P, _L, _P, _I),
     "color_encode_420_launch": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I),
     "color_decode_420_launch": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I),
+    "enc_half_launch": (_P, _P, _I, _I, _I, _P, _P, _I),
 }
 
 

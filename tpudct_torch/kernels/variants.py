@@ -40,6 +40,44 @@ grid only (color: H even and W % 16; idct_x: 8x8 blocks), not the
 reference's tile multiples, and refuse what they cannot take with a
 ValueError.  ``br``/``tc`` (the reference's TPU tile geometry) are accepted
 and inert.
+
+The u8 study variants (``benchmarks/u8_variants.py`` and
+``benchmarks/enc_variants.py``), haweel and the luma table, are ten more
+kernel functions under the reference's names:
+
+  _k_rt_u8_interleave      B27  rt_u8_vint: B1's fused u8 roundtrip
+  _k_rt_u8_bf16digits      B28  rt_u8_vbf:  the same
+  _k_rt_u8_chunkstore      B29  rt_u8_vcs:  the same
+  _k_enc_nosub             B30  E2: round_away(fl(12 (X - 128) Ts^T S)),
+                                saturated to int8 (k_enc_half<kEncRows> in
+                                csrc/study.cu)
+  _k_enc_nolane            B31  E3: round_away(fl(Ts (X - 128) S))
+                                (k_enc_half<kEncCols>)
+  _k_enc_xor               B32  E4: B2's encode
+  _k_enc_nibble            B33  E6: B2's encode
+  _k_enc_truncless         B34  E7: B2's encode
+  _k_enc_nibble_truncless  B35  E8: B2's encode
+  _k_enc_k256              B36  E9: B2's encode
+
+``rt_u8_vint``/``rt_u8_vbf``/``rt_u8_vcs(image_u8, q_scale=1.0,
+band_rows=256, tile_cols=2048)`` run B27-B29 (B1's kernel k_rt_u8, any
+q_scale) and refuse, as the reference's ``_geometry(..., row_align=32)``
+does, with a ValueError unless H % 32 == 0 and W % 128 == 0; the tile
+geometry is otherwise inert.  ``_mk(kern, br=256, tc=2048, with_bias=False,
+extra=())`` returns the function that runs an encode variant at q_scale 1
+(the reference's ``hp._consts_int(br, 1.0, None)``): E4 and E6-E9 launch
+B2's kernel k_encode_u8, E2 and E3 their own.  The reference's grid is
+(H // br, W // tc) and leaves the output rows and columns past it unwritten;
+here a shape that ``br`` and ``tc`` do not divide raises a ValueError
+instead of returning a partly written map.  ``with_bias`` and ``extra``
+carry the reference's TPU operands (its ``_dc_bias`` rows for E6/E8, its
+``_b2_const`` K = 256 operand for E9), which the Hopper kernels do not
+need: accepted and unused.  The TPU designs these eight kernels weigh
+(int8 against bf16 digits, nibble splits, one K = 256 dot, per-chunk
+stores) lay one function onto the matrix unit in different ways; on the
+H100 that function is B1's or B2's add-only chain, so they launch it, each
+under its own counter.  The twins: B1's and B2's (``hp.roundtrip_u8_plain``,
+``hp.encode_u8_plain``), and ``enc_nosub_plain``/``enc_nolane_plain`` here.
 """
 
 from __future__ import annotations
@@ -61,6 +99,8 @@ from tpudct_torch.utils.color import F32, rgb_from_ycbcr_planes, ycbcr_from_rgb_
 LAUNCHES = {
     "color_merge_v1": 0, "color_merge_v12": 0, "color_split_v3": 0, "color_merge_v4": 0,
     "color_merge_v6": 0, "color_split_v5": 0, "idct_x_b": 0, "idct_x_c": 0,
+    "rt_u8_vint": 0, "rt_u8_vbf": 0, "rt_u8_vcs": 0, "enc_nosub": 0, "enc_nolane": 0, "enc_xor": 0,
+    "enc_nibble": 0, "enc_truncless": 0, "enc_nibble_truncless": 0, "enc_k256": 0,
 }
 
 
@@ -133,6 +173,34 @@ def idct_c_plain(coeffs: torch.Tensor) -> torch.Tensor:
     return from_block_grid(x + LEVEL_SHIFT)
 
 
+@functools.cache
+def _enc_args() -> hp._Args:
+    """The encode variants' tables: B2's, haweel, luma, q_scale 1 (the
+    reference's ``hp._consts_int(br, 1.0, None)``)."""
+    return hp._args("haweel", "luma", 1.0, None, "butterfly", True)
+
+
+def _enc_half_plain(image_u8: torch.Tensor, rows: bool) -> torch.Tensor:
+    k = _enc_args()
+    ts = k.fwd.astype(np.int32)
+    u = hp._shift_u8(image_u8)
+    core = hp._right(np.ascontiguousarray(ts.T), u * 12) if rows else hp._left(ts, u)
+    c = hp._round_away(core.to(torch.float32) * hp._grid8(k.fq, core))
+    return from_block_grid(c.clamp(-128.0, 127.0).to(torch.int8))
+
+
+def enc_nosub_plain(image_u8: torch.Tensor) -> torch.Tensor:
+    """Twin of E2 (B30): per block 12 (X - 128) Ts^T (int32, exact), then
+    round_away(fl(f32(core) S)) saturated to [-128, 127]."""
+    return _enc_half_plain(image_u8, rows=True)
+
+
+def enc_nolane_plain(image_u8: torch.Tensor) -> torch.Tensor:
+    """Twin of E3 (B31): per block Ts (X - 128), then round_away(fl(f32(core)
+    S)) saturated to [-128, 127]."""
+    return _enc_half_plain(image_u8, rows=False)
+
+
 # ---------------------------------------------------------------------------
 # The study's kernel functions and the functions that run them
 # ---------------------------------------------------------------------------
@@ -157,6 +225,22 @@ _k_merge_v4 = Variant("color_merge_v4", "merge", "color_merge_launch", (2, 2),
 _k_merge_v6 = Variant("color_merge_v6", "merge", "color_merge_launch", (2, 2),
                       functools.partial(ck.merge_plain, mode="420"))
 _k_split_v5 = Variant("color_split_v5", "split", "color_split_variant_launch", (5,), split_v5_plain)
+
+
+# enc_half_launch's `dir` (csrc/study.cu's kEncRows, kEncCols)
+ENC_ROWS, ENC_COLS = 0, 1
+_encode = functools.partial(hp.encode_u8_plain, q_scale=1.0)
+
+_k_rt_u8_interleave = Variant("rt_u8_vint", "roundtrip_u8", "hp_rt_u8_launch", (), hp.roundtrip_u8_plain)
+_k_rt_u8_bf16digits = Variant("rt_u8_vbf", "roundtrip_u8", "hp_rt_u8_launch", (), hp.roundtrip_u8_plain)
+_k_rt_u8_chunkstore = Variant("rt_u8_vcs", "roundtrip_u8", "hp_rt_u8_launch", (), hp.roundtrip_u8_plain)
+_k_enc_nosub = Variant("enc_nosub", "encode_u8", "enc_half_launch", (ENC_ROWS,), enc_nosub_plain)
+_k_enc_nolane = Variant("enc_nolane", "encode_u8", "enc_half_launch", (ENC_COLS,), enc_nolane_plain)
+_k_enc_xor = Variant("enc_xor", "encode_u8", "hp_encode_u8_launch", (), _encode)
+_k_enc_nibble = Variant("enc_nibble", "encode_u8", "hp_encode_u8_launch", (), _encode)
+_k_enc_truncless = Variant("enc_truncless", "encode_u8", "hp_encode_u8_launch", (), _encode)
+_k_enc_nibble_truncless = Variant("enc_nibble_truncless", "encode_u8", "hp_encode_u8_launch", (), _encode)
+_k_enc_k256 = Variant("enc_k256", "encode_u8", "hp_encode_u8_launch", (), _encode)
 
 
 def _check_grid(name: str, h: int, w: int) -> None:
@@ -241,3 +325,63 @@ def idct_x(coeffs, variant: str):
               _inv_args().packed)
     LAUNCHES[name] += 1
     return rec
+
+
+def _rt_u8(kernel: Variant, image_u8, q_scale: float, band_rows: int, tile_cols: int):
+    """Run a roundtrip variant: (int8 coefficients, u8 reconstruction), one
+    launch of B1's kernel (haweel, luma, ``q_scale``)."""
+    h, w = hp._check(image_u8, torch.uint8, kernel.name)
+    if h % 32 or w % hp.LANE:
+        raise ValueError(f"kernel needs h % 32 == 0 and w % {hp.LANE} == 0, got {h}x{w}")
+    br, tc = min(band_rows, h), min(tile_cols, w)
+    if br - br % 32 <= 0 or tc - tc % hp.LANE <= 0:
+        raise ValueError(f"band_rows/tile_cols must be at least 32/{hp.LANE} (got {band_rows}/{tile_cols})")
+    core, inv = hp._core_of("haweel", "luma", q_scale, None, "butterfly", True)
+    if image_u8.device.type == "cpu":
+        return kernel.plain(image_u8, q_scale)
+    k = hp._args("haweel", "luma", q_scale, None, "butterfly", True)
+    c = torch.empty((h, w), dtype=torch.int8, device=image_u8.device)
+    r = torch.empty((h, w), dtype=torch.uint8, device=image_u8.device)
+    hp.launch(kernel.launcher, (image_u8, c, r), h, w, k.packed, core, inv)
+    LAUNCHES[kernel.name] += 1
+    return c, r
+
+
+def rt_u8_vint(image_u8, q_scale: float = 1.0, band_rows: int = 256, tile_cols: int = 2048):
+    """B27: uint8 (H, W) -> (int8 coefficients, uint8 reconstruction), B1's values."""
+    return _rt_u8(_k_rt_u8_interleave, image_u8, q_scale, band_rows, tile_cols)
+
+
+def rt_u8_vbf(image_u8, q_scale: float = 1.0, band_rows: int = 256, tile_cols: int = 2048):
+    """B28: uint8 (H, W) -> (int8 coefficients, uint8 reconstruction), B1's values."""
+    return _rt_u8(_k_rt_u8_bf16digits, image_u8, q_scale, band_rows, tile_cols)
+
+
+def rt_u8_vcs(image_u8, q_scale: float = 1.0, band_rows: int = 256, tile_cols: int = 2048):
+    """B29: uint8 (H, W) -> (int8 coefficients, uint8 reconstruction), B1's values."""
+    return _rt_u8(_k_rt_u8_chunkstore, image_u8, q_scale, band_rows, tile_cols)
+
+
+def _mk(kern: Variant, br: int = 256, tc: int = 2048, with_bias: bool = False, extra=()):
+    """``kern`` (an encode variant) as a function uint8 (H, W) -> int8 (H, W),
+    one launch, haweel, luma, q_scale 1.  Raises a ValueError where ``br``
+    does not divide H or ``tc`` does not divide W (the reference's grid
+    would leave the rest of the map unwritten).  ``with_bias`` and
+    ``extra`` (the reference's TPU operands) are accepted and unused."""
+    kernel = _of(kern, "encode_u8")
+
+    def run(image_u8):
+        h, w = hp._check(image_u8, torch.uint8, kernel.name)
+        if br <= 0 or tc <= 0 or h % br or w % tc:
+            raise ValueError(f"{kernel.name}: the reference's ({br}, {tc}) tiles leave part of a {h}x{w} "
+                             f"map unwritten; H % band rows and W % tile columns must be 0")
+        core = hp._core_of("haweel", "luma", 1.0, None, "butterfly", True)[0]
+        if image_u8.device.type == "cpu":
+            return kernel.plain(image_u8)
+        out = torch.empty((h, w), dtype=torch.int8, device=image_u8.device)
+        # enc_half_launch takes its direction, B2's launcher the core id
+        hp.launch(kernel.launcher, (image_u8, out), h, w, _enc_args().packed, *(kernel.ints or (core,)))
+        LAUNCHES[kernel.name] += 1
+        return out
+
+    return run

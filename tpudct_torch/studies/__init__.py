@@ -1,7 +1,9 @@
 """Study drivers on the card: the counterparts of ``benchmarks/u8_perf.py``,
-``color_fused_ab.py``, ``color_variants.py``, ``color_variants2.py`` and
-``inv_formulations.py``, each ``main(size=8192, device=None)`` and runnable
-as ``python -m tpudct_torch.studies.<name> [size]``."""
+``color_fused_ab.py``, ``color_variants.py``, ``color_variants2.py``,
+``inv_formulations.py``, ``u8_variants.py``, ``enc_variants.py``,
+``rt_split_ab.py`` and ``scaled_ab.py``, each with ``main(..., device=None)``
+and runnable as ``python -m tpudct_torch.studies.<name>`` with the
+reference's arguments."""
 
 import torch
 
