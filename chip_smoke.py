@@ -10,14 +10,15 @@ variants, the inverse formulations and the u8 roundtrip and encode
 variants) from ``tpudct_torch/csrc`` and, in order:
 
   1. prints the card (name, power limit), the torch version and nvcc's;
-  2. builds the kernels (one nvcc per source, in parallel) and prints
-     nvcc's register/stack/spill lines, and from ``cuobjdump -sass`` of the
-     library each B1, B2, B3 (B15), B16, B19 and B20 instance's count of
-     instructions, of conversion instructions (I2F, I2FP, F2I, F2IP, FRND,
-     F2F) and MUFU, beside its registers and spills, and B8's
-     (k_color_split<2, 2>) and B30/B31's (k_enc_half); a B1/B2/B3/B19
-     instance with an FRND, a spill, or more I2F or F2I than B6's block
-     index fails;
+  2. builds the kernels (one nvcc per source, in parallel; the seconds
+     printed) and prints nvcc's register/stack/spill lines, and from
+     ``cuobjdump -sass`` of the library each B1, B2, B3 (B15), B7, B16, B19,
+     B20 instance's and B22's count of instructions, of conversion
+     instructions (I2F, I2FP, F2I, F2IP, FRND, F2F) and MUFU, beside
+     its registers and spills, and B8's (k_color_split<2, 2>) and
+     B30/B31's (k_enc_half); a B1/B2/B3/B7/B19 instance with an FRND, a
+     spill, or more I2F or F2I than B6's block index fails, and so does
+     B22 with a spill;
   3. turns TF32 off and prints both flags;
   4. holds each kernel against its plain torch twin at 512^2 and 8192^2,
      q_scale 1 and 2.5, retain_k None and 6 (where the kernel takes it),
@@ -65,13 +66,19 @@ variants) from ``tpudct_torch/csrc`` and, in order:
      with all-0, all-255 and checkerboard blocks; its coefficients equal to
      B2's), B3 (uniform int8 noise) on the butterfly, highest and high
      tiers and B15 on every ring slot at n = 1, 2, 4, 8, for every integer
-     core and cb2011, at 512^2 and 8192^2, bit for bit; then the study
+     core and cb2011, at 512^2 and 8192^2, bit for bit; B7 on uniform int8
+     noise for every integer core and cb2011 at (q_scale 1, luma) and
+     (2.5, chroma), every (fr, fc) of {1, 2, 4, 8}^2, f32 and u8 out, at
+     512^2 and 8192^2, bit for bit against its twin and
+     box_pool_u8(hp_decode_u8); then the study
      variants at 512^2 and 8192^2 bit for bit
      against their twins (kernels.variants: the merges V1, V12, V4, V6 on
      B8's planes, the splits V3, V5, idct_x "b" and "c" on hp_dct's
      coefficients), V1, V4, V6 also equal to B9's output and V3 to B8's, V12
      and V5 within +-1 on at most 0.5% of them (counts printed), idct_x "b"
-     equal to hp_idct, and idct_x leaving its input as it was; then the u8
+     equal to hp_idct, idct_x "c" also on a wide-range f32 map with +-0,
+     and idct_x leaving its input as it was;
+     then the u8
      study variants B27-B36 at 512^2 and 8192^2 on u8 noise with all-0,
      all-255 and alternating 0/255 blocks: each bit for bit against its
      twin, B27-B29 (q_scale 1 and 2.5) also equal to hp_roundtrip_u8 and
@@ -142,7 +149,7 @@ variants) from ``tpudct_torch/csrc`` and, in order:
      launch (B14 in turns with Tensor.copy_ of the same slot, B16 with its
      composed counterpart, with the slot's bound) and per whole ring at
      n = 1, 2, 4, 8; the u8 study variants B27-B36 with their twins on
-     their own 8192^2 noise map.
+     their own 8192^2 noise map; B7 also at f = 8 and with f32 out.
 
 Each phase prints its seconds.  Any failure ends the run with a non-zero
 exit.  The second-to-last line is a JSON summary of the kernels (launches
@@ -166,6 +173,7 @@ import numpy as np
 import torch
 
 _SRC, _REF = "tpudct_torch/csrc/hp_codec.cu", "tpudct/kernels/hp_pallas.py"
+_ISRC = "tpudct_torch/csrc/hp_inverse.cu"
 _CSRC, _CREF = "tpudct_torch/csrc/color_codec.cu", "tpudct/kernels/color_pallas.py"
 _RSRC, _RREF = "tpudct_torch/csrc/ring.cu", "tpudct/parallel/ring.py"
 _SSRC = "tpudct_torch/csrc/study.cu"
@@ -184,10 +192,14 @@ _UV, _EV = "benchmarks/u8_variants.py", "benchmarks/enc_variants.py"
 # f32 luma (24) plus the u8 encode's (B2, B1's encode half: the forward and
 # the quantizer) on the luma and half as much on the chroma (25.5), the
 # fused decode B16's chain; the color variants count as B8
-# and B9, idct_x "b" as B6 and "c" as the inverse's dequantization and shift
-# (2) plus, per direction, three digits' products (24) and sums (2) and the
-# digit splits (5): 64.  Every kernel here is bound by its bytes at these
-# counts (see _bound).
+# and B9, idct_x "b" as B6 and "c" (B22, the nonzero terms only) as the
+# inverse's dequantization and shift (2) plus, per direction, three digits'
+# nonzero terms (haweel: 44 of Ts's 64, 3 x 5.5 per output), the digit sums'
+# two adds and the digit split (3 roundings, 2 subtractions): 49; the scaled
+# decode (B7, B3's add-only chain) as the dequantization (1), 5.5 nonzero
+# terms per output and direction, the + 128 and the floor (2) and the window
+# sum (1): 15.  Every kernel here is bound by its bytes at these counts (see
+# _bound).
 KERNELS = {
     "hp_roundtrip_u8": (_SRC, f"{_REF}:678", 3, 36),
     "hp_encode_u8": (_SRC, f"{_REF}:627", 2, 17),
@@ -196,7 +208,7 @@ KERNELS = {
     "hp_roundtrip_f32core": (_SRC, f"{_REF}:445", 12, 68),  # hp_roundtrip's _k_rt_f32_bf
     "hp_dct": (_SRC, f"{_REF}:519", 8, 17),
     "hp_idct": (_SRC, f"{_REF}:550", 8, 17),
-    "hp_scaled_decode_u8": (_SRC, f"{_REF}:824", 1 + 1 / 4, 20),  # timed at fr = fc = 2, out_u8
+    "hp_scaled_decode_u8": (_ISRC, f"{_REF}:824", 1 + 1 / 4, 15),  # timed at fr = fc = 2, out_u8
     "color_split_420_u8": (_CSRC, f"{_CREF}:234", 4.5, 19),
     "color_merge_420_u8": (_CSRC, f"{_CREF}:270", 4.5, 19),
     "color_split_422_u8": (_CSRC, f"{_CREF}:381", 5, 26),
@@ -218,7 +230,7 @@ KERNELS = {
     "color_merge_v6": (_CSRC, f"{_CV2}:65", 4.5, 19),
     "color_split_v5": (_CSRC, f"{_CV2}:85", 4.5, 19),
     "idct_x_b": (_SRC, f"{_INV}:77", 8, 17),  # B6's k_idct
-    "idct_x_c": (_SRC, f"{_INV}:81", 8, 64),
+    "idct_x_c": (_ISRC, f"{_INV}:81", 8, 49),
     # the u8 study variants (kernels.variants): B27-B29 launch B1's kernel,
     # B32-B36 B2's; B30 (E2) and B31 (E3) are one direction of B2's forward
     # (E2 also scales by 12) and the quantizer with the saturation
@@ -288,7 +300,9 @@ def phase_build() -> None:
     _build.library()
     print(f"library {lib.name} ready in {time.perf_counter() - t0:.1f} s")
     for line in _build.build_log().splitlines():
-        if any(k in line for k in ("Compiling entry", "registers", "spill", "stack frame")):
+        if line.startswith("nvcc "):
+            print("  build:", line)
+        elif any(k in line for k in ("Compiling entry", "registers", "spill", "stack frame")):
             print("  ptxas:", line.strip().removeprefix("ptxas info    :").strip())
     _sass_conversions(lib, _build.build_log())
 
@@ -303,9 +317,10 @@ def _instance(fn: str):
     (k_decode_u8<core>), B19 (k_color_encode_420<core>), B16
     (k_ring_forward_decode_color<core>), B20 (k_color_decode_420<core>), B8
     (k_color_split<2, 2>), B6 (k_idct, the block index's conversions
-    alone) or B30/B31 (k_enc_half<dir>), else None; kind is "u8" for
-    B1/B2/B3, "encode420" for B19, "strip" for B16/B20, "split" for B8,
-    "idct" for B6, "enchalf" for B30/B31."""
+    alone), B30/B31 (k_enc_half<dir>), B7 (k_scaled_decode_u8<core>) or
+    B22 (k_idct_split3), else None; kind is "u8" for B1/B2/B3, "encode420"
+    for B19, "strip" for B16/B20, "split" for B8, "idct" for B6, "enchalf"
+    for B30/B31, "scaled" for B7, "split3" for B22."""
     from tpudct_torch.kernels.cores import CORES
 
     if m := re.search(r"k_rt_u8ILi(\d)ELi(n1|\d)E", fn):  # n1: kDense, -1
@@ -322,6 +337,10 @@ def _instance(fn: str):
         return "k_color_split<2, 2>", "split"
     if re.search(r"\d+k_idctE", fn):
         return "k_idct", "idct"
+    if m := re.search(r"k_scaled_decode_u8ILi(\d)E", fn):
+        return f"k_scaled_decode_u8<{CORES[int(m.group(1))]}>", "scaled"
+    if re.search(r"\d+k_idct_split3E", fn):
+        return "k_idct_split3", "split3"
     if m := re.search(r"k_enc_halfILi(\d)E", fn):
         return f"k_enc_half<{('kEncRows', 'kEncCols')[int(m.group(1))]}>", "enchalf"
     return None
@@ -344,13 +363,16 @@ def _ptxas_instances(log: str) -> dict:
 
 def _sass_conversions(lib, log: str) -> None:
     """Static counts of conversion instructions (and MUFU) in each instance
-    of B1, B2, B3 (B15), B16, B19 and B20 (one per integer core; B1 and B3
-    also on the dense inverse), in B8 (k_color_split<2, 2>) and in B30/B31
+    of B1, B2, B3 (B15), B7, B16, B19 and B20 (one per integer core; B1 and
+    B3 also on the dense inverse), in B22 (whose bf16 rounding is one F2F
+    per value and digit), in B8 (k_color_split<2, 2>) and in B30/B31
     (k_enc_half, whose round keeps the reference's trunc: printed only), from
     cuobjdump -sass of the built library, beside ptxas's registers and
-    spills.  Fails where a B1/B2/B3/B19 instance has an FRND, more I2F/I2FP
-    or F2I/F2IP than B6 (k_idct: the block index's division, no conversion
-    per pixel), or spills."""
+    spills; for B7 also the instructions before its epilogue switch (the
+    decode to the floors, shared by its 16 epilogues).  Fails where a
+    B1/B2/B3/B7/B19 instance has an FRND, more I2F/I2FP or F2I/F2IP than B6
+    (k_idct: the block index's division, no conversion per pixel), or
+    spills, and where B22 spills."""
     from tpudct_torch.kernels._build import nvcc_path
     from tpudct_torch.kernels.cores import CORES
 
@@ -362,20 +384,24 @@ def _sass_conversions(lib, log: str) -> None:
         found = _instance(fn.split("\n", 1)[0])
         if not found:
             continue
-        ops = collections.Counter(re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9]*)", fn))
+        seq = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9]*)", fn)
+        ops = collections.Counter(seq)
         counts[found] = ops
         r, st, ld = regs.get(found[0], ("?", "?", "?"))
-        print(f"  sass: {found[0]}: {sum(ops.values())} instructions; "
+        shared = f" ({seq.index('BRX')} before the epilogue switch)" if found[1] == "scaled" and "BRX" in seq else ""
+        print(f"  sass: {found[0]}: {sum(ops.values())} instructions{shared}; "
               + ", ".join(f"{k} {ops[k]}" for k in CONVERSIONS + ("MUFU",))
               + f"; ptxas {r} registers, {st} + {ld} bytes spilled")
     kinds = collections.Counter(kind for _, kind in counts)
     want = {"strip": 2 * len(CORES), "u8": 4 * len(CORES) + 1, "encode420": len(CORES), "split": 1, "idct": 1,
-            "enchalf": 2}
+            "enchalf": 2, "scaled": len(CORES), "split3": 1}
     if kinds != want:
         _fail(f"cuobjdump -sass shows instances {dict(kinds)}, not {want}")
     base = next(ops for (_, kind), ops in counts.items() if kind == "idct")
     for (label, kind), ops in counts.items():
-        if kind not in ("u8", "encode420"):
+        if kind == "split3" and (label not in regs or regs[label][1] or regs[label][2]):
+            _fail(f"{label}: ptxas reports spills (or no entry): {regs.get(label)}")
+        if kind not in ("u8", "encode420", "scaled"):
             continue
         i2f, f2i = ops["I2F"] + ops["I2FP"], ops["F2I"] + ops["F2IP"]
         if ops["FRND"] or i2f > base["I2F"] + base["I2FP"] or f2i > base["F2I"] + base["F2IP"]:
@@ -479,6 +505,7 @@ def phase_compare(dev) -> dict:
     _compare_study(dev, errs)
     _compare_strip(dev, errs)
     _compare_u8_cores(dev, errs)
+    _compare_scaled_cores(dev, errs)
     _compare_variants(dev, errs)
     _compare_u8_variants(dev, errs)
     torch.cuda.synchronize()
@@ -529,7 +556,13 @@ def _compare_variants(dev, errs: dict) -> None:
         errs["idct_x_c"] = max(errs["idct_x_c"], _same(f"idct_x c {s}^2", rc, V.idct_c_plain(c)))
         _equal(f"idct_x b {s}^2 vs hp_idct", rb, hp.hp_idct(c))
         _equal(f"idct_x {s}^2 input after the calls", c, keep)
-        print(f"  {s}^2: the six color variants and idct_x b, c bit-identical to their twins; against B8/B9 "
+        # B22 also on a wide-range map with +-0 (subnormal digits, digits
+        # rounding into the next binade)
+        wide = _wide_f32(s, s, seed=s + 15, dev=dev)
+        e = _same(f"idct_x c {s}^2 wide-range f32 with +-0", V.idct_x(wide, "c"), V.idct_c_plain(wide))
+        errs["idct_x_c"] = max(errs["idct_x_c"], e)
+        print(f"  {s}^2: the six color variants and idct_x b, c bit-identical to their twins (c also on a "
+              f"wide-range f32 map with +-0); against B8/B9 "
               f"differing: {', '.join(counts)}; idct_x b equals hp_idct, c within "
               f"{float((rc - rb).abs().max()):.2e} of it")
 
@@ -770,6 +803,54 @@ def _compare_u8_cores(dev, errs: dict) -> None:
               f"(int8 noise) on the butterfly, highest and high tiers, ring_forward_decode on every slot at n = "
               f"{', '.join(map(str, RING_CASES[-1][1]))}, for {', '.join(CORES)} and cb2011 at (q_scale 1, luma) "
               "and (2.5, chroma, retain_k 6): bit-identical to their twins")
+
+
+def _compare_scaled_cores(dev, errs: dict) -> None:
+    """B7 on every compiled core (one instance each) and the alias cb2011,
+    at 512^2 and 8192^2, on uniform int8 noise with an all -128 and an all
+    127 block (so both clamps of the decode are reached), at (q_scale 1,
+    luma) and (2.5, chroma): every (fr, fc) of {1, 2, 4, 8}^2, f32 and u8
+    out, bit for bit against its twin and against box_pool_u8 of
+    hp_decode_u8's output."""
+    from tpudct_torch.kernels import hp
+    from tpudct_torch.kernels.cores import CORES
+    from tpudct_torch.ops.scaled import box_pool_u8
+    from tpudct_torch.ops.transform import to_uint8
+
+    factors = (1, 2, 4, 8)
+    for s in COMPARE_SIZES:
+        q = _i8_noise((s, s), s + 33, dev)
+        q[:8, :8], q[:8, 8:16] = -128, 127
+        for core in CORES + ("cb2011",):
+            for qs, table in ((1.0, "luma"), (2.5, "chroma")):
+                cfg = dict(q_scale=qs, q_table=table, transform=core)
+                dec = hp.hp_decode_u8(q, **cfg)
+                if not ((dec == 0).any() and (dec == 255).any()):
+                    _fail(f"{s}^2 {core} q_scale={qs}: the int8 noise reaches neither clamp")
+                for fr in factors:
+                    for fc in factors:
+                        pooled = box_pool_u8(dec, fr, fc)
+                        for out_u8 in (False, True):
+                            tag = f"hp_scaled_decode_u8 int8 noise {s}^2 {core} q_scale={qs} {table} ({fr}, {fc}) " \
+                                  f"out_u8={out_u8}"
+                            out = hp.hp_scaled_decode_u8(q, fr, fc, out_u8=out_u8, **cfg)
+                            e = _same(tag, out, hp.scaled_decode_u8_plain(q, fr, fc, out_u8=out_u8, **cfg))
+                            errs["hp_scaled_decode_u8"] = max(errs["hp_scaled_decode_u8"], e)
+                            _same(f"{tag} vs box_pool_u8(hp_decode_u8)", out, to_uint8(pooled) if out_u8 else pooled)
+        print(f"  {s}^2 int8 noise: hp_scaled_decode_u8 at every (fr, fc) of {{1, 2, 4, 8}}^2, f32 and u8 out, for "
+              f"{', '.join(CORES)} and cb2011 at (q_scale 1, luma) and (2.5, chroma): bit-identical to its twin and "
+              "to box_pool_u8(hp_decode_u8)")
+
+
+def _wide_f32(h: int, w: int, seed: int, dev) -> torch.Tensor:
+    """f32 noise over a wide range of magnitudes, 2^-149 (subnormal) to
+    2^100 (far enough below bf16's largest finite value that every digit
+    and sum of B22 stays finite), either sign, with +0.0 and -0.0 mixed in."""
+    rng = np.random.default_rng(seed)
+    v = rng.choice([-1.0, 1.0], (h, w)) * rng.uniform(1.0, 2.0, (h, w)) * np.exp2(rng.integers(-149, 101, (h, w)))
+    v[rng.random((h, w)) < 0.1] = 0.0
+    v[rng.random((h, w)) < 0.1] = -0.0
+    return torch.as_tensor(v.astype(np.float32), device=dev)
 
 
 def _same(name: str, kernel_out, plain_out) -> float:
@@ -1858,6 +1939,10 @@ def phase_timing(dev, card: str) -> dict:
                                               lambda: hp.roundtrip_plain(xf, **lit, **hi)),
             "hp_scaled_decode_u8[8x8]": (1 + 1 / 64, lambda: hp.hp_scaled_decode_u8(ci8, 8, 8, out_u8=True),
                                          lambda: hp.scaled_decode_u8_plain(ci8, 8, 8, out_u8=True)),
+            "hp_scaled_decode_u8[2x2 f32]": (1 + 4 / 4, lambda: hp.hp_scaled_decode_u8(ci8, 2, 2),
+                                             lambda: hp.scaled_decode_u8_plain(ci8, 2, 2)),
+            "hp_scaled_decode_u8[8x8 f32]": (1 + 4 / 64, lambda: hp.hp_scaled_decode_u8(ci8, 8, 8),
+                                             lambda: hp.scaled_decode_u8_plain(ci8, 8, 8)),
         }
         # u8_copy's library call: Tensor.copy_ of the same bytes into a
         # distinct tensor (torch skips an in-place one), timed in turns with it

@@ -207,7 +207,8 @@ def test_library_name_follows_the_shared_headers(edited, monkeypatch, tmp_path):
 
     names = {p.name for p in _build.headers()}
     assert {"hp_block.cuh", "color_px.cuh", "strip420.cuh", "copy.cuh"} <= names
-    assert {p.name for p in _build.SOURCES} == {"hp_codec.cu", "color_codec.cu", "ring.cu", "study.cu"}
+    assert {p.name for p in _build.SOURCES} == {"hp_codec.cu", "hp_inverse.cu", "color_codec.cu", "ring.cu",
+                                                "study.cu"}
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.SOURCES[0].parent, csrc)
     monkeypatch.setattr(_build, "SOURCES", tuple(csrc / p.name for p in _build.SOURCES))
@@ -278,3 +279,6 @@ def test_ctypes_signatures_match_the_c_interface():
     assert set(c) - set(_build._SIGNATURES) == {"hp_error_string"}
     assert c["hp_decode_u8_launch"] == "ppiipippi"  # coef, rec, h, w, fwd, core, consts, stream, device
     assert c["hp_rt_u8_launch"] == "pppiiiippi"  # img, coef, rec, h, w, core, inv, consts, stream, device
+    # coef, out, h, w, fr, fc, out_u8, core, consts, stream, device
+    assert c["hp_scaled_decode_u8_launch"] == "ppiiiiiippi"
+    assert c["idct_split3_launch"] == "ppiippi"  # coef, rec, h, w, consts, stream, device

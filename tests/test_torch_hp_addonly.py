@@ -1,6 +1,6 @@
 """The add-only block chains of B1 (k_rt_u8<core>) and B3 (k_decode_u8<core>,
 which B15 runs with a forward pointer), tpudct_torch/csrc/hp_block.cuh, on
-the CPU.
+the CPU (B7 and B22 on the same chain: tests/test_torch_scaled_split3_addonly.py).
 
 The CUDA kernels cannot run here, so these tests emulate them in numpy
 float32, step for step as the kernels write them, and hold the emulation
@@ -18,9 +18,9 @@ interpret mode:
 - the decode: dequantize, the inverse's nonzero terms in the dense k = 0..7
   order (inv_core), then the floor and clamp by min/max and a round-down
   add of 2^23 (floor_2p23), the bytes packed from its low bits;
-- the wrappers pass the compiled core's id and raise where the compiled
-  table is not the transform's Ts; the "highest"/"high" tiers take the
-  dense instance.
+- the wrappers (B1, B3/B15, B7, and B22's idct_x "c") pass the compiled
+  core's id, or check it, and raise where the compiled table is not the
+  transform's Ts; the "highest"/"high" tiers take the dense instance.
 The card runs the kernels against their twins (chip_smoke.py phase 4).
 
 Tolerances: bit-identical everywhere, except the 64x256 case against the
@@ -42,6 +42,7 @@ from tpudct_torch.kernels import _build
 from tpudct_torch.kernels import cores
 from tpudct_torch.kernels import hp
 from tpudct_torch.kernels import ring as rk
+from tpudct_torch.kernels import variants as V
 
 F32 = np.float32
 TWO23 = 2.0**23
@@ -130,27 +131,30 @@ def _fwd_core(x: np.ndarray, ts: np.ndarray) -> np.ndarray:
     return x
 
 
+def _inv_dot(vs, coeffs):
+    """inv_dot: sum over k of coeffs[k] vs[k] (coeffs in {0, +-1, +-2}),
+    only the nonzero terms, in the dense k = 0..7 order (add_term: +-2 as
+    v + v, the first term negated where its entry is negative)."""
+    acc = None
+    for a, v in zip(coeffs, vs):
+        if a == 0:
+            continue
+        t = v + v if abs(a) == 2 else v
+        acc = (-t if a < 0 else t) if acc is None else (acc - t if a < 0 else acc + t)
+    return acc
+
+
 def _inv_core(m: np.ndarray, ts: np.ndarray) -> np.ndarray:
     """inv_core: A^T M A + 128 (A = ts), each output summing only its
-    nonzero terms in the dense k = 0..7 order (add_term)."""
-
-    def dot(vs, coeffs):
-        acc = None
-        for a, v in zip(coeffs, vs):
-            if a == 0:
-                continue
-            t = v + v if abs(a) == 2 else v
-            acc = (-t if a < 0 else t) if acc is None else (acc - t if a < 0 else acc + t)
-        return acc
-
+    nonzero terms in the dense k = 0..7 order (inv_dot)."""
     u = np.empty_like(m)
     for i in range(8):
         for l in range(8):
-            u[:, i, l] = dot([m[:, k, l] for k in range(8)], ts[:, i])
+            u[:, i, l] = _inv_dot([m[:, k, l] for k in range(8)], ts[:, i])
     out = np.empty_like(m)
     for i in range(8):
         for j in range(8):
-            out[:, i, j] = dot([u[:, i, l] for l in range(8)], ts[:, j]) + F32(128)
+            out[:, i, j] = _inv_dot([u[:, i, l] for l in range(8)], ts[:, j]) + F32(128)
     return out
 
 
@@ -356,29 +360,40 @@ def test_wrappers_raise_when_the_compiled_table_differs(wrong_table):
     coef = torch.as_tensor(_i8_map(seed=1))
     rec = torch.empty(coef.shape, dtype=torch.uint8)
     calls = [lambda: hp.hp_roundtrip_u8(img), lambda: hp.hp_roundtrip_u8(img, decode_precision="highest"),
-             lambda: hp.hp_decode_u8(coef), lambda: rk.ring_forward_decode(coef, None, rec)]
+             lambda: hp.hp_decode_u8(coef), lambda: rk.ring_forward_decode(coef, None, rec),
+             lambda: hp.hp_scaled_decode_u8(coef, 2, 2), lambda: hp.hp_scaled_decode_u8(coef, 8, 1, out_u8=True),
+             lambda: V.idct_x(coef.to(torch.float32), "c")]
     for call in calls:
         with pytest.raises(ValueError, match="no compiled inverse for 'haweel'"):
             call()
     hp.hp_decode_u8(coef, decode_precision="highest")  # the dense instance reads no compiled table
     hp.hp_roundtrip_u8(img, transform="wht")  # the other cores' tables still match
+    hp.hp_scaled_decode_u8(coef, 2, 2, transform="rdct")
+    V.idct_x(coef.to(torch.float32), "b")  # B6's dense kernel reads its table
 
 
 def test_launchers_take_a_core():
-    """The C launchers of B1 and B3 take the inverse's id in one form (a
-    core or kDense; B1 also its forward's core), and every instance the
+    """The C launchers of B1, B3 and B7 take the inverse's id in one form (a
+    core or kDense for B1 and B3, a core for B7, which runs the butterfly
+    tier only; B1 also its forward's core), and every instance the
     launchers name is compiled from the add-only chain."""
     sig = _build._SIGNATURES
     assert sig["hp_rt_u8_launch"][5:7] == (_build._I, _build._I)  # core, inv after h, w
     assert sig["hp_decode_u8_launch"][5] is _build._I  # core after fwd
+    assert sig["hp_scaled_decode_u8_launch"][4:8] == (_build._I,) * 4  # fr, fc, out_u8, core
     src = (_CSRC / "hp_codec.cu").read_text()
-    for name, params in (("hp_rt_u8_launch", "int core, int inv"), ("hp_decode_u8_launch", "void* fwd, int core")):
-        decl = " ".join(re.search(name + r"\(([^)]*)\)", src).group(1).split())
+    inverse = (_CSRC / "hp_inverse.cu").read_text()
+    for text, name, params in ((src, "hp_rt_u8_launch", "int core, int inv"),
+                               (src, "hp_decode_u8_launch", "void* fwd, int core"),
+                               (inverse, "hp_scaled_decode_u8_launch", "int out_u8, int core")):
+        decl = " ".join(re.search(name + r"\(([^)]*)\)", text).group(1).split())
         assert params in decl
     instances = re.findall(r"k_rt_u8<([0-3]), ([0-3]|kDense)>", src)
     assert len(instances) == 2 * 4 + 1  # + the decltype
     assert all(inv in (core, "kDense") for core, inv in instances)
     assert len(re.findall(r"k_decode_u8<(?:kDense|[0-3])>", src)) == 1 + 4 + 1
+    assert len(re.findall(r"k_scaled_decode_u8<[0-3]>", inverse)) == 4 + 1
+    assert "k_scaled_decode_u8" not in src and "k_idct_split3" not in src  # both live in hp_inverse.cu
 
 
 # The functions of hp_block.cuh that B1's and B3's add-only instances run.
@@ -403,20 +418,33 @@ def test_the_chain_has_no_conversion_in_its_source():
     truncf or __float2int), and the kernels run the chain, not the dense
     forward or the converting row helpers (the card's SASS counts:
     chip_smoke.py phase 2): B1 and B2 through one encode function
-    (encode_block_u8), B1 and B3 through dequant_inverse."""
+    (encode_block_u8), B1, B3 and B7 through dequant_inverse; B7 reads its
+    rows as B3 does and sums its windows' floor_2p23 bit patterns; B7's old
+    converting row helpers are gone."""
     text = (_CSRC / "hp_block.cuh").read_text()
     src = (_CSRC / "hp_codec.cu").read_text()
+    inverse = (_CSRC / "hp_inverse.cu").read_text()
     bodies = {name: _function_body(text, name) for name in _CHAIN}
     bodies["encode_block_u8"] = _function_body(src, "encode_block_u8")
+    for name in ("window_sum", "store_bytes", "store_windows"):  # B7's integer window sums and stores
+        bodies[name] = _function_body(inverse, name)
     for name, body in bodies.items():
         for banned in ("truncf", "__float2int", "static_cast<int", "(int)", "round_away(", "roundf", "rintf"):
             assert banned not in body, (name, banned)
+        assert "static_cast<float>" not in body or name == "core_dot", name
     assert "static_cast<float>(t)" in _function_body(text, "core_dot")  # a compile-time table constant
-    for kernel in ("k_rt_u8", "k_encode_u8", "k_decode_u8", "encode_block_u8"):
-        body = _function_body(src, kernel)
-        for banned in ("fwd_block", "inv_block", "load_u8_shifted", "store_i8", "store_u8", "load_i8"):
+    kernels = {k: _function_body(src, k) for k in ("k_rt_u8", "k_encode_u8", "k_decode_u8", "encode_block_u8")}
+    kernels["k_scaled_decode_u8"] = _function_body(inverse, "k_scaled_decode_u8")
+    for kernel, body in kernels.items():
+        for banned in ("fwd_block", "inv_block", "load_u8_shifted", "store_i8", "store_u8", "load_i8",
+                       "clamp_trunc", "store_row_u8", "to_u8", "unpack_i8"):
             assert not re.search(r"\b" + banned + r"\(", body), (kernel, banned)
+    for gone in ("load_i8", "unpack_i8", "clamp_trunc", "to_u8", "store_row_u8"):  # B7's old converting rows
+        assert not re.search(r"\b" + gone + r"\(", text + src + inverse), gone
     assert "dequant_inverse<kCore>" in _function_body(src, "k_decode_u8")
+    scaled = kernels["k_scaled_decode_u8"]
+    assert "load_forward_i8(coef, nullptr" in scaled and "dequant_inverse<kCore>" in scaled
+    assert "floor_2p23(" in scaled and "store_windows<FR, FC>" in scaled
     for kernel in ("k_rt_u8", "k_encode_u8"):
         assert "encode_block_u8<kCore>" in _function_body(src, kernel)
     assert "fwd_core<kCore>" in bodies["encode_block_u8"]

@@ -2,19 +2,21 @@
 // registers (see hp_codec.cu's header for the value chain and its
 // rounding):
 //  - the dense forward and quantizer fwd_block (B4, B5) and the dense
-//    inverse inv_block (B4, B6, B7, and the "highest"/"high" tiers of B1
-//    and B3), with conversion instructions at the bytes (B7);
-//  - the add-only chain of B1, B2, B3 and B15 on the butterfly tier, shared
-//    with strip420.cuh's 4:2:0 strip (B16, B20) and study.cu's fused 4:2:0
-//    encode (B19, so it codes exactly as hp_encode_u8 does): each integer
-//    core's Ts compiled in (core_ts, one kernel instance per core), the
-//    forward by even/odd butterflies, the inverse summing only its nonzero
-//    terms in the dense order, and no conversion instruction per pixel
-//    (bytes <-> f32 by bit patterns, floors and truncations by
-//    directed-rounding adds of 2^23, bytes packed by PRMT).
+//    inverse inv_block (B4, B6, and the "highest"/"high" tiers of B1 and
+//    B3);
+//  - the add-only chain of B1, B2, B3, B7 and B15 on the butterfly tier,
+//    shared with strip420.cuh's 4:2:0 strip (B16, B20) and study.cu's fused
+//    4:2:0 encode (B19, so it codes exactly as hp_encode_u8 does): each
+//    integer core's Ts compiled in (core_ts, one kernel instance per core),
+//    the forward by even/odd butterflies, the inverse summing only its
+//    nonzero terms in the dense order (inv_dot, which B22's per-digit sums
+//    run too), and no conversion instruction per pixel (bytes <-> f32 by
+//    bit patterns, floors and truncations by directed-rounding adds of
+//    2^23, bytes packed by PRMT).
 // Every form gives the dense chain's values bit for bit (tests/
-// test_torch_hp_addonly.py, test_torch_strip420.py and
-// test_torch_encode_addonly.py emulate them).
+// test_torch_hp_addonly.py, test_torch_strip420.py,
+// test_torch_encode_addonly.py and test_torch_scaled_split3_addonly.py
+// emulate them).
 
 #pragma once
 
@@ -162,44 +164,38 @@ __device__ __forceinline__ float add_term(float acc, bool first, int a, float v)
   return a < 0 ? __fsub_rn(acc, t) : __fadd_rn(acc, t);
 }
 
+// sum over k = 0..7 of Ts[k][i] v[k S] (Ts of kCore: column i of Ts, or
+// row i of Ts^T): the dense inverse's sum in its k order, its zero terms
+// skipped (add_term).  Every index and table entry is a constant once the
+// loops unroll.
+template <int kCore, int S>
+__device__ __forceinline__ float inv_dot(int i, const float* v) {
+  float acc = 0.0f;
+  bool first = true;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int a = core_ts(kCore, k * 8 + i);
+    if (a != 0) {
+      acc = add_term(acc, first, a, v[k * S]);
+      first = false;
+    }
+  }
+  return acc;
+}
+
 // x: the dequantized block M in, A^T M A + 128 out (A = Ts of kCore): the
-// dense inv_block's sums, their zero terms skipped.  Every index and table
-// entry is a constant once the loops unroll.
+// dense inv_block's sums, their zero terms skipped.
 template <int kCore>
 __device__ __forceinline__ void inv_core(float (&x)[64]) {
   float u[64];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int l = 0; l < 8; ++l) {
-      float acc = 0.0f;
-      bool first = true;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int a = core_ts(kCore, k * 8 + i);
-        if (a != 0) {
-          acc = add_term(acc, first, a, x[k * 8 + l]);
-          first = false;
-        }
-      }
-      u[i * 8 + l] = acc;
-    }
+    for (int l = 0; l < 8; ++l) u[i * 8 + l] = inv_dot<kCore, 8>(i, x + l);
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float acc = 0.0f;
-      bool first = true;
-#pragma unroll
-      for (int l = 0; l < 8; ++l) {
-        const int a = core_ts(kCore, l * 8 + j);
-        if (a != 0) {
-          acc = add_term(acc, first, a, u[i * 8 + l]);
-          first = false;
-        }
-      }
-      x[i * 8 + j] = __fadd_rn(acc, 128.0f);
-    }
+    for (int j = 0; j < 8; ++j) x[i * 8 + j] = __fadd_rn(inv_dot<kCore, 1>(j, u + 8 * i), 128.0f);
 }
 
 // sum over k < n of t[k] v[k], t = row `row` of kCore's Ts, on integral
@@ -277,8 +273,9 @@ __device__ __forceinline__ void load_u8_level(const uint8_t* p, float* x) {
   bytes_minus_128(v.x, v.y, x);
 }
 
-// 2^23 + floor(clip(x, 0, 255)) (B3's clamp_trunc plus 2^23): 2^23 + x
-// rounded down is 2^23 + floor(x), the floor in the low mantissa bits.
+// 2^23 + floor(clip(x, 0, 255)), the decode's u8 value min(max(trunc(x),
+// 0), 255) plus 2^23: 2^23 + x rounded down is 2^23 + floor(x), the floor
+// in the low mantissa bits (its bits are 0x4B000000 + the value).
 __device__ __forceinline__ float floor_2p23(float x) {
   return __fadd_rd(fminf(fmaxf(x, 0.0f), 255.0f), kTwo23);
 }
@@ -294,8 +291,8 @@ __device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, ui
   return __byte_perm(__byte_perm(a, b, 0x0040u), __byte_perm(c, d, 0x0040u), 0x5410u);
 }
 
-// One decoded row (reconstruction + 128) -> its 8 u8 pixels,
-// clamp_trunc's values, in one 8-byte store: the low bytes of floor_2p23.
+// One decoded row (reconstruction + 128) -> its 8 u8 pixels in one 8-byte
+// store: the low bytes of floor_2p23.
 __device__ __forceinline__ void store_u8_floor(uint8_t* p, const float* x) {
   uint32_t b[8];
 #pragma unroll
@@ -356,52 +353,48 @@ __device__ __forceinline__ void dequant_inverse(float (&x)[64], const HpConsts& 
   }
 }
 
-// ---- rows with conversion instructions (B7) --------------------------------
+// ---- f32 rows and the launch geometry --------------------------------------
 
-// 8 int8 values, held as the raw 8 bytes of one row, -> f32.
-__device__ __forceinline__ void unpack_i8(uint2 v, float* x) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    x[e] = static_cast<float>(static_cast<int8_t>((v.x >> (8 * e)) & 0xffu));
-    x[4 + e] = static_cast<float>(static_cast<int8_t>((v.y >> (8 * e)) & 0xffu));
-  }
+// 8 f32 values of one row (32-byte aligned) in two 16-byte loads.
+__device__ __forceinline__ void load_f32(const float* p, float* x) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
 }
 
-__device__ __forceinline__ void load_i8(const int8_t* p, float* x) {
-  unpack_i8(*reinterpret_cast<const uint2*>(p), x);
-}
-
-__device__ __forceinline__ float clamp_trunc(float x) {
-  return fminf(fmaxf(truncf(x), 0.0f), 255.0f);
-}
-
-__device__ __forceinline__ uint32_t to_u8(float x) {
-  return static_cast<uint32_t>(clamp_trunc(x));
-}
-
-// N values of one output row: u8 with one 8/4/2/1-byte store.  The values
-// are exact integers in [0, 255], so the cast is the truncation.
+// N f32 values of one output row in one or two vector stores.
 template <int N>
-__device__ __forceinline__ void store_row_u8(uint8_t* p, const float* x) {
+__device__ __forceinline__ void store_row_f32(float* p, const float* x) {
   if constexpr (N == 8) {
-    uint2 v = {0u, 0u};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      v.x |= to_u8(x[e]) << (8 * e);
-      v.y |= to_u8(x[4 + e]) << (8 * e);
-    }
-    *reinterpret_cast<uint2*>(p) = v;
+    reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
   } else if constexpr (N == 4) {
-    uint32_t v = 0u;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) v |= to_u8(x[e]) << (8 * e);
-    *reinterpret_cast<uint32_t*>(p) = v;
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
   } else if constexpr (N == 2) {
-    *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(to_u8(x[0]) | (to_u8(x[1]) << 8));
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
   } else {
-    *p = static_cast<uint8_t>(to_u8(x[0]));
+    *p = x[0];
   }
 }
+
+__device__ __forceinline__ void store_f32(float* p, const float* x) { store_row_f32<8>(p, x); }
+
+// One thread per 8x8 block, kThreads to a thread block (hp_codec.cu and
+// hp_inverse.cu).
+constexpr int kThreads = 128;
+
+inline dim3 grid_for(int h, int w) {
+  const long long n = static_cast<long long>(h / 8) * (w / 8);
+  return dim3(static_cast<unsigned>((n + kThreads - 1) / kThreads));
+}
+
+inline int prologue(int device, int h, int w) {
+  if (h <= 0 || w <= 0 || h % 8 || w % 8) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaSetDevice(device));
+}
+
+inline const HpConsts& consts_of(const void* p) { return *static_cast<const HpConsts*>(p); }
 
 __device__ __forceinline__ long long block_index() {
   return static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;

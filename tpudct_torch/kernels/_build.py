@@ -1,7 +1,8 @@
 """Build and load the CUDA library of the port's kernels.
 
-``tpudct_torch/csrc/hp_codec.cu`` (kernels B1-B7, B3 with a forward
-pointer as B15, the study's split3 inverse B22),
+``tpudct_torch/csrc/hp_codec.cu`` (kernels B1-B6, B3 with a forward
+pointer as B15), ``tpudct_torch/csrc/hp_inverse.cu`` (B7 and the study's
+split3 inverse B22),
 ``tpudct_torch/csrc/color_codec.cu`` (B8-B13 and the study variants B23,
 B26), ``tpudct_torch/csrc/ring.cu`` (B14, B16) and
 ``tpudct_torch/csrc/study.cu`` (the study kernels B17-B20, B30, B31) are compiled by
@@ -28,9 +29,10 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import time
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
-SOURCES = tuple(_PKG / "csrc" / f for f in ("hp_codec.cu", "color_codec.cu", "ring.cu", "study.cu"))
+SOURCES = tuple(_PKG / "csrc" / f for f in ("hp_codec.cu", "hp_inverse.cu", "color_codec.cu", "ring.cu", "study.cu"))
 BUILD_DIR = _PKG.parent / "build" / "tpudct_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -46,7 +48,7 @@ _SIGNATURES = {
     "hp_rt_f32_launch": (_P, _P, _P, _I, _I, _I, _P, _P, _I),
     "hp_dct_launch": (_P, _P, _I, _I, _I, _P, _P, _I),
     "hp_idct_launch": (_P, _P, _I, _I, _P, _P, _I),
-    "hp_scaled_decode_u8_launch": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _I),
+    "hp_scaled_decode_u8_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I),
     "idct_split3_launch": (_P, _P, _I, _I, _P, _P, _I),
     "color_split_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I),
     "color_merge_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I),
@@ -100,21 +102,29 @@ def build() -> pathlib.Path:
 
     Each source compiles in its own nvcc process, all at once, then one
     link.  The compilers' output (``-Xptxas -v``: registers, stack, spills
-    per kernel) is kept beside the library as ``<name>.log``."""
+    per kernel), after a line ``nvcc <source>: <seconds> s`` per source, is
+    kept beside the library as ``<name>.log``."""
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+
+    def compile_one(src, obj):
+        t0 = time.perf_counter()
+        run = _nvcc(*NVCC_FLAGS, "-c", "-o", obj, str(src))
+        return run, time.perf_counter() - t0
+
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, src.stem + ".o") for src in SOURCES]
         with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
-            runs = list(pool.map(lambda src, obj: _nvcc(*NVCC_FLAGS, "-c", "-o", obj, str(src)),
-                                 SOURCES, objs))
-        for src, run in zip(SOURCES, runs):
+            runs = list(pool.map(compile_one, SOURCES, objs))
+        for src, (run, _) in zip(SOURCES, runs):
             _check(run, src.name)
         so = os.path.join(tmp, lib.name)
         _check(_nvcc(*NVCC_FLAGS[:2], "-shared", "-o", so, *objs), "the link")
-        lib.with_suffix(".log").write_text("".join(run.stdout + run.stderr for run in runs))
+        lib.with_suffix(".log").write_text(
+            "".join(f"nvcc {src.name}: {dt:.1f} s\n" for src, (_, dt) in zip(SOURCES, runs))
+            + "".join(run.stdout + run.stderr for run, _ in runs))
         os.replace(so, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
 

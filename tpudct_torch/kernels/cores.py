@@ -1,5 +1,6 @@
-"""The integer cores compiled into the add-only kernels: B1, B3 and B15
-(``csrc/hp_codec.cu``) and the 4:2:0 strip of B16 and B20
+"""The integer cores compiled into the add-only kernels: B1, B2, B3 and B15
+(``csrc/hp_codec.cu``), B7 and, haweel's alone, B22 (``csrc/hp_inverse.cu``),
+B19 (``csrc/study.cu``) and the 4:2:0 strip of B16 and B20
 (``csrc/strip420.cuh``), all from ``csrc/hp_block.cuh``'s ``core_ts``.
 
 Each integer core's Ts is compiled into those kernels, one instance per

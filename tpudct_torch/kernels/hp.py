@@ -1,9 +1,9 @@
 """hp codec kernels: the counterpart of ``tpudct/kernels/hp_pallas.py``.
 
 Seven wrappers, each over hand-written CUDA kernels in
-``tpudct_torch/csrc/hp_codec.cu`` (see its header for the value chain and
-the design), each with a plain torch twin in this module that computes the
-same values in the same order:
+``tpudct_torch/csrc/hp_codec.cu`` (B7: ``csrc/hp_inverse.cu``; see their
+headers for the value chains and the design), each with a plain torch twin
+in this module that computes the same values in the same order:
 
   hp_roundtrip_u8      u8 (H, W) -> int8 coefficients + u8 reconstruction  (B1)
   hp_encode_u8         u8 (H, W) -> int8 coefficients                       (B2)
@@ -27,12 +27,13 @@ in f64 and cast once to f32 exactly as the reference's ``_consts_int``/
 quantization table and ``retain_k`` ride the same kernels.  The literal
 tables (T, Q q_scale, the zonal mask) exist for every transform; the
 integer-core tables (Ts, the folded scale, the butterfly dequantization)
-only where the transform has an integer core.  B1, B2 and B3 (and the
-ring's B15) run an add-only chain with Ts compiled in, one instance per
+only where the transform has an integer core.  B1, B2, B3 (and the ring's
+B15) and B7 run an add-only chain with Ts compiled in, one instance per
 integer core: their wrappers pass the core's id (``kernels.cores``, checked
-against the packed Ts), and for the inverse the dense instance's on the
-"highest"/"high" tiers.  B2 is B1's encode half: the u8 encode exists only
-for a transform with an integer core (``supports_u8``).
+against the packed Ts), and for the inverse of B1 and B3 the dense
+instance's on the "highest"/"high" tiers (B7 runs the butterfly tier
+only).  B2 is B1's encode half: the u8 encode exists only for a transform
+with an integer core (``supports_u8``).
 
 ``decode_precision="high"`` is the reference's bf16x3 inverse, which exists
 because the TPU's matrix unit has no f32 path; here it runs the f32
@@ -218,8 +219,8 @@ def _args(transform, q_table, q_scale, retain_k, decode_precision, int_core) -> 
 def _core_of(transform, q_table, q_scale, retain_k, decode_precision, int_core) -> tuple:
     """The launchers' ids ``(core, inv)``: ``core``, the forward of B1 and
     B2 (with ``int_core``; else None), is the id of the integer core compiled for
-    ``transform`` (``kernels.cores``); ``inv``, the inverse of B1 and
-    B3/B15, is that core's id on the butterfly tier and ``cores.DENSE``
+    ``transform`` (``kernels.cores``); ``inv``, the inverse of B1, B3/B15
+    and B7, is that core's id on the butterfly tier and ``cores.DENSE``
     (the dense f32 inverse) on the "highest"/"high" tiers.  Raises where a
     table the add-only chain would read is not the compiled one."""
     k = _args(transform, q_table, q_scale, retain_k, decode_precision, int_core)
@@ -498,11 +499,12 @@ def hp_scaled_decode_u8(coeffs_i8, fr: int, fc: int, q_scale: float = 1.0,
     h, w = _check(coeffs_i8, torch.int8, "hp_scaled_decode_u8")
     if fr not in (1, 2, 4, 8) or fc not in (1, 2, 4, 8):
         raise ValueError(f"hp_scaled_decode_u8 factors must be in (1, 2, 4, 8), got ({fr}, {fc})")
+    inv = _core_of(transform, q_table, q_scale, None, "butterfly", False)[1]
     if coeffs_i8.device.type == "cpu":
         return scaled_decode_u8_plain(coeffs_i8, fr, fc, q_scale, q_table, transform, out_u8)
     k = _args(transform, q_table, q_scale, None, "butterfly", False)
     out = torch.empty((h // fr, w // fc), dtype=torch.uint8 if out_u8 else torch.float32,
                       device=coeffs_i8.device)
-    launch("hp_scaled_decode_u8_launch", (coeffs_i8, out), h, w, k.packed, fr, fc, int(out_u8))
+    launch("hp_scaled_decode_u8_launch", (coeffs_i8, out), h, w, k.packed, fr, fc, int(out_u8), inv)
     LAUNCHES["hp_scaled_decode_u8"] += 1
     return out

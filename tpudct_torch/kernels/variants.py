@@ -29,7 +29,8 @@ table, ``q_scale`` 1):
   "b"  B21  the TPU's hybrid butterfly, which is hp_idct's butterfly tier:
             B6's kernel k_idct
   "c"  B22  both directions per bf16 digit of their operand
-            (k_idct_split3 in csrc/hp_codec.cu, see its header)
+            (k_idct_split3 in csrc/hp_inverse.cu, see its header:
+            haweel's Ts compiled in, the nonzero terms only)
 
 Each launch counts in ``LAUNCHES`` under its own name, also where it runs
 B6's, B8's or B9's kernel.  The plain torch twins: B21's is
@@ -90,6 +91,7 @@ import torch
 
 from tpudct_torch.constants import LEVEL_SHIFT
 from tpudct_torch.kernels import color as ck
+from tpudct_torch.kernels import cores
 from tpudct_torch.kernels import hp
 from tpudct_torch.ops.blocks import as_block_grid, from_block_grid
 from tpudct_torch.utils.color import F32, rgb_from_ycbcr_planes, ycbcr_from_rgb_planes
@@ -318,6 +320,8 @@ def idct_x(coeffs, variant: str):
         raise ValueError(f"idct_x variant must be 'b' or 'c', got {variant!r}")
     name = f"idct_x_{variant}"
     h, w = hp._check(coeffs, torch.float32, name)
+    if variant == "c":  # k_idct_split3 compiles haweel's Ts in
+        cores.core_id("haweel", _inv_args().a, kernel="idct_x 'c' (k_idct_split3)")
     if coeffs.device.type == "cpu":
         return hp.idct_plain(coeffs) if variant == "b" else idct_c_plain(coeffs)
     rec = torch.empty((h, w), dtype=torch.float32, device=coeffs.device)
