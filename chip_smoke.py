@@ -134,7 +134,24 @@ variants) from ``tpudct_torch/csrc`` and, in order:
      loop's cap: the products batched), bench_fused_roundtrip,
      bench_serving_throughput, bench_color, bench_color_serving and sweep
      over 256..1024, each moving exactly its counters, every returned dict
-     printed with the card;
+     printed with the card; then the file path, its counters set to 0 just
+     before it: tpudct_torch.cli.main in process on .npy images in a
+     temporary directory -- an 8192^2 photo-like gray frame through
+     ``encode --entropy auto`` (one B2), ``inspect``, ``decode`` (one B3),
+     ``run --coeffs`` (one B1) and ``decode --scale 2/8`` (one B7), the
+     4032x3024 camera frame through ``encode --color`` (B8 and two B2) and
+     ``decode`` (two B3 and B9) and ``encode --color --chroma 444`` (B12
+     and two B2) -- each moving exactly its counters, every JSON record
+     printed with the card; then the files held against
+     serialize.coefficients_to_bytes / color_to_bytes of the plain twins'
+     coefficients computed on the card, the decoded rasters against
+     decode_gray_auto, decode_gray_scaled_auto and decode_color_auto on
+     those coefficients, run's file against encode's; and every entropy
+     stage (raw, spectral, huffman, rans, xz, banded, banded:4:rans,
+     auto-exact) on the twins' coefficients of the frame's 2048^2 corner,
+     each parsed back to the same map by the native decoders and by the
+     pure-Python ones (TPUDCT_NO_NATIVE_JPEG set); it prints whether the
+     host JPEG library built;
   7. times each kernel against its twin with
      tpudct_torch.utils.timing.device_time_ms (CUDA events, the median of
      each batch of calls, L2 flushed before every call; order plain,
@@ -163,10 +180,13 @@ Without a CUDA device the script raises before printing any result.
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
 import json
 import os
 import re
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -259,6 +279,10 @@ SQUARE, FRAME, BATCH = 8192, (4000, 2992), (32, 1024)
 COMPARE_SIZES = (512, SQUARE)
 # the color path's camera frame (H x W, a 12-Mpix sensor on its side)
 COLOR_FRAME = (4032, 3024)
+# the file path: every --entropy stage is held at this side (auto-exact
+# trial-encodes every stage, seconds per stage at 8192^2 on the host)
+ENTROPY_SIDE = 2048
+ENTROPY_STAGES = ("raw", "spectral", "huffman", "rans", "xz", "banded", "banded:4:rans", "auto-exact")
 # the rings: (side, virtual rank counts on the card)
 RING_CASES = ((512, (8,)), (SQUARE, (1, 2, 4, 8)))
 # B14's edge cases (copy.cuh): byte counts below one 16-byte vector, around
@@ -1818,6 +1842,153 @@ def phase_measurement_path(dev, card: str) -> dict:
     return launches
 
 
+def _twin_color_planes(rgb: np.ndarray, mode: str, dev) -> tuple:
+    """(planes, meta) of models.color.encode_color_u8 on an (H, W, 3) u8
+    frame, every kernel replaced by its plain twin, on the card."""
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.kernels import hp
+    from tpudct_torch.models import color as mc
+    from tpudct_torch.ops.padding import pad_to_kernel, padded_shape
+
+    h, w = rgb.shape[:2]
+    x, _ = pad_to_kernel(torch.as_tensor(rgb, device=dev).movedim(-1, 0).contiguous(), *mc._GRID)
+    y, cb, cr = ck.split_plain(x, mode)
+    cy = hp.encode_u8_plain(y)
+    cc = hp.encode_u8_plain(torch.cat([cb, cr]), q_table="chroma")
+    sub = mc.normalize_subsample(mode)
+    ch, cw = mc._chroma_plane_shape(sub, h, w)
+    (yh, yw), (c8h, c8w) = padded_shape(h, w), padded_shape(ch, cw)
+    ph = cb.shape[0]
+    planes = {"y": cy[:yh, :yw], "cb": cc[:ph][:c8h, :c8w], "cr": cc[ph:][:c8h, :c8w]}
+    meta = {"orig_shape": (h, w), "chroma_shape": (ch, cw), "subsample": sub}
+    return {k: v.cpu().numpy() for k, v in planes.items()}, meta
+
+
+def phase_file_path(dev, card: str) -> dict:
+    """The file path (python -m tpudct_torch encode/inspect/decode/run) in
+    process, its counters set to 0 just before it and read just after; each
+    CLI call moves exactly its counters.  Then the bytes against the plain
+    twins' coefficients, the rasters against the library's decoders, and
+    every entropy stage at ENTROPY_SIDE^2 through both decoders."""
+    from tpudct_torch import CodecConfig, cli, get_pipeline
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.kernels import hp
+    from tpudct_torch.models import color as mc
+    from tpudct_torch.models.dispatch import decode_gray_auto, decode_gray_scaled_auto
+    from tpudct_torch.utils import native, serialize
+
+    _phase(6, "file path")
+    cfg, p = CodecConfig(), get_pipeline("hp")
+    counts, step = _stepper(hp.LAUNCHES, ck.LAUNCHES)
+    print("  host libraries: entropy", native.build("entropy").name,
+          "| JPEG", "built" if native.jpeg_library() is not None else "unavailable (no libjpeg)")
+    sq, cam = f"{SQUARE}^2", "x".join(map(str, COLOR_FRAME))
+    gray = _camera_frame(SQUARE, SQUARE, seed=42)
+    rgb = _camera_rgb(*COLOR_FRAME)
+    with tempfile.TemporaryDirectory() as tmp:
+        f = {k: os.path.join(tmp, k) for k in (
+            "gray.npy", "rgb.npy", "g.tdc", "g.npy", "run.npy", "run.tdc", "s.npy", "c.tdcc", "c.npy", "c444.tdcc")}
+        np.save(f["gray.npy"], gray)
+        np.save(f["rgb.npy"], rgb)
+
+        def cli_step(label, expected, argv) -> list:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = step(label, expected, lambda: cli.main(argv))
+            text = out.getvalue()
+            for line in text.splitlines():  # the CLI's output, then the step's line
+                print(f"    {line}" + (f" [{card}]" if line.startswith("{") else ""))
+            if rc != 0:
+                _fail(f"{label}: exit code {rc}\n{text}")
+            return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+        hp.reset_launches()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        enc = cli_step(f"{sq} encode --entropy auto", {"hp_encode_u8": 1},
+                       ["encode", "--entropy", "auto", f["gray.npy"], f["g.tdc"]])
+        ins = cli_step(f"{sq} inspect", {}, ["inspect", f["g.tdc"]])
+        cli_step(f"{sq} decode", {"hp_decode_u8": 1}, ["decode", f["g.tdc"], f["g.npy"]])
+        cli_step(f"{sq} run --coeffs", {"hp_roundtrip_u8": 1},
+                 ["run", f["gray.npy"], f["run.npy"], "--coeffs", f["run.tdc"]])
+        cli_step(f"{sq} decode --scale 2/8", {"hp_scaled_decode_u8": 1},
+                 ["decode", "--scale", "2/8", f["g.tdc"], f["s.npy"]])
+        cenc = cli_step(f"{cam} encode --color", {"color_split_420_u8": 1, "hp_encode_u8": 2},
+                        ["encode", "--color", f["rgb.npy"], f["c.tdcc"]])
+        cli_step(f"{cam} decode .tdcc", {"hp_decode_u8": 2, "color_merge_420_u8": 1},
+                        ["decode", f["c.tdcc"], f["c.npy"]])
+        cli_step(f"{cam} encode --color --chroma 444", {"color_split_444_u8": 1, "hp_encode_u8": 2},
+                 ["encode", "--color", "--chroma", "444", f["rgb.npy"], f["c444.tdcc"]])
+        launches = counts()
+        print(f"  file path: {time.perf_counter() - t0:.1f} s for the CLI calls; launches:", json.dumps(launches))
+        # the files and rasters against the plain twins' coefficients (these
+        # checks' launches come after the counts were read)
+        data = {k: open(f[k], "rb").read() for k in ("g.tdc", "run.tdc", "c.tdcc", "c444.tdcc")}
+        x = torch.as_tensor(gray, device=dev)
+        c_twin = hp.encode_u8_plain(x)
+        want = serialize.coefficients_to_bytes(c_twin.cpu().numpy(), 1.0, None, orig_shape=(SQUARE, SQUARE))
+        if data["g.tdc"] != want or data["run.tdc"] != want:
+            _fail(f"{sq}: the .tdc files ({len(data['g.tdc'])}, {len(data['run.tdc'])} bytes) differ from "
+                  f"coefficients_to_bytes of the twin's coefficients ({len(want)} bytes)")
+        if enc[0]["bytes"] != len(want) or ins[0]["codec"] != serialize.inspect_stream(want)["codec"]:
+            _fail(f"{sq}: records {enc}, {ins}")
+        shape = (SQUARE, SQUARE)
+        for label, path, ref in (
+            ("decode", "g.npy", decode_gray_auto(p, c_twin, cfg, shape)),
+            ("run", "run.npy", decode_gray_auto(p, c_twin, cfg, shape)),
+            ("decode --scale 2/8", "s.npy", decode_gray_scaled_auto(p, c_twin, cfg, shape, 2)),
+        ):
+            if not np.array_equal(np.load(f[path]), ref):
+                _fail(f"{sq} {label}: the raster differs from the library's decode of the twin's coefficients")
+        print(f"  {sq}: .tdc ({ins[0]['codec']}, {len(want)} bytes) = coefficients_to_bytes of the twin's "
+              f"coefficients; run --coeffs = encode; decode, run and --scale 2/8 rasters = "
+              f"decode_gray_auto / decode_gray_scaled_auto of them")
+        for key, mode in (("c.tdcc", "420"), ("c444.tdcc", "444")):
+            planes, meta = _twin_color_planes(rgb, mode, dev)
+            want = serialize.color_to_bytes(planes, meta, 1.0, None, "haweel")
+            if data[key] != want:
+                _fail(f"{cam} {mode}: the .tdcc ({len(data[key])} bytes) differs from color_to_bytes of the "
+                      f"twins' planes ({len(want)} bytes)")
+            if mode == "420":
+                ref = mc.decode_color_auto(p, planes, meta, cfg, device=dev).cpu().numpy()
+                if cenc[0]["bytes"] != len(want) or not np.array_equal(np.load(f["c.npy"]), ref):
+                    _fail(f"{cam}: the decoded raster differs from decode_color_auto of the twins' planes")
+            print(f"  {cam} {mode}: .tdcc ({len(want)} bytes) = color_to_bytes of the twins' planes"
+                  + ("; decoded raster = decode_color_auto of them" if mode == "420" else ""))
+    _entropy_stages(c_twin[:ENTROPY_SIDE, :ENTROPY_SIDE].cpu().numpy(), card)
+    return launches
+
+
+def _entropy_stages(c: np.ndarray, card: str) -> None:
+    """Every --entropy stage on one map: written, then parsed back to the
+    same map by the native decoders and by the pure-Python ones."""
+    from tpudct_torch.utils import serialize
+
+    label = f"{c.shape[0]}x{c.shape[1]}"
+    for stage in ENTROPY_STAGES:
+        t0 = time.perf_counter()
+        blob = serialize.coefficients_to_bytes(c, codec=stage)
+        t1 = time.perf_counter()
+        native = serialize.bytes_to_coefficients(blob)[0]
+        t2 = time.perf_counter()
+        before = os.environ.get("TPUDCT_NO_NATIVE_JPEG")
+        os.environ["TPUDCT_NO_NATIVE_JPEG"] = "1"  # the pure-Python decoders
+        try:
+            plain = serialize.bytes_to_coefficients(blob)[0]
+        finally:
+            if before is None:
+                del os.environ["TPUDCT_NO_NATIVE_JPEG"]
+            else:
+                os.environ["TPUDCT_NO_NATIVE_JPEG"] = before
+        t3 = time.perf_counter()
+        if not (np.array_equal(native, c) and np.array_equal(plain, c)):
+            _fail(f"{label} --entropy {stage}: the stream does not parse back to the same map")
+        codec = serialize.inspect_stream(blob)["codec"]
+        print(f"  {label} --entropy {stage} ({codec}): {len(blob)} bytes; encode {(t1 - t0) * 1e3:.1f} ms, "
+              f"native parse {(t2 - t1) * 1e3:.1f} ms, pure-Python parse {(t3 - t2) * 1e3:.1f} ms "
+              f"(host clock) [{card}]; both equal to the map")
+
+
 def _bound(name: str, h: int, w: int) -> tuple:
     """(bound ms, "bytes" or "operations") of one call at h x w: the larger
     of its bytes over the HBM rate and its operations over the f32 rate."""
@@ -2109,6 +2280,7 @@ def main() -> int:
     runs = [timed(phase, dev) for phase in (phase_main_path, phase_color_main_path, phase_multi_main_path,
                                              phase_study_path)]
     runs.append(timed(phase_measurement_path, dev, card))
+    runs.append(timed(phase_file_path, dev, card))
     times = timed(phase_timing, dev, card)
     kernels = []
     for name, (src, replaces, _bpp, _ops) in KERNELS.items():

@@ -12,6 +12,8 @@ Public API
 - models:     get_pipeline("cublas" | "batched" | "cublas2" | "fast" | "hp")
 - ops:        blockify / deblockify / dct2 / idct2 / quantize / dequantize
 - parallel:   band_mesh / grid_mesh, shard_* and the sharded steps, the rings
+- files:      utils.serialize (.tdc/.tdcc), utils.imageio; the CLI,
+              python -m tpudct_torch {run,encode,decode,inspect}
 """
 
 from tpudct_torch.constants import BLOCK_SIZE, T, Q, haweel_integer_core, haweel_row_norms

@@ -37,6 +37,7 @@ from tpudct_torch.ops.padding import (
     padded_shape,
 )
 from tpudct_torch.ops.transform import to_uint8
+from tpudct_torch.utils.serialize import _abs_bound
 
 # Row alignment per kernel family (kernels.hp.supports/supports_u8).
 _U8_ROWS = 32
@@ -62,15 +63,6 @@ def _tensor(a, device=None) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a
     return torch.as_tensor(np.asarray(a), device=default_device(device))
-
-
-def _abs_bound(a) -> float:
-    """max(|a|) as a float through a min/max pair (no full-size temporary);
-    takes a numpy array or a tensor on any device."""
-    empty = a.numel() == 0 if isinstance(a, torch.Tensor) else np.size(a) == 0
-    if empty:
-        return 0.0
-    return max(-float(a.min()), float(a.max()))
 
 
 def choose_gray_path(p: Pipeline, h: int, w: int, cfg: CodecConfig) -> str:

@@ -54,6 +54,16 @@ def dequantize(c: torch.Tensor, q_scale: float = 1.0, q_table: str = "luma") -> 
     return from_block_grid(as_block_grid(c) * _grid_tile(_q_for(q_scale, q_table), c))
 
 
+def q_scale_for_quality(quality: int) -> float:
+    """IJG libjpeg quality (1..100) -> quantization-table scale factor: the
+    jcparam.c mapping (jpeg_quality_scaling), scale = 5000/q for q < 50
+    else 200 - 2q, divided by 100 (quality 50 is the unscaled table).
+    libjpeg clamps each scaled table entry to >= 1; with a scalar scale the
+    floor 0.01 keeps quality 100 from a zero table."""
+    q = min(100, max(1, int(quality)))
+    return max((5000.0 / q if q < 50 else 200.0 - 2.0 * q) / 100.0, 0.01)
+
+
 def retention_mask(k: int | None, bs: int = BLOCK_SIZE) -> np.ndarray:
     """Zonal mask: keep coefficient (u, v) iff u + v < k.  k=None keeps all."""
     if k is None:
