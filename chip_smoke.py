@@ -151,7 +151,31 @@ variants) from ``tpudct_torch/csrc`` and, in order:
      auto-exact) on the twins' coefficients of the frame's 2048^2 corner,
      each parsed back to the same map by the native decoders and by the
      pure-Python ones (TPUDCT_NO_NATIVE_JPEG set); it prints whether the
-     host JPEG library built;
+     host JPEG library built; then the streamed path
+     (tpudct_torch.utils.streaming: pinned, double-buffered staging), its
+     counters set to 0 just before it: a 16384^2 photo-like gray frame
+     through encode_gray_streamed_bytes in 8 bands of 2048 rows (8 B2),
+     decode_gray_streamed in full, at scale_m=2 (8 B7), n_planes=4, a
+     row_range off the band edges and into a .npy memmap (B3 per band),
+     roundtrip_u8_streamed in bands of 4096 (4 B1), the CLI's ``encode
+     --band-rows 2048`` and ``decode --band-rows 2048`` on its .npy, an
+     8192^2 off-int8 stream (transform "dct") decoded on B6, an 8192^2
+     photo-like RGB frame through the streamed color encode and decode at
+     4:2:0 and 4:4:4 and the 4032x3024 camera frame at 4:2:0 and 4:2:2
+     (B8/B10/B12 and 2 B2, 2 B3 and B9/B11/B13 per band),
+     roundtrip_u8_streamed_sharded over 4 virtual ranks (B1 per rank and
+     band), save_sharded and save_color_sharded -- each moving exactly
+     its counters; then the bytes against the in-memory banded writer
+     (coefficients_to_bytes banded:8 of encode_gray_auto, color_to_bytes
+     banded:4 of encode_color_u8, the camera frame's planes), every
+     decode against decode_gray_auto / decode_gray_scaled_auto /
+     decode_color_auto, the sharded calls against roundtrip_u8 and the
+     single-host banded writer; per call its host wall split into staging
+     copies, H2D, kernels, D2H, waits, finishing and entropy
+     (streaming.SECONDS, CUDA events), the device busy share, and its own
+     peak of device memory beside one band's bytes (the 8-band gray calls
+     fail at half of the image's bytes); and the in-memory calls that
+     return numpy, with their walls and peaks;
   7. times each kernel against its twin with
      tpudct_torch.utils.timing.device_time_ms (CUDA events, the median of
      each batch of calls, L2 flushed before every call; order plain,
@@ -283,6 +307,9 @@ COLOR_FRAME = (4032, 3024)
 # trial-encodes every stage, seconds per stage at 8192^2 on the host)
 ENTROPY_SIDE = 2048
 ENTROPY_STAGES = ("raw", "spectral", "huffman", "rans", "xz", "banded", "banded:4:rans", "auto-exact")
+# the streamed path: a 268-Mpx gray scan in 2048-row bands (the roundtrip
+# in 4096-row bands) and an 8192^2 RGB frame
+STREAM_SIDE, STREAM_BAND, STREAM_RT_BAND, STREAM_COLOR = 16384, 2048, 4096, 8192
 # the rings: (side, virtual rank counts on the card)
 RING_CASES = ((512, (8,)), (SQUARE, (1, 2, 4, 8)))
 # B14's edge cases (copy.cuh): byte counts below one 16-byte vector, around
@@ -1507,10 +1534,15 @@ def phase_color_main_path(dev) -> dict:
 # luma tiles (chroma and the grid codec tiles are narrower than 128: the
 # batched fallback); B1 per rank in the serving step; the coefficients of the
 # decode ring (B2) and the color roundtrip feeding the color ring (B8, 2 B2,
-# 2 B3, B9); both rings; B6 per rank in sharded_idct
+# 2 B3, B9); both rings; B6 per rank in sharded_idct, on the full and on the
+# progressive map; B1 per rank in each of the streamed sharded roundtrip's
+# three host bands and one for the whole image it is held against; B5 per
+# rank on the luma of the sharded color encode feeding save_color_sharded;
+# the streamed color codec's two bands (B8 and 2 B2, then 2 B3 and B9
+# each) and the in-memory pass it is held against (B8, 2 B2, 2 B3, B9)
 DRYRUN_LAUNCHES = {
-    "hp_roundtrip": 24, "hp_roundtrip_u8": 8, "hp_encode_u8": 3, "hp_decode_u8": 2, "hp_idct": 8,
-    "color_split_420_u8": 1, "color_merge_420_u8": 1,
+    "hp_roundtrip": 24, "hp_roundtrip_u8": 33, "hp_encode_u8": 9, "hp_decode_u8": 8, "hp_idct": 16,
+    "hp_dct": 8, "color_split_420_u8": 4, "color_merge_420_u8": 4,
     "ring_forward": 24, "ring_forward_decode": 64, "ring_forward_decode_color": 64,
 }
 
@@ -1959,6 +1991,284 @@ def phase_file_path(dev, card: str) -> dict:
     return launches
 
 
+def _memory_peak(fn) -> tuple:
+    """(fn(), host wall s, peak of fn's own device allocations, peak of the
+    bytes the caching allocator reserved during it): the allocated bytes
+    just before the call are the baseline, the peak stats reset then."""
+    torch.cuda.synchronize()
+    base, base_r = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, torch.cuda.max_memory_allocated() - base, torch.cuda.max_memory_reserved() - base_r
+
+
+def phase_streamed_path(dev, card: str) -> dict:
+    """The streamed path (tpudct_torch.utils.streaming and the CLI's
+    --band-rows), its counters set to 0 just before it and read just after;
+    each call moves exactly its counters.  Per call: its host wall split
+    into staging copies, H2D, kernels, D2H, entropy and waits
+    (streaming.SECONDS), the device busy share, and its own peak of device
+    memory beside one band's bytes; the 8-band gray calls fail at half of
+    the image's bytes.  Then every output against the in-memory path, and
+    the in-memory calls that return numpy (the pageable-copy baseline) with
+    their walls and peaks."""
+    from tpudct_torch import CodecConfig, cli, get_pipeline
+    from tpudct_torch import parallel as P
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.kernels import hp
+    from tpudct_torch.models import color as mc
+    from tpudct_torch.models.dispatch import encode_gray_auto
+    from tpudct_torch.utils import serialize
+    from tpudct_torch.utils import streaming as st
+
+    _phase(6, "streamed path")
+    cfg, p = CodecConfig(), get_pipeline("hp")
+    counts, step = _stepper(hp.LAUNCHES, ck.LAUNCHES)
+    side, band, cside = STREAM_SIDE, STREAM_BAND, STREAM_COLOR
+    nb, ncb = side // band, cside // band
+    gl, cl, cam = f"{side}^2", f"{cside}^2", "x".join(map(str, COLOR_FRAME))
+    roi = (side // 16 + 3, side * 7 // 16 + 5)  # off the band edges
+    n_roi = -(-(-(-roi[1] // 8) * 8 - (roi[0] - roi[0] % 8)) // band)  # container rows 8-aligned
+    gray = _camera_frame(side, side, seed=43)
+    rgb = np.stack([_camera_frame(cside, cside, seed=s) for s in (44, 45, 46)], axis=-1)
+    rgb_cam = _camera_rgb(*COLOR_FRAME)
+    img8 = gray[:cside, :cside].copy()
+    dct_cfg = CodecConfig(transform="dct")
+    c_dct, _ = encode_gray_auto(p, img8, dct_cfg, device=dev)  # the f32 path: an off-int8 stream
+    dct_stream = serialize.coefficients_to_bytes(
+        c_dct.cpu().numpy(), orig_shape=img8.shape, transform="dct", codec=f"banded:{ncb}")
+    c8k, _ = encode_gray_auto(p, img8, cfg, device=dev)
+    cplanes, cmeta = mc.encode_color_u8(p, rgb, cfg, device=dev)
+    mesh = P.band_mesh(devices=[dev] * 4)
+    torch.cuda.synchronize()
+    stats = []  # (label, wall s, peak, reserved peak, band bytes, SECONDS)
+
+    def run(label, expected, fn, band_bytes, bound=None):
+        st.reset_seconds()
+        out, wall, peak, resv = _memory_peak(lambda: step(label, expected, fn))
+        stats.append((label, wall, peak, resv, band_bytes, dict(st.SECONDS)))
+        if bound is not None and peak >= bound:
+            _fail(f"{label}: peak device memory {peak} B reaches half of the image's bytes ({bound} B)")
+        return out
+
+    gband, cband = band * side, band * cside  # one band's pixels
+    half = gray.nbytes // 2
+    enc = {"hp_encode_u8": nb}
+    dec = {"hp_decode_u8": nb}
+    cenc = lambda mode, n: {f"color_split_{mode}_u8": n, "hp_encode_u8": 2 * n}  # noqa: E731
+    cdec = lambda mode, n: {"hp_decode_u8": 2 * n, f"color_merge_{mode}_u8": n}  # noqa: E731
+    cam_bands = -(-mc.color_kernel_shape(*COLOR_FRAME)[0] // band)
+    with tempfile.TemporaryDirectory() as tmp:
+        f = {k: os.path.join(tmp, k) for k in ("gray.npy", "g.tdc", "g.npy", "o.npy")}
+        np.save(f["gray.npy"], gray)
+        hp.reset_launches()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        out = {}
+        out["g"] = run(f"{gl} encode_gray_streamed_bytes band {band}", enc,
+                       lambda: st.encode_gray_streamed_bytes(p, gray, cfg, band_rows=band, device=dev)[0],
+                       2 * gband, half)
+        g = out["g"]
+        out["full"] = run(f"{gl} decode_gray_streamed", dec,
+                          lambda: st.decode_gray_streamed(p, g, band_rows=band, device=dev), 2 * gband, half)
+        out["s2"] = run(f"{gl} decode_gray_streamed scale_m=2", {"hp_scaled_decode_u8": nb},
+                        lambda: st.decode_gray_streamed(p, g, band_rows=band, scale_m=2, device=dev),
+                        gband + gband // 16, half)
+        out["p4"] = run(f"{gl} decode_gray_streamed n_planes=4", dec,
+                        lambda: st.decode_gray_streamed(p, g, band_rows=band, n_planes=4, device=dev),
+                        2 * gband, half)
+        out["roi"] = run(f"{gl} decode_gray_streamed row_range={roi}", {"hp_decode_u8": n_roi},
+                         lambda: st.decode_gray_streamed(p, g, band_rows=band, row_range=roi, device=dev),
+                         2 * gband, half)
+        out["npy"] = run(f"{gl} decode_gray_streamed out_npy", dec,
+                         lambda: st.decode_gray_streamed(p, g, band_rows=band, out_npy=f["o.npy"], device=dev),
+                         2 * gband, half)
+        out["rt"] = run(f"{gl} roundtrip_u8_streamed band {STREAM_RT_BAND}",
+                        {"hp_roundtrip_u8": side // STREAM_RT_BAND},
+                        lambda: st.roundtrip_u8_streamed(p, gray, cfg, band_rows=STREAM_RT_BAND, device=dev),
+                        3 * STREAM_RT_BAND * side)
+        out["dct"] = run(f"{cl} decode_gray_streamed, an off-int8 stream (transform dct)", {"hp_idct": ncb},
+                         lambda: st.decode_gray_streamed(p, dct_stream, band_rows=band, device=dev),
+                         5 * cband)
+        for mode in ("420", "444"):
+            sub = False if mode == "444" else mode
+            cs = run(f"{cl} RGB encode_color_streamed_bytes {mode} band {band}", cenc(mode, ncb),
+                     lambda: st.encode_color_streamed_bytes(p, rgb, cfg, band_rows=band, subsample=sub,
+                                                            device=dev)[0], 6 * cband)
+            out[f"c{mode}"] = cs
+            out[f"cd{mode}"] = run(f"{cl} RGB decode_color_streamed {mode}", cdec(mode, ncb),
+                                   lambda: st.decode_color_streamed(p, cs, band_rows=band, device=dev), 6 * cband)
+        for mode in ("420", "422"):
+            cs = run(f"{cam} encode_color_streamed_bytes {mode} band {band}", cenc(mode, cam_bands),
+                     lambda: st.encode_color_streamed_bytes(p, rgb_cam, cfg, band_rows=band, subsample=mode,
+                                                            device=dev)[0], 6 * band * COLOR_FRAME[1])
+            out[f"cam{mode}"] = cs
+            out[f"camd{mode}"] = run(f"{cam} decode_color_streamed {mode}", cdec(mode, cam_bands),
+                                     lambda: st.decode_color_streamed(p, cs, band_rows=band, device=dev),
+                                     6 * band * COLOR_FRAME[1])
+        run(f"{gl} cli encode --band-rows {band}", enc,
+            lambda: _cli(cli, ["encode", "--band-rows", str(band), f["gray.npy"], f["g.tdc"]], card),
+            2 * gband, half)
+        run(f"{gl} cli decode --band-rows {band}", dec,
+            lambda: _cli(cli, ["decode", "--band-rows", str(band), f["g.tdc"], f["g.npy"]], card),
+            2 * gband, half)
+        out["sh"] = run(f"{cl} roundtrip_u8_streamed_sharded band {band} over 4 virtual ranks",
+                        {"hp_roundtrip_u8": 4 * -(-cside // max(128, band - band % 128))},
+                        lambda: st.roundtrip_u8_streamed_sharded(p, img8, mesh, cfg, band_rows=band), 3 * cband)
+        sc = P.shard_image(c8k, mesh)
+        splanes = {k: P.shard_image(v.contiguous(), mesh) for k, v in cplanes.items()}
+        run(f"{cl} save_sharded over 4 virtual ranks", {},
+            lambda: P.save_sharded(os.path.join(tmp, "sh.tdc"), sc, orig_shape=img8.shape), 0)
+        run(f"{cl} RGB save_color_sharded over 4 virtual ranks", {},
+            lambda: P.save_color_sharded(os.path.join(tmp, "sh.tdcc"), splanes, cmeta), 0)
+        launches = counts()
+        print(f"  streamed path: {time.perf_counter() - t0:.1f} s for the streamed calls; launches:",
+              json.dumps(launches))
+        # the checks (their launches come after the counts were read)
+        files = {k: open(os.path.join(tmp, k), "rb").read() for k in ("g.tdc", "sh.tdc", "sh.tdcc")}
+        npy_cli, npy_lib = np.load(f["g.npy"]), np.load(f["o.npy"])
+    _check_streamed(p, cfg, dev, gray, rgb, rgb_cam, img8, out, files, npy_cli, npy_lib, roi, c_dct, c8k,
+                    cplanes, cmeta, card)
+    _print_streamed(stats, gray.nbytes, card)
+    _inmemory_baselines(p, cfg, dev, gray, rgb, out["g"], out["c420"], card)
+    return launches
+
+
+def _cli(cli, argv: list, card: str) -> None:
+    """tpudct_torch.cli.main(argv) in process; its output printed after."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    for line in buf.getvalue().splitlines():
+        print(f"    {line}" + (f" [{card}]" if line.startswith("{") else ""))
+    if rc != 0:
+        _fail(f"cli {argv}: exit code {rc}")
+
+
+def _check_streamed(p, cfg, dev, gray, rgb, rgb_cam, img8, out, files, npy_cli, npy_lib, roi, c_dct, c8k,
+                    cplanes, cmeta, card: str) -> None:
+    """Every streamed output against the in-memory path on the card."""
+    from tpudct_torch import CodecConfig
+    from tpudct_torch.models import color as mc
+    from tpudct_torch.models.dispatch import decode_gray_auto, decode_gray_scaled_auto, encode_gray_auto
+    from tpudct_torch.utils import serialize
+
+    side, band, cside = STREAM_SIDE, STREAM_BAND, STREAM_COLOR
+    gl, cl, cam = f"{side}^2", f"{cside}^2", "x".join(map(str, COLOR_FRAME))
+
+    def same(label, got, want):
+        if not np.array_equal(got, want):
+            _fail(f"{label}: differs from the in-memory path")
+        print(f"  {label}: equal to the in-memory path")
+
+    c, shape = encode_gray_auto(p, gray, cfg, device=dev)
+    c = c.cpu().numpy()
+    want = serialize.coefficients_to_bytes(c, orig_shape=shape, codec=f"banded:{side // band}")
+    if serialize.banded_rows(side, side // band) != [band] * (side // band):
+        _fail("banded_rows does not split the gray frame into the streamed bands")
+    same(f"{gl} streamed .tdc bytes ({len(out['g'])}) = coefficients_to_bytes(encode_gray_auto, banded:8)",
+         np.frombuffer(out["g"], np.uint8), np.frombuffer(want, np.uint8))
+    same(f"{gl} cli encode --band-rows file", np.frombuffer(files["g.tdc"], np.uint8), np.frombuffer(want, np.uint8))
+    full = decode_gray_auto(p, c, cfg, shape, device=dev)
+    same(f"{gl} decode_gray_streamed = decode_gray_auto", out["full"], full)
+    same(f"{gl} decode_gray_streamed out_npy = decode_gray_auto", npy_lib, full)
+    same(f"{gl} cli decode --band-rows = decode_gray_auto", npy_cli, full)
+    same(f"{gl} scale_m=2 = decode_gray_scaled_auto", out["s2"], decode_gray_scaled_auto(p, c, cfg, shape, 2, device=dev))
+    same(f"{gl} n_planes=4 = decode_gray_auto of the 4-plane map", out["p4"],
+         decode_gray_auto(p, serialize._zero_high_planes(c.copy(), 4), cfg, shape, device=dev))
+    a, b = roi
+    a8, b8 = a - a % 8, -(-b // 8) * 8
+    same(f"{gl} row_range={roi} = decode_gray_auto of rows {a8}:{b8}", out["roi"],
+         decode_gray_auto(p, c[a8:b8], cfg, (b8 - a8, shape[1]), device=dev)[a - a8 : b - a8])
+    mc8, mr8 = p.roundtrip_u8(torch.as_tensor(gray, device=dev), cfg)
+    same(f"{gl} roundtrip_u8_streamed coefficients = roundtrip_u8", out["rt"][0], mc8.cpu().numpy())
+    same(f"{gl} roundtrip_u8_streamed reconstruction = roundtrip_u8", out["rt"][1], mr8.cpu().numpy())
+    del mc8, mr8
+    dct_cfg = CodecConfig(transform="dct")
+    same(f"{cl} off-int8 stream = decode_gray_auto", out["dct"],
+         decode_gray_auto(p, c_dct, dct_cfg, img8.shape))
+    for mode, img, label, n in (("420", rgb, f"{cl} RGB", cside // band), ("444", rgb, f"{cl} RGB", cside // band),
+                                ("420", rgb_cam, cam, None), ("422", rgb_cam, cam, None)):
+        key = ("c" if img is rgb else "cam") + mode
+        sub = False if mode == "444" else mode
+        planes, meta = mc.encode_color_u8(p, img, cfg, subsample=sub, device=dev)
+        planes = {k: v.cpu().numpy() for k, v in planes.items()}
+        if n is not None:
+            cwant = serialize.color_to_bytes(planes, meta, codec=f"banded:{n}")
+            same(f"{label} {mode} streamed .tdcc bytes ({len(out[key])}) = color_to_bytes(encode_color_u8, "
+                 f"banded:{n})", np.frombuffer(out[key], np.uint8), np.frombuffer(cwant, np.uint8))
+        else:
+            back, _m = serialize.bytes_to_color(out[key])
+            same(f"{label} {mode} streamed .tdcc planes = encode_color_u8's",
+                 np.concatenate([back[k].ravel() for k in back]), np.concatenate([planes[k].ravel() for k in back]))
+        same(f"{label} {mode} decode_color_streamed = decode_color_auto",
+             out[("cd" if img is rgb else "camd") + mode],
+             mc.decode_color_auto(p, planes, meta, cfg, device=dev).cpu().numpy())
+    mc8, mr8 = p.roundtrip_u8(torch.as_tensor(img8, device=dev), cfg)
+    same(f"{cl} roundtrip_u8_streamed_sharded (4 virtual ranks) = roundtrip_u8",
+         np.concatenate([out["sh"][0].ravel(), out["sh"][1].ravel()]),
+         np.concatenate([mc8.cpu().numpy().ravel(), mr8.cpu().numpy().ravel()]))
+    c8 = c8k.cpu().numpy()
+    same(f"{cl} save_sharded bytes = coefficients_to_bytes(banded:4)", np.frombuffer(files["sh.tdc"], np.uint8),
+         np.frombuffer(serialize.coefficients_to_bytes(c8, orig_shape=img8.shape, codec="banded:4"), np.uint8))
+    hplanes = {k: v.cpu().numpy() for k, v in cplanes.items()}
+    same(f"{cl} RGB save_color_sharded bytes = color_to_bytes(banded:4)", np.frombuffer(files["sh.tdcc"], np.uint8),
+         np.frombuffer(serialize.color_to_bytes(hplanes, cmeta, codec="banded:4"), np.uint8))
+
+
+def _print_streamed(stats, image_bytes: int, card: str) -> None:
+    """Each streamed call's host wall and its split, device busy share and
+    peak device memory beside one band's bytes."""
+    mb = 1 / 2**20
+    for label, wall, peak, resv, band_bytes, sec in stats:
+        split = ", ".join(f"{k} {sec.get(k, 0.0) * 1e3:.1f}" for k in
+                          ("stage", "h2d", "kernels", "d2h", "wait", "finish", "entropy"))
+        busy = sec.get("device_busy", 0.0)
+        print(f"  {label}: wall {wall * 1e3:.1f} ms (ms: {split}); device busy {busy * 1e3:.1f} ms = "
+              f"{busy / wall:.1%} of the wall; peak device memory {peak * mb:.1f} MiB allocated, "
+              f"{resv * mb:.1f} MiB reserved, one band's bytes {band_bytes * mb:.1f} MiB, the gray image "
+              f"{image_bytes * mb:.1f} MiB [{card}]")
+
+
+def _inmemory_baselines(p, cfg, dev, gray, rgb, g_stream, c_stream, card: str) -> None:
+    """The in-memory calls that return numpy (pageable host copies), with
+    their walls and peaks: the streamed calls' baseline."""
+    from tpudct_torch.models import color as mc
+    from tpudct_torch.models.dispatch import decode_gray_auto, encode_gray_auto
+    from tpudct_torch.utils import serialize
+
+    mb = 1 / 2**20
+    shape = gray.shape
+    (c, _), w_enc, pk_enc, _r = _memory_peak(lambda: encode_gray_auto(p, gray, cfg, device=dev))
+    c_np, w_fetch, _pk, _r = _memory_peak(lambda: c.cpu().numpy())
+    del c
+    t0 = time.perf_counter()
+    serialize.coefficients_to_bytes(c_np, orig_shape=shape, codec=f"banded:{STREAM_SIDE // STREAM_BAND}")
+    t_ent = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c_back = serialize.bytes_to_coefficients(g_stream)[0]
+    t_dent = time.perf_counter() - t0
+    _rec, w_dec, pk_dec, _r = _memory_peak(lambda: decode_gray_auto(p, c_back, cfg, shape, device=dev))
+    print(f"  in-memory {STREAM_SIDE}^2: encode_gray_auto {w_enc * 1e3:.1f} ms (peak {pk_enc * mb:.1f} MiB) + "
+          f".cpu() of the coefficients {w_fetch * 1e3:.1f} ms + coefficients_to_bytes banded:8 "
+          f"{t_ent * 1e3:.1f} ms; bytes_to_coefficients {t_dent * 1e3:.1f} ms + decode_gray_auto "
+          f"(from host, to numpy) {w_dec * 1e3:.1f} ms (peak {pk_dec * mb:.1f} MiB) [{card}]")
+    (planes, meta), w_cenc, pk_cenc, _r = _memory_peak(lambda: mc.encode_color_u8(p, rgb, cfg, device=dev))
+    hplanes, w_cf, _pk, _r = _memory_peak(lambda: {k: v.cpu().numpy() for k, v in planes.items()})
+    del planes
+    t0 = time.perf_counter()
+    back, bmeta = serialize.bytes_to_color(c_stream)
+    t_cd = time.perf_counter() - t0
+    _rec, w_cdec, pk_cdec, _r = _memory_peak(
+        lambda: mc.decode_color_auto(p, back, bmeta, cfg, device=dev).cpu().numpy())
+    print(f"  in-memory {STREAM_COLOR}^2 RGB 420: encode_color_u8 {w_cenc * 1e3:.1f} ms (peak "
+          f"{pk_cenc * mb:.1f} MiB) + .cpu() of the planes {w_cf * 1e3:.1f} ms; bytes_to_color {t_cd * 1e3:.1f} ms "
+          f"+ decode_color_auto to numpy {w_cdec * 1e3:.1f} ms (peak {pk_cdec * mb:.1f} MiB) [{card}]")
+
+
 def _entropy_stages(c: np.ndarray, card: str) -> None:
     """Every --entropy stage on one map: written, then parsed back to the
     same map by the native decoders and by the pure-Python ones."""
@@ -2281,6 +2591,7 @@ def main() -> int:
                                              phase_study_path)]
     runs.append(timed(phase_measurement_path, dev, card))
     runs.append(timed(phase_file_path, dev, card))
+    runs.append(timed(phase_streamed_path, dev, card))
     times = timed(phase_timing, dev, card)
     kernels = []
     for name, (src, replaces, _bpp, _ops) in KERNELS.items():

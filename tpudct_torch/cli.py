@@ -17,10 +17,17 @@ cpu`` runs the kernels' plain twins on the CPU.  Without a card and without
 ``--device``, a verb that needs the device raises; nothing falls back to
 the CPU unasked.
 
-Not ported yet (each raises a ValueError that says so): the streamed
-branches (``--band-rows``, and images or streams above 2^32 pixels; ROADMAP
-A.9), ``.jpg`` decode inputs (the lossless coefficient import; ROADMAP
-A.4a(ii)), and the reference's other verbs.
+``--band-rows N`` on encode and decode is the streamed band height: the
+image rides the card N rows at a time through pinned, double-buffered
+staging (``utils/streaming.py``), each band entropy-coding into its own
+segment of a banded stream, and every decode mode streams too.  Images and
+streams above ``streaming.STREAM_PIXELS`` (2^32 pixels) stream without the
+flag.  (``CodecConfig.band_rows`` is another thing: an inert field kept for
+the reference's config surface.)
+
+Not ported yet (each raises a ValueError that says so): ``.jpg`` decode
+inputs (the lossless coefficient import; ROADMAP A.4a(ii)), and the
+reference's other verbs.
 """
 
 from __future__ import annotations
@@ -31,18 +38,6 @@ import sys
 import time
 
 import numpy as np
-
-# Images and streams above this many pixels take the reference's streamed
-# paths (``tpudct/utils/streaming.py``), which wait for ROADMAP A.9.
-STREAM_PIXELS = 1 << 32
-
-
-def _not_streamed(what: str) -> ValueError:
-    return ValueError(
-        f"{what} takes the streamed path (--band-rows, or above 2^32 pixels), "
-        "which tpudct_torch does not have yet (ROADMAP A.9)"
-    )
-
 
 def _np(x) -> np.ndarray:
     """A tensor's values on the host; a numpy array as it is."""
@@ -129,6 +124,18 @@ def _entropy_spec(v: str) -> str:
         f"unknown entropy stage {v!r}; use one of {_ENTROPY_STAGES} or "
         "banded[:N[:inner]]"
     )
+
+
+def _stream_inner(entropy: str) -> str:
+    """The per-segment inner stage for the streamed writers: banded specs
+    reduce to their inner (the writers band by themselves; a full banded
+    spec would nest).  An explicit :N is ignored here: the band split comes
+    from --band-rows or the auto threshold."""
+    if entropy == "banded" or entropy.startswith("banded:"):
+        from tpudct_torch.utils.serialize import _parse_banded_spec
+
+        return _parse_banded_spec(entropy)[1]
+    return entropy
 
 
 def _add_device_flag(sp):
@@ -288,7 +295,7 @@ def cmd_encode(args) -> int:
     coefficients to the host."""
     from tpudct_torch.models import get_pipeline
     from tpudct_torch.models.dispatch import default_device
-    from tpudct_torch.utils import serialize
+    from tpudct_torch.utils import serialize, streaming
 
     cfg = _cfg_from(args)
     dev = default_device(args.device)
@@ -297,8 +304,41 @@ def cmd_encode(args) -> int:
 
         t0 = time.perf_counter()
         rgb = _load_rgb(args.input)
-        if args.band_rows is not None or rgb.size > STREAM_PIXELS:
-            raise _not_streamed(f"color encode of {args.input}")
+        if args.band_rows is not None:
+            stream_color = True  # explicit ask: unsupported configs error clearly
+        elif rgb.size > streaming.STREAM_PIXELS:
+            # auto threshold: only where the u8 streamed encoder supports
+            # this config; another (f32 transform, loose q_scale) takes the
+            # in-memory f32 path instead of turning into an error
+            from tpudct_torch.models.color import color_kernel_shape, supports_color_u8
+
+            stream_color = supports_color_u8(
+                get_pipeline(args.pipeline), cfg,
+                *color_kernel_shape(*rgb.shape[:2]), _chroma_mode(args),
+            )
+        else:
+            stream_color = False
+        if stream_color:
+            # RGB bands ride the card one at a time, each plane's slab
+            # entropy-coding into banded segments
+            t1 = time.perf_counter()
+            data, _hw = streaming.encode_color_streamed_bytes(
+                get_pipeline(args.pipeline), rgb, cfg,
+                band_rows=args.band_rows or 8192, inner=_stream_inner(args.entropy),
+                subsample=_chroma_mode(args), device=dev,
+            )
+            t2 = time.perf_counter()
+            with open(args.output, "wb") as f:
+                f.write(data)
+            t3 = time.perf_counter()
+            print(json.dumps({
+                "bytes": len(data), "raw_bytes": int(rgb.size),
+                "factor_vs_raw": rgb.size / len(data), "color": True,
+                "streamed": True,
+                "ms": {"load": _ms(t0, t1), "stream_device_entropy": _ms(t1, t2),
+                       "write": _ms(t2, t3)},
+            }))
+            return 0
         t1 = time.perf_counter()
         planes, meta = encode_color_auto(
             get_pipeline(args.pipeline), rgb, cfg,
@@ -324,8 +364,25 @@ def cmd_encode(args) -> int:
     t0 = time.perf_counter()
     img = _load_gray(args.input)
     t1 = time.perf_counter()
-    if args.band_rows is not None or img.size > STREAM_PIXELS:
-        raise _not_streamed(f"encode of {args.input}")
+    if args.band_rows is not None or img.size > streaming.STREAM_PIXELS:
+        # the image rides the card band by band, each band entropy-coded
+        # into a banded segment; device and entropy phases overlap, so the
+        # record reports the fused stream phase
+        data, _hw = streaming.encode_gray_streamed_bytes(
+            get_pipeline(args.pipeline), img, cfg,
+            band_rows=args.band_rows or 8192, inner=_stream_inner(args.entropy), device=dev,
+        )
+        t2 = time.perf_counter()
+        with open(args.output, "wb") as f:
+            f.write(data)
+        t3 = time.perf_counter()
+        print(json.dumps({
+            "bytes": len(data), "raw_bytes": img.size,
+            "factor_vs_raw": img.size / len(data), "streamed": True,
+            "ms": {"load": _ms(t0, t1), "stream_device_entropy": _ms(t1, t2),
+                   "write": _ms(t2, t3)},
+        }))
+        return 0
     from tpudct_torch.models.dispatch import encode_gray_auto
 
     c, (h, w) = encode_gray_auto(get_pipeline(args.pipeline), img, cfg, device=dev)
@@ -397,11 +454,16 @@ def cmd_decode(args) -> int:
 
 
 def _decode_stream(args, path: str) -> int:
-    """Decode the .tdc/.tdcc stream at `path` in memory.  A non-stream
-    file fails with a format hint instead of a parser traceback."""
+    """Decode the .tdc/.tdcc stream at `path`.  A non-stream file fails
+    with a format hint instead of a parser traceback.
+
+    Every decode mode streams (``utils/streaming.py``) where asked
+    (``--band-rows``) or where the container exceeds
+    ``streaming.STREAM_PIXELS``; a ``.npy`` output is then written band by
+    band through a memmap, bounding the host's output residency too."""
     from tpudct_torch.config import CodecConfig
     from tpudct_torch.models import get_pipeline
-    from tpudct_torch.utils import imageio, serialize
+    from tpudct_torch.utils import imageio, serialize, streaming
 
     with open(path, "rb") as f:
         data = f.read()
@@ -419,11 +481,17 @@ def _decode_stream(args, path: str) -> int:
     else:
         hdr0 = serialize._parse_plane_header(data)
         n_px = hdr0[0] * hdr0[1]
-    if args.band_rows is not None or n_px > STREAM_PIXELS:
-        raise _not_streamed(f"decode of {path}")
+    stream = args.band_rows is not None or n_px > streaming.STREAM_PIXELS
+    s_band = args.band_rows or 8192
+    out_npy = args.output if args.output.lower().endswith(".npy") else None
 
     def save(rec) -> None:
-        imageio.save_image(args.output, _np(rec), quality=args.quality)
+        """Write the decoded raster: a memmap output is on disk already
+        (flushed), anything else goes through the image writer."""
+        if isinstance(rec, np.memmap):
+            rec.flush()
+        else:
+            imageio.save_image(args.output, _np(rec), quality=args.quality)
 
     def pipe():
         return get_pipeline(args.pipeline)
@@ -441,6 +509,21 @@ def _decode_stream(args, path: str) -> int:
             raise ValueError("--scale does not combine with --planes/--rows/--preview")
         m = _parse_scale(args.scale)
         fac = 8 // m if 8 % m == 0 else None
+        if stream:
+            # the fused scaled kernel rides band by band into the
+            # (ceil(H*M/8), ...) raster
+            if color and not args.grayscale:
+                rec = streaming.decode_color_streamed(
+                    pipe(), data, band_rows=s_band, scale_m=m, out_npy=out_npy, device=dev(),
+                )
+            else:
+                rec = streaming.decode_gray_streamed(
+                    pipe(), _luma_blob(data) if color else data, band_rows=s_band,
+                    scale_m=m, out_npy=out_npy, device=dev(),
+                )
+            save(rec)
+            print(f"decoded {path} at {m}/8 scale (streamed) -> {args.output}")
+            return 0
         if color:
             from tpudct_torch.models.color import _luma_cfg, decode_color_scaled
 
@@ -486,6 +569,23 @@ def _decode_stream(args, path: str) -> int:
     if args.planes is not None:
         from tpudct_torch.models.dispatch import decode_gray_auto
 
+        if stream:
+            # only the first N zig-zag planes decode per banded segment
+            # (spectral prefix where the inner stage allows, decode+mask
+            # otherwise), device work in bounded bands
+            if color and not args.grayscale:
+                rec = streaming.decode_color_streamed(
+                    pipe(), data, band_rows=s_band, n_planes=args.planes, out_npy=out_npy,
+                    device=dev(),
+                )
+            else:
+                rec = streaming.decode_gray_streamed(
+                    pipe(), _luma_blob(data) if color else data, band_rows=s_band,
+                    n_planes=args.planes, out_npy=out_npy, device=dev(),
+                )
+            save(rec)
+            print(f"decoded {path} ({args.planes} spectral planes, streamed) -> {args.output}")
+            return 0
         if color and not args.grayscale:
             # Progressive color decode: the first N spectral planes of each
             # plane stream (the f32 path; partial maps are f32).
@@ -514,6 +614,8 @@ def _decode_stream(args, path: str) -> int:
         which = ", luma only" if color else ""
         print(f"decoded {path} ({args.planes} spectral planes{which}) -> {args.output}")
         return 0
+    if stream:
+        return _decode_streamed(args, path, data, color, s_band, out_npy, pipe, dev, save)
     if color:
         return _decode_color_full(args, path, data, pipe, dev, save)
     t0 = time.perf_counter()
@@ -551,6 +653,39 @@ def _decode_stream(args, path: str) -> int:
         "device_fetch": _ms(t1, t2),
         "save": _ms(t2, t3),
     }}))
+    return 0
+
+
+def _decode_streamed(args, path, data, color, s_band, out_npy, pipe, dev, save) -> int:
+    """The streamed full decode, whole or as rows (``--rows``), of a .tdc,
+    a .tdcc or its luma plane alone (``--grayscale``): only the segments
+    covering the rows entropy-decode, and neither the coefficient map nor
+    the device working set holds the whole image."""
+    from tpudct_torch.utils import streaming
+
+    t0 = time.perf_counter()
+    rows = _parse_rows(args.rows) if args.rows is not None else None
+    if color and not args.grayscale:
+        rec = streaming.decode_color_streamed(
+            pipe(), data, band_rows=s_band, row_range=rows, out_npy=out_npy, device=dev(),
+        )
+    else:
+        rec = streaming.decode_gray_streamed(
+            pipe(), _luma_blob(data) if color else data, band_rows=s_band,
+            row_range=rows, out_npy=out_npy, device=dev(),
+        )
+    t1 = time.perf_counter()
+    save(rec)
+    t2 = time.perf_counter()
+    if rows is not None:
+        print(f"decoded rows {rows[0]}:{rows[1]} of {path} (streamed) -> {args.output}")
+    elif color and args.grayscale:
+        print(f"decoded {path} (luma only, streamed) -> {args.output}")
+    elif color:
+        print(f"decoded {path} (color, streamed) -> {args.output}")
+        print(json.dumps({"ms": {"entropy_device": _ms(t0, t1), "save": _ms(t1, t2)}}))
+    else:
+        print(f"decoded {path} (streamed) -> {args.output}")
     return 0
 
 
@@ -666,7 +801,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("input")
     sp.add_argument("output")
     sp.add_argument("--band-rows", type=int, default=None, dest="band_rows",
-                    help="stream the encode in host bands of N rows (not in tpudct_torch yet: raises)")
+                    help="stream the encode in host bands of N rows (bounded device memory; writes a banded stream); images above 2^32 pixels stream without it")
     _add_color_flags(sp)
     sp.set_defaults(fn=cmd_encode)
 
@@ -684,7 +819,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--grayscale", action="store_true",
                     help="decode a color stream luma-only (djpeg -grayscale): the chroma planes never decode; composes with --scale, --rows, --planes and --preview")
     sp.add_argument("--band-rows", type=int, default=None, dest="band_rows",
-                    help="stream the decode in device bands of N rows (not in tpudct_torch yet: raises)")
+                    help="stream the decode in device bands of N rows (bounded device memory; every mode; a .npy output is written band by band); streams above 2^32 pixels stream without it")
     _add_device_flag(sp)
     sp.add_argument("input")
     sp.add_argument("output")

@@ -36,6 +36,9 @@ class CodecConfig:
         (f32 inverse on the literal T) or "high" (the reference's bf16x3
         tier; here the "highest" body).
       band_rows, tile_cols: inert (Pallas tile geometry in the reference).
+        Not the streamed band height: that is the ``band_rows`` argument
+        of ``utils/streaming.py``'s functions and the CLI's
+        ``--band-rows``, which are live.
     """
 
     transform: str = "haweel"

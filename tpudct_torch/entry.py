@@ -41,18 +41,29 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     ``devices=["cpu"] * n`` runs the plain twins on the CPU.  In the
     reference's order: the sharded codec step, the color step, the serving
     step, the decode ring and the color decode ring, the grid codec and grid
-    color steps (n >= 4), the scaled decode at factor 2, and ``sharded_idct``
-    on the full coefficient map.  The reference's ``sharded_idct`` decodes a
-    progressive map built by ``serialize.partial_coefficients``, and its
-    streamed and serialized steps follow; those wait for the port's
-    serialize and streaming layers."""
+    color steps (n >= 4), the scaled decode at factor 2, ``sharded_idct`` on
+    the full coefficient map and on the progressive map of its spectral
+    blob (``serialize.partial_coefficients``, 4 planes), the streamed
+    sharded roundtrip (three host bands, each sharded over the ranks) held
+    against the whole-image ``roundtrip_u8``, ``save_sharded`` and
+    ``save_color_sharded`` held against the single-host banded writer (and
+    read back), and the streamed color codec held against the in-memory
+    color pass.  The streamed steps run on the first rank's device."""
+    import os
+    import tempfile
+
     from tpudct_torch.kernels.hp import hp_encode_u8
-    from tpudct_torch.models.color import roundtrip_color_u8
+    from tpudct_torch.models.color import decode_color_auto, encode_color_u8, roundtrip_color_u8
     from tpudct_torch.parallel import (
-        band_mesh, chroma_band_pack, grid_mesh, ring_decode_color_gather, ring_decode_gather,
-        shard_batch, shard_image, shard_image_grid, shard_rgb, shard_rgb_grid, sharded_codec_step,
-        sharded_codec_step_grid, sharded_color_step, sharded_color_step_grid, sharded_idct,
-        sharded_scaled_decode, sharded_serving_step,
+        band_mesh, chroma_band_pack, gather, grid_mesh, ring_decode_color_gather, ring_decode_gather,
+        save_color_sharded, save_sharded, shard_batch, shard_image, shard_image_grid, shard_rgb,
+        shard_rgb_grid, sharded_codec_step, sharded_codec_step_grid, sharded_color_encode,
+        sharded_color_step, sharded_color_step_grid, sharded_idct, sharded_scaled_decode,
+        sharded_serving_step,
+    )
+    from tpudct_torch.utils import serialize
+    from tpudct_torch.utils.streaming import (
+        decode_color_streamed, encode_color_streamed_bytes, roundtrip_u8_streamed_sharded,
     )
 
     def noise(seed, shape, dtype=np.uint8):
@@ -71,7 +82,8 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     check(coeffs.shape == (h, w) and recon.shape == (h, w) and float(m["mse"]) >= 0.0, "codec step")
 
     ch = 16 * n_devices
-    crec, cm = sharded_color_step(p, cfg, mesh)(shard_rgb(noise(2, (3, ch, 128)), mesh))
+    rgb_in = noise(2, (3, ch, 128))
+    crec, cm = sharded_color_step(p, cfg, mesh)(shard_rgb(rgb_in, mesh))
     check(crec.shape == (3, ch, 128) and float(cm["mse"]) >= 0.0, "color step")
 
     bb = 2 * n_devices
@@ -105,3 +117,45 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     check(half.shape == (h // 2, w // 2), "scaled decode")
     full = sharded_idct(p, cfg, mesh)(coeffs)
     check(full.shape == (h, w), "sharded idct")
+    coeffs_np = gather(coeffs)
+    partial = serialize.partial_coefficients(serialize.coefficients_to_bytes(coeffs_np, codec="spectral"), 4)
+    prec = sharded_idct(p, cfg, mesh)(shard_image(partial["coeffs"], mesh))
+    check(prec.shape == (h, w), "progressive sharded idct")
+
+    sh = 32 * n_devices * 3  # three host bands at band_rows = 32 n
+    simg = noise(7, (sh, 128))
+    sc, sr = roundtrip_u8_streamed_sharded(p, simg, mesh, cfg, band_rows=32 * n_devices)
+    mc, mr = p.roundtrip_u8(torch.as_tensor(simg, device=dev0), cfg)
+    check(np.array_equal(sc, mc.cpu().numpy()) and np.array_equal(sr, mr.cpu().numpy()),
+          "streamed sharded roundtrip differs from the whole-image pass")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tdc, tdcc = os.path.join(tmp, "c.tdc"), os.path.join(tmp, "c.tdcc")
+        save_sharded(tdc, coeffs, cfg.q_scale, cfg.retain_k, orig_shape=(h, w))
+        with open(tdc, "rb") as f:
+            data = f.read()
+        ref = serialize.coefficients_to_bytes(
+            coeffs_np, q_scale=cfg.q_scale, retain_k=cfg.retain_k, orig_shape=(h, w),
+            codec=f"banded:{n_devices}",
+        )
+        check(data == ref, "save_sharded differs from the single-host banded writer")
+        check(np.array_equal(serialize.bytes_to_coefficients(data)[0], coeffs_np), "save_sharded read back")
+        cenc, cmeta_fn = sharded_color_encode(p, cfg, mesh)
+        cplanes = dict(zip(("y", "cb", "cr"), cenc(shard_rgb(rgb_in, mesh))))
+        cmeta = cmeta_fn(ch, 128)
+        save_color_sharded(tdcc, cplanes, cmeta, cfg.q_scale, cfg.retain_k)
+        with open(tdcc, "rb") as f:
+            cdata = f.read()
+        host = {k: gather(v) for k, v in cplanes.items()}
+        cref = serialize.color_to_bytes(host, cmeta, cfg.q_scale, cfg.retain_k, cfg.transform,
+                                        codec=f"banded:{n_devices}")
+        check(cdata == cref, "save_color_sharded differs from the single-host banded writer")
+        back, back_meta = serialize.bytes_to_color(cdata)
+        check(back_meta["orig_shape"] == (ch, 128)
+              and all(np.array_equal(back[k], host[k]) for k in host), "save_color_sharded read back")
+
+    sdata, _hw = encode_color_streamed_bytes(p, rgb_in, cfg, band_rows=64, device=dev0)
+    pl_ref, meta_ref = encode_color_u8(p, rgb_in, cfg, device=dev0)
+    rec_ref = decode_color_auto(p, pl_ref, meta_ref, cfg).cpu().numpy()
+    check(np.array_equal(decode_color_streamed(p, sdata, band_rows=64, device=dev0), rec_ref),
+          "streamed color decode differs from the in-memory pass")

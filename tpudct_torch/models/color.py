@@ -376,13 +376,20 @@ def decode_color_u8(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig, dev
     hk, wk = color_kernel_shape(h, w)
     chk, cwk = _chroma_plane_shape(mode, hk, wk)  # exact: hk, wk are aligned
     pl = {k: _tensor(planes[k], device).to(torch.int8) for k in PLANES}
-    y = p.decode_u8(_zero_pad(pl["y"], hk, wk), _luma_cfg(cfg))
-    cc = p.decode_u8(
-        torch.cat([_zero_pad(pl["cb"], chk, cwk), _zero_pad(pl["cr"], chk, cwk)], dim=0),
-        _chroma_cfg(cfg),
-    )
+    cc = torch.cat([_zero_pad(pl["cb"], chk, cwk), _zero_pad(pl["cr"], chk, cwk)], dim=0)
+    return _decode_u8_padded(p, _zero_pad(pl["y"], hk, wk), cc, cfg, mode).movedim(0, -1)[:h, :w]
+
+
+def _decode_u8_padded(p: Pipeline, y_i8: torch.Tensor, cc_i8: torch.Tensor, cfg: CodecConfig,
+                      mode) -> torch.Tensor:
+    """The u8 decode of int8 planes at the kernel grid: the luma plane and
+    the stacked chroma (cb over cr) -> (3, H, W) planar uint8 RGB (two
+    ``hp_decode_u8`` launches and one merge)."""
+    y = p.decode_u8(y_i8, _luma_cfg(cfg))
+    cc = p.decode_u8(cc_i8, _chroma_cfg(cfg))
+    chk = cc.shape[0] // 2
     _split, merge = _u8_kernels(mode)
-    return merge(y, cc[:chk], cc[chk:]).movedim(0, -1)[:h, :w]
+    return merge(y, cc[:chk], cc[chk:])
 
 
 def roundtrip_color_u8(p: Pipeline, rgb_u8, cfg: CodecConfig, subsample=True, device=None):

@@ -195,6 +195,34 @@ def _scaled_u8_align(p: Pipeline, coeffs, cfg: CodecConfig, fac: int):
     return None
 
 
+def _scaled_plan(p: Pipeline, coeffs, cfg: CodecConfig, m: int) -> tuple:
+    """How a quantized map (array or tensor) takes the M/8 scaled decode:
+    ``("m8", None)`` for the area-resample einsum (8 % M != 0), ``("u8",
+    (row, lane) padding)`` for the u8 scaled decode at 8/M, ``("f32",
+    None)`` for the f32 scaled decode."""
+    if 8 % m:
+        return "m8", None
+    align = _scaled_u8_align(p, coeffs, cfg, 8 // m)
+    return ("u8", align) if align is not None else ("f32", None)
+
+
+def _decode_scaled(p: Pipeline, plan: tuple, coeffs: torch.Tensor, cfg: CodecConfig,
+                   m: int) -> torch.Tensor:
+    """The uncropped uint8 M/8 decode of a map by its :func:`_scaled_plan`
+    (the ``"u8"`` plan takes the map zero-padded to its alignment or
+    unpadded)."""
+    from tpudct_torch.ops.scaled import scaled_decode, scaled_decode_m8, scaled_decode_u8
+
+    kind, align = plan
+    if kind == "m8":
+        return to_uint8(scaled_decode_m8(coeffs, cfg, m))
+    if kind == "u8":
+        cpad, _ = pad_coeffs_to_kernel(coeffs.to(torch.int8), *align)
+        # out_u8: the truncation rides the kernel's epilogue
+        return scaled_decode_u8(p, cpad, cfg, 8 // m, out_u8=True)
+    return to_uint8(scaled_decode(coeffs, cfg, 8 // m))
+
+
 def decode_gray_scaled_auto(p: Pipeline, coeffs, cfg: CodecConfig, orig_shape,
                             m: int, device=None) -> np.ndarray:
     """M/8 fractional-scale decode of a quantized map -> cropped uint8 numpy
@@ -202,26 +230,15 @@ def decode_gray_scaled_auto(p: Pipeline, coeffs, cfg: CodecConfig, orig_shape,
     ``ops.scaled.scaled_decode_u8`` (the fused kernel, or its bit-identical
     composed form); M = 8 is the plain full decode; other numerators take
     the exact area-resample einsum (``scaled_decode_m8``)."""
-    from tpudct_torch.ops.scaled import (
-        scaled_decode, scaled_decode_m8, scaled_decode_u8, scaled_shape_m8,
-    )
+    from tpudct_torch.ops.scaled import scaled_shape_m8
 
     h, w = orig_shape
     coeffs = _tensor(coeffs, device)
     if m == 8:
         return decode_gray_auto(p, coeffs, cfg, orig_shape)
     hs, ws = scaled_shape_m8(h, m), scaled_shape_m8(w, m)
-    if 8 % m:
-        rec = scaled_decode_m8(coeffs, cfg, m)
-        return to_uint8(rec)[:hs, :ws].cpu().numpy()
-    fac = 8 // m
-    align = _scaled_u8_align(p, coeffs, cfg, fac)
-    if align is not None:
-        cpad, _ = pad_coeffs_to_kernel(coeffs.to(torch.int8), *align)
-        # out_u8: the truncation rides the kernel's epilogue
-        return scaled_decode_u8(p, cpad, cfg, fac, out_u8=True)[:hs, :ws].cpu().numpy()
-    rec = scaled_decode(coeffs, cfg, fac)
-    return to_uint8(rec)[:hs, :ws].cpu().numpy()
+    rec = _decode_scaled(p, _scaled_plan(p, coeffs, cfg, m), coeffs, cfg, m)
+    return rec[:hs, :ws].cpu().numpy()
 
 
 def roundtrip_gray(p: Pipeline, img, cfg: CodecConfig, device=None):

@@ -6,11 +6,12 @@ repeat, giving virtual ranks on one card).  Images shard as row bands of
 rank runs the single-device pipeline on its own device and stream with zero
 halo, metrics add per-rank partial sums on the first rank's device, and
 reassembly is a host gather or a ring all-gather whose hops are CUDA
-kernels (B14-B16), decoding each band as it forwards it.
+kernels (B14-B16), decoding each band as it forwards it.  A band-sharded
+coefficient map saves to a .tdc or .tdcc without a gather
+(``save_sharded``/``save_color_sharded``: one banded segment per rank).
 
 Left out, as the module docstrings say: ``distributed_init`` (multi-process
-bring-up), ``band_spec``/``grid_spec`` (JAX partition specs),
-``save_sharded``/``save_color_sharded`` (the serialize layer) and
+bring-up), ``band_spec``/``grid_spec`` (JAX partition specs) and
 ``scaling_table`` (its timer).
 """
 
@@ -25,6 +26,8 @@ from tpudct_torch.parallel.sharding import (
     Sharded,
     gather,
     gather_recon,
+    save_color_sharded,
+    save_sharded,
     shard_batch,
     shard_image,
     shard_image_grid,
@@ -54,6 +57,8 @@ __all__ = [
     "ring_all_gather",
     "ring_decode_color_gather",
     "ring_decode_gather",
+    "save_color_sharded",
+    "save_sharded",
     "shard_batch",
     "shard_image",
     "shard_image_grid",

@@ -14,9 +14,10 @@ its band functions; the only collectives are
   * reassembly: :func:`gather` to the host, or ``gather_recon``'s ring
     all-gather (``tpudct_torch.parallel.ring``) to every rank.
 
-Each step builder returns a plain function of ``Sharded`` values.  Left out:
-``save_sharded``/``save_color_sharded`` (they need the port's serialize
-layer, not there yet).
+Each step factory returns a plain function of ``Sharded`` values.
+:func:`save_sharded` and :func:`save_color_sharded` serialize band-sharded
+coefficient maps without gathering them: each rank's slab entropy-codes into
+its own banded segment.
 """
 
 from __future__ import annotations
@@ -422,3 +423,129 @@ def sharded_serving_step(pipeline: Pipeline, cfg: CodecConfig, mesh: Mesh):
         return (_collect(mesh, "batch", out, 0), _collect(mesh, "batch", out, 1)), metrics
 
     return fn
+
+
+# ---- distributed serialization (the codec's distributed checkpoint) --------------
+
+
+def _banded_payload_sharded(coeffs, inner: str, level: int) -> bytes:
+    """Entropy-code a band-sharded coefficient map into the ``banded``
+    payload (leading segment count + per-segment directory) without
+    gathering the map: the one copy shared by the gray (.tdc) and color
+    (.tdcc) distributed writers.
+
+    Each rank's slab comes to the host on its own and entropy-codes into
+    one segment on a thread pool (``deterministic=True``,
+    ``sampled_auto=True``: the single-host banded writer's segment branch,
+    so the bytes are its bytes); the segments are reassembled in row order,
+    with the gap, coverage and 1..255 checks.  A replicated value (or a
+    plain array) is one slab.  The port's ranks live in one process, so
+    every slab is addressable here; the reference's multi-process leg
+    (``process_allgather`` of the compressed segments) waits for the port's
+    ``distributed_init`` (ROADMAP A.10)."""
+    import os
+    import struct
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpudct_torch.utils.serialize import _encode_payload, _validate_map
+
+    h, _w = coeffs.shape
+    if isinstance(coeffs, Sharded):
+        if coeffs.spec == "grid":
+            # a (band, col) tile is not a full-width row band; encoding its
+            # first column tile as the band would write a corrupt file
+            raise ValueError(
+                "save_sharded requires band (row-only) sharding; this array "
+                f"is also column-sharded ({coeffs.mesh.shape[1]} column tiles); "
+                "reshard with shard_image first"
+            )
+        if coeffs.spec not in ("band", "replicated"):
+            raise ValueError(f"save_sharded takes a band-sharded (H, W) map, got {coeffs.spec!r}")
+        shards = coeffs.shards[:1] if coeffs.spec == "replicated" else coeffs.shards
+    else:
+        shards = (coeffs,)
+    slabs = {}  # row_start -> validated int16 slab
+    r0 = 0
+    for shard in shards:
+        host = shard.cpu().numpy() if isinstance(shard, torch.Tensor) else np.asarray(shard)
+        slabs[r0] = _validate_map(host)
+        r0 += host.shape[0]
+    keys = sorted(slabs)
+    with ThreadPoolExecutor(max_workers=min(max(1, len(keys)), os.cpu_count() or 4)) as ex:
+        encoded = list(ex.map(
+            lambda r: _encode_payload(slabs[r], inner, level, deterministic=True, sampled_auto=True),
+            keys,
+        ))
+    segs = {r: (slabs[r].shape[0], code, payload) for r, (code, payload) in zip(keys, encoded)}
+    if not 1 <= len(segs) <= 255:
+        raise ValueError(
+            f"sharded save: {len(segs)} bands cannot serialize "
+            f"(the banded container holds 1..255 segments)"
+        )
+    parts = [bytes([len(segs)])]
+    expect = 0
+    for r in sorted(segs):
+        rows, code, payload = segs[r]
+        if r != expect:
+            raise ValueError(f"sharded save: bands do not tile the map (gap at row {expect})")
+        parts.append(struct.pack("<IBI", rows, code, len(payload)))
+        parts.append(payload)
+        expect = r + rows
+    if expect != h:
+        raise ValueError(
+            f"sharded save: {len(segs)} bands covering {expect} rows "
+            f"cannot serialize an {h}-row map"
+        )
+    return b"".join(parts)
+
+
+def save_sharded(
+    path, coeffs, q_scale: float = 1.0, retain_k=None, orig_shape=None,
+    transform: str = "haweel", q_table: str = "luma", inner: str = "auto",
+    level: int = 6,
+) -> int:
+    """Serialize a band-sharded coefficient map to a .tdc without gathering
+    it: one banded segment per rank (:func:`_banded_payload_sharded`).  The
+    file is byte-identical to the single-host ``save_coefficients(...,
+    codec=f"banded:{n_ranks}:{inner}")`` of the gathered map, so every
+    ordinary loader decodes it bit for bit.  Returns the byte count.
+
+    The ranks of the port's mesh live in one process, which writes the
+    file; the reference's multi-process form (every process assembles the
+    bytes, process 0 writes) waits for ``distributed_init`` (ROADMAP
+    A.10)."""
+    from tpudct_torch.utils.serialize import _CODEC_BANDED, _wrap_v4
+
+    h, w = coeffs.shape
+    payload = _banded_payload_sharded(coeffs, inner, level)
+    data = _wrap_v4(h, w, _CODEC_BANDED, payload, q_scale, retain_k, orig_shape, transform, q_table)
+    with open(path, "wb") as f:
+        f.write(data)
+    return len(data)
+
+
+def save_color_sharded(
+    path, planes: dict, meta: dict, q_scale: float = 1.0, retain_k=None,
+    transform: str = "haweel", inner: str = "auto", level: int = 6,
+) -> int:
+    """Distributed .tdcc: serialize three band-sharded coefficient planes
+    (y / cb / cr, e.g. from :func:`sharded_color_encode`) without a gather.
+    Per plane this is :func:`save_sharded`'s flow; the three plane streams
+    wrap in ``serialize.color_container_from_blobs``'s framing, so the
+    file is byte-identical to the single-host ``save_color(...,
+    codec=f"banded:{n}:{inner}")`` of the gathered planes.  `meta` is the
+    color encoders' meta (orig_shape, chroma_shape, subsample, optional
+    per-plane q tables).  Returns the byte count; the multi-process form
+    waits as :func:`save_sharded`'s does."""
+    from tpudct_torch.utils.serialize import _CODEC_BANDED, _wrap_v4, color_container_from_blobs
+
+    def plane_blob(name, q_table, oshape):
+        plane = planes[name]
+        ph, pw = plane.shape
+        payload = _banded_payload_sharded(plane, inner, level)
+        return _wrap_v4(ph, pw, _CODEC_BANDED, payload, q_scale, retain_k, oshape, transform, q_table)
+
+    data = color_container_from_blobs(meta, plane_blob)
+    with open(path, "wb") as f:
+        f.write(data)
+    return len(data)

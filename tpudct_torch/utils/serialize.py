@@ -269,8 +269,8 @@ def assemble_banded_segments(segments) -> bytes:
 
     The ONE copy of the writer-side segment framing (count byte +
     per-segment ``<IBI`` headers), for `_encode_banded` and the streamed
-    encoders (the reference's ``utils/streaming.py``; the port's are still
-    to come) — a framing change happens in one place, mirroring
+    encoders (``utils/streaming.py``) — a framing change happens in one
+    place, mirroring
     `_color_plane_slices` on the reader side."""
     parts = [bytes([len(segments)])]
     for rows, (code, payload) in segments:
@@ -1284,9 +1284,9 @@ def color_container_from_blobs(meta: dict, plane_blob) -> bytes:
 
     The ONE copy of the writer-side framing (header pack + plane order +
     q-table defaulting + per-plane length walk), for
-    :func:`color_to_bytes` and the distributed writer (the reference's
-    ``parallel.sharding.save_color_sharded``; the port's is still to come),
-    so their byte identity holds structurally instead of only by test.
+    :func:`color_to_bytes`, the streamed color encoder and the distributed
+    writer (``parallel.sharding.save_color_sharded``), so their byte
+    identity holds structurally instead of only by test.
     ``plane_blob(name, q_table, orig_shape) -> bytes`` supplies each
     plane's .tdc stream."""
     h, w = meta["orig_shape"]
