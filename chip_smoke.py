@@ -86,8 +86,8 @@ variants) from ``tpudct_torch/csrc`` and, in order:
      (counts printed);
   5. runs the float64 golden-model correctness gate at 512^2 (u8 path with
      the encode/decode/roundtrip bit-identity check, the f32 path, and the
-     f32-literal core under transform "dct") and the color420_u8, f32 and
-     scaled family gates at 256^2;
+     f32-literal core under transform "dct") and the color420_u8, f32,
+     scaled, streamed_gray and streamed_color family gates;
   6. drives the main path through the library's entry points — with the
      default CodecConfig 8192^2 and a 4000x2992 frame through
      roundtrip_gray_auto, 8192^2 through encode_gray_auto/decode_gray_auto,
@@ -175,7 +175,22 @@ variants) from ``tpudct_torch/csrc`` and, in order:
      (streaming.SECONDS, CUDA events), the device busy share, and its own
      peak of device memory beside one band's bytes (the 8-band gray calls
      fail at half of the image's bytes); and the in-memory calls that
-     return numpy, with their walls and peaks;
+     return numpy, with their walls and peaks; then the bulk and measuring
+     path, its counters set to 0 just before it: tpudct_torch.cli.main in
+     process -- ``batch`` over 32 photo-like 1024^2 .npy frames, the
+     4000x2992 frame and a corrupt .npy (one B2 per width), a rerun (none),
+     ``batch --color`` over 8 RGB 1024^2 frames and the 4032x3024 frame,
+     the streamed branches with streaming.STREAM_PIXELS patched to
+     SQUARE^2/4 (``batch`` of an 8192^2 frame, ``unbatch`` of it and of the
+     camera frame's .tdcc), ``unbatch --ext .npy`` of the gray and the color
+     files in full and at ``--scale 4/8``; then ``bench`` (8192^2 --fused
+     --color; 1024^2 --batch 32 --color; --host-entropy and --e2e at
+     2048^2), ``sweep``, ``table``, ``table --color``, ``curve``, ``scale``
+     on 1, 2, 4, 8 virtual ranks, ``selftest --families``, ``profile``
+     (its trace.json must name k_rt_f32), ``compare`` and ``info`` (it must
+     report cuda and the card) -- each call moving exactly its counters;
+     then every file against the per-file library call and every raster
+     against the per-file decode, bit for bit;
   7. times each kernel against its twin with
      tpudct_torch.utils.timing.device_time_ms (CUDA events, the median of
      each batch of calls, L2 flushed before every call; order plain,
@@ -307,6 +322,12 @@ COLOR_FRAME = (4032, 3024)
 # trial-encodes every stage, seconds per stage at 8192^2 on the host)
 ENTROPY_SIDE = 2048
 ENTROPY_STAGES = ("raw", "spectral", "huffman", "rans", "xz", "banded", "banded:4:rans", "auto-exact")
+# `selftest --families` on the card: the golden gate's u8 pass (B1, then B2
+# and B3 against it), color420_u8 (split, two encodes, two decodes, merge),
+# f32 (B5, B6), scaled (B7 beside B2 and B3), streamed gray (3 bands) and
+# color (1 band), each beside its in-memory call
+SELFTEST_LAUNCHES = {"hp_roundtrip_u8": 1, "hp_encode_u8": 12, "hp_decode_u8": 12, "hp_dct": 1, "hp_idct": 1,
+                     "hp_scaled_decode_u8": 1, "color_split_420_u8": 3, "color_merge_420_u8": 3}
 # the streamed path: a 268-Mpx gray scan in 2048-row bands (the roundtrip
 # in 4096-row bands) and an 8192^2 RGB frame
 STREAM_SIDE, STREAM_BAND, STREAM_RT_BAND, STREAM_COLOR = 16384, 2048, 4096, 8192
@@ -1902,7 +1923,7 @@ def phase_file_path(dev, card: str) -> dict:
     CLI call moves exactly its counters.  Then the bytes against the plain
     twins' coefficients, the rasters against the library's decoders, and
     every entropy stage at ENTROPY_SIDE^2 through both decoders."""
-    from tpudct_torch import CodecConfig, cli, get_pipeline
+    from tpudct_torch import CodecConfig, get_pipeline
     from tpudct_torch.kernels import color as ck
     from tpudct_torch.kernels import hp
     from tpudct_torch.models import color as mc
@@ -1924,15 +1945,7 @@ def phase_file_path(dev, card: str) -> dict:
         np.save(f["rgb.npy"], rgb)
 
         def cli_step(label, expected, argv) -> list:
-            out = io.StringIO()
-            with contextlib.redirect_stdout(out):
-                rc = step(label, expected, lambda: cli.main(argv))
-            text = out.getvalue()
-            for line in text.splitlines():  # the CLI's output, then the step's line
-                print(f"    {line}" + (f" [{card}]" if line.startswith("{") else ""))
-            if rc != 0:
-                _fail(f"{label}: exit code {rc}\n{text}")
-            return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+            return _cli_records(step, card, label, expected, argv)
 
         hp.reset_launches()
         ck.reset_launches()
@@ -1989,6 +2002,277 @@ def phase_file_path(dev, card: str) -> dict:
                   + ("; decoded raster = decode_color_auto of them" if mode == "420" else ""))
     _entropy_stages(c_twin[:ENTROPY_SIDE, :ENTROPY_SIDE].cpu().numpy(), card)
     return launches
+
+
+def _cli_records(step, card: str, label: str, expected: dict, argv: list, rc: int = 0) -> list:
+    """tpudct_torch.cli.main(argv) in process as one step (exactly the
+    counters in `expected` move); its output printed, its JSON records
+    returned.  Fails unless it exits with `rc`."""
+    from tpudct_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = step(label, expected, lambda: cli.main(argv))
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"    {line}" + (f" [{card}]" if line.startswith("{") else ""))
+    if got != rc:
+        _fail(f"{label}: exit code {got}, expected {rc}\n{text}")
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+def _stacked_launches(names, chunk: int, kind) -> int:
+    """Stacked launches of a bulk verb over `names`: one per kind (a padded
+    width) in each chunk of the sorted names."""
+    names = sorted(names)
+    return sum(len({kind(n) for n in names[i : i + chunk]}) for i in range(0, len(names), chunk))
+
+
+def _threaded(fn, items) -> list:
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(8) as ex:
+        return list(ex.map(fn, items))
+
+
+def phase_bulk_path(dev, card: str) -> dict:
+    """The bulk and measuring verbs (python -m tpudct_torch batch, unbatch,
+    bench, sweep, table, curve, scale, selftest, profile, compare, info) in
+    process on .npy files in a temporary directory, the counters set to 0
+    just before and read just after; each call moves exactly its counters.
+    Then every bulk output against the per-file call: each .tdc/.tdcc
+    against coefficients_to_bytes / color_to_bytes of encode_gray_auto /
+    encode_color_auto of that file alone, each decoded raster against
+    decode_gray_auto, decode_gray_scaled_auto, decode_color_auto and
+    decode_color_scaled of its file's coefficients, the streamed branches
+    (streaming.STREAM_PIXELS patched down) against encode_gray_streamed_bytes,
+    decode_gray_streamed and decode_color_streamed."""
+    import shutil
+
+    from tpudct_torch import CodecConfig, get_pipeline
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.kernels import hp
+    from tpudct_torch.models import color as mc
+    from tpudct_torch.utils import streaming as st
+
+    _phase(6, "bulk and measuring path")
+    t_phase = time.perf_counter()
+    cfg, p = CodecConfig(), get_pipeline("hp")
+    counts, step = _stepper(hp.LAUNCHES, ck.LAUNCHES)
+    n_img, side = BATCH
+    k = 1 + BENCH_REPS
+    # the bulk verbs' chunks: batch --decode-threads 16 takes 64 files at a
+    # time, unbatch 4 per host thread (cpu_count, at most 16)
+    unbatch_chunk = 4 * min(os.cpu_count() or 4, 16)
+    width = lambda name: "cam" if name.startswith("cam") else "frame"  # noqa: E731
+    sq, cam, ccam = f"{SQUARE}^2", "x".join(map(str, FRAME)), "x".join(map(str, COLOR_FRAME))
+    with tempfile.TemporaryDirectory() as tmp:
+        d = {k_: os.path.join(tmp, k_) for k_ in ("gray", "rgb", "big", "tdc", "tdcc", "stream", "pix", "pix4",
+                                                  "cpix", "cpix4", "spix", "trace")}
+        for k_ in ("gray", "rgb", "big"):
+            os.mkdir(d[k_])
+        gray = {f"f{i:02d}.npy": _camera_frame(side, side, seed=100 + i) for i in range(n_img)}
+        gray["cam.npy"] = _camera_frame(*FRAME, seed=7)
+        rgb = {f"f{i:02d}.npy": np.stack([_camera_frame(side, side, seed=200 + 3 * i + c) for c in range(3)], -1)
+               for i in range(8)}
+        rgb["cam.npy"] = _camera_rgb(*COLOR_FRAME)
+        for name, img in gray.items():
+            np.save(os.path.join(d["gray"], name), img)
+        for name, img in rgb.items():
+            np.save(os.path.join(d["rgb"], name), img)
+        with open(os.path.join(d["gray"], "bad.npy"), "wb") as f:
+            f.write(b"\x93NUMPY not a raster")
+        big = _camera_frame(SQUARE, SQUARE, seed=42)
+        np.save(os.path.join(d["big"], "big.npy"), big)
+        hp.reset_launches()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        n_gray = _stacked_launches(gray, 64, width)
+        rec = _cli_records(step, card, f"batch {n_img}x{side}^2 + {cam} + a corrupt .npy", {"hp_encode_u8": n_gray},
+                           ["batch", "--decode-threads", "16", d["gray"], d["tdc"]])[0]
+        if (rec["encoded"], rec["failed"], rec["skipped"]) != (n_img + 1, 1, 0):
+            _fail(f"batch: {rec}")
+        gray_batch = rec
+        rec = _cli_records(step, card, "batch rerun", {}, ["batch", "--decode-threads", "16", d["gray"], d["tdc"]])[0]
+        if (rec["encoded"], rec["skipped"]) != (0, n_img + 2):
+            _fail(f"batch rerun: {rec}")
+        n_rgb = _stacked_launches(rgb, 64, width)
+        rec = _cli_records(step, card, f"batch --color 8x{side}^2 + {ccam}",
+                           {"color_split_420_u8": n_rgb, "hp_encode_u8": 2 * n_rgb},
+                           ["batch", "--color", "--decode-threads", "16", d["rgb"], d["tdcc"]])[0]
+        if (rec["encoded"], rec["failed"]) != (len(rgb), 0):
+            _fail(f"batch --color: {rec}")
+        color_batch = rec
+        # the streamed branches: above the threshold (patched down from 2^32
+        # to a quarter of SQUARE^2) the SQUARE^2 frame and the camera frame's
+        # .tdcc stream, band by band; the gray camera frame does not
+        saved = st.STREAM_PIXELS
+        st.STREAM_PIXELS = SQUARE * SQUARE // 4
+        print(f"  streaming.STREAM_PIXELS patched from {saved} to {st.STREAM_PIXELS} for the streamed branches")
+        try:
+            rec = _cli_records(step, card, f"batch {sq} (streamed)", {"hp_encode_u8": -(-SQUARE // 8192)},
+                               ["batch", d["big"], d["stream"]])[0]
+            if rec["encoded"] != 1:
+                _fail(f"batch streamed: {rec}")
+            shutil.copy(os.path.join(d["tdcc"], "cam.npy.tdcc"), d["stream"])
+            bands = -(-mc.color_kernel_shape(*COLOR_FRAME)[0] // 8192)
+            rec = _cli_records(step, card, f"unbatch --ext .npy {sq} .tdc + {ccam} .tdcc (streamed)",
+                               {"hp_decode_u8": 1 + 2 * bands, "color_merge_420_u8": bands},
+                               ["unbatch", "--ext", ".npy", d["stream"], d["spix"]])[0]
+            if (rec["decoded"], rec["failed"]) != (2, 0):
+                _fail(f"unbatch streamed: {rec}")
+        finally:
+            st.STREAM_PIXELS = saved
+        tdc_names = [n + ".tdc" for n in gray]
+        n_dec = _stacked_launches(tdc_names, unbatch_chunk, width)
+        for flags, key, out in ((["--ext", ".npy"], "hp_decode_u8", "pix"),
+                                (["--ext", ".npy", "--scale", "4/8"], "hp_scaled_decode_u8", "pix4")):
+            rec = _cli_records(step, card, f"unbatch {' '.join(flags)} {n_img + 1} .tdc", {key: n_dec},
+                               ["unbatch", *flags, d["tdc"], d[out]])[0]
+            if (rec["decoded"], rec["failed"]) != (n_img + 1, 0):
+                _fail(f"unbatch {flags}: {rec}")
+        rec = _cli_records(step, card, "unbatch rerun", {}, ["unbatch", "--ext", ".npy", d["tdc"], d["pix"]])[0]
+        if rec["skipped"] != n_img + 1:
+            _fail(f"unbatch rerun: {rec}")
+        n_cdec = _stacked_launches(rgb, unbatch_chunk, width)
+        _cli_records(step, card, f"unbatch --ext .npy {len(rgb)} .tdcc",
+                     {"hp_decode_u8": 2 * n_cdec, "color_merge_420_u8": n_cdec},
+                     ["unbatch", "--ext", ".npy", d["tdcc"], d["cpix"]])
+        _cli_records(step, card, f"unbatch --ext .npy --scale 4/8 {len(rgb)} .tdcc",
+                     {"hp_scaled_decode_u8": 2 * len(rgb)},
+                     ["unbatch", "--ext", ".npy", "--scale", "4/8", d["tdcc"], d["cpix4"]])
+        t_bulk = time.perf_counter() - t0
+        _measuring_verbs(step, card, k, d, gray_tdc=os.path.join(d["tdc"], "f00.npy.tdc"))
+        launches = counts()
+        t_cli = time.perf_counter() - t0
+        print(f"  bulk and measuring path: {t_cli:.1f} s for the CLI calls ({t_bulk:.1f} s bulk); launches:",
+              json.dumps(launches))
+        print(f"  batch {n_img}x{side}^2 + {cam}: {json.dumps(gray_batch['ms'])} ms, "
+              f"{(n_img + 1) / gray_batch['ms']['wall'] * 1e3:.2f} images/s; batch --color 8x{side}^2 + "
+              f"{ccam}: {json.dumps(color_batch['ms'])} ms [{card}]")
+        # the checks (their launches come after the counts were read)
+        _check_bulk(p, cfg, dev, d, gray, rgb, big)
+    print(f"  bulk and measuring phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _measuring_verbs(step, card: str, k: int, d: dict, gray_tdc: str) -> None:
+    """bench, sweep, table, curve, scale, selftest, profile, compare, info,
+    each one step; every time they print finite and not negative."""
+    import torch as _t
+
+    n_img, side = BATCH
+    color = lambda n: {"color_split_420_u8": n, "hp_encode_u8": 2 * n,  # noqa: E731
+                       "hp_decode_u8": 2 * n, "color_merge_420_u8": n}
+    reps = ["--reps", str(BENCH_REPS)]
+    out = {}
+    out["bench"] = _cli_records(step, card, f"bench --size {SQUARE} --fused --color",
+                                {"hp_dct": 2 * k, "hp_idct": k, "hp_roundtrip": k, **color(k)},
+                                ["bench", "--size", str(SQUARE), "--pipelines", "hp", "--fused", "--color", *reps])
+    # bench_pipeline, the serving tier, then bench_color and the color serving tier
+    serving = {**color(2 * k), "hp_roundtrip_u8": k, "hp_dct": 2 * k, "hp_idct": k}
+    out["serving"] = _cli_records(step, card, f"bench --size {side} --batch {n_img} --color", serving,
+                                  ["bench", "--size", str(side), "--pipelines", "hp", "--batch", str(n_img),
+                                   "--color", *reps])
+    out["entropy"] = _cli_records(step, card, f"bench --host-entropy --size {ENTROPY_SIDE}", {},
+                                  ["bench", "--host-entropy", "--size", str(ENTROPY_SIDE)])
+    # e2e: one image through a JPEG file, then `batch` over 8 JPEGs of 1024^2
+    from tpudct_torch.utils import native
+
+    print("  JPEG writes and reads (bench --e2e, table, curve) go through "
+          + ("the host JPEG library" if native.jpeg_library() is not None else "PIL (no host JPEG library here)"))
+    out["e2e"] = _cli_records(step, card, f"bench --e2e --size {ENTROPY_SIDE} --batch 8", {"hp_encode_u8": 2},
+                              ["bench", "--e2e", "--size", str(ENTROPY_SIDE), "--batch", "8"])
+    sizes = (1024, SQUARE)
+    out["sweep"] = _cli_records(step, card, f"sweep --sizes {sizes}",
+                                {"hp_dct": 2 * k * len(sizes), "hp_idct": k * len(sizes)},
+                                ["sweep", "--sizes", ",".join(map(str, sizes)), *reps])
+    out["table"] = _cli_records(step, card, "table", {"hp_roundtrip": 6}, ["table"])
+    out["table_color"] = _cli_records(step, card, "table --color", {"hp_dct": 12, "hp_idct": 12},
+                                      ["table", "--color"])
+    out["curve"] = _cli_records(step, card, "curve", {"hp_roundtrip": 10}, ["curve"])
+    counts = (1, 2, 4, 8)
+    out["scale"] = _cli_records(step, card, f"scale --size {SQUARE} --devices {counts}",
+                                {"hp_dct": sum(counts) * k, "hp_idct": sum(counts) * k},
+                                ["scale", "--size", str(SQUARE), "--devices", ",".join(map(str, counts)), *reps])
+    out["selftest"] = _cli_records(step, card, "selftest --families", SELFTEST_LAUNCHES, ["selftest", "--families"])
+    out["profile"] = _cli_records(step, card, f"profile --size {ENTROPY_SIDE}", {"hp_roundtrip": k},
+                                  ["profile", "--size", str(ENTROPY_SIDE), "--out", d["trace"], *reps])
+    with open(os.path.join(d["trace"], "trace.json")) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    kernels = sorted(n for n in names if "k_rt_f32" in n)
+    if not kernels:
+        _fail("profile: trace.json names no CUDA kernel of the port (k_rt_f32...)")
+    print(f"  profile: trace.json names {kernels}")
+    a, b = (os.path.join(d["gray"], f"f0{i}.npy") for i in (0, 1))
+    out["compare"] = _cli_records(step, card, "compare two .npy frames", {}, ["compare", a, b], rc=1)
+    out["compare_tdc"] = _cli_records(step, card, "compare two .tdc files", {},
+                                      ["compare", gray_tdc, gray_tdc])
+    info = _cli_records(step, card, "info", {}, ["info"])[0]
+    if info["backend"] != "cuda" or _t.cuda.get_device_name(0) not in info["devices"][0]:
+        _fail(f"info: {info}")
+    for key, rows in out.items():
+        times = [v for r in rows for kk, v in r.items() if kk.endswith("_ms") and not kk.startswith("ref_")]
+        if not all(np.isfinite(times)) or (times and min(times) < 0):
+            _fail(f"{key}: {rows}")
+
+
+def _check_bulk(p, cfg, dev, d: dict, gray: dict, rgb: dict, big: np.ndarray) -> None:
+    """Every bulk output against the per-file call on the card."""
+    from tpudct_torch.models import color as mc
+    from tpudct_torch.models.dispatch import decode_gray_auto, decode_gray_scaled_auto, encode_gray_auto
+    from tpudct_torch.utils import serialize
+    from tpudct_torch.utils import streaming as st
+
+    def read(*parts) -> bytes:
+        with open(os.path.join(*parts), "rb") as f:
+            return f.read()
+
+    maps = {n: encode_gray_auto(p, img, cfg, device=dev) for n, img in gray.items()}
+    maps = {n: (c.cpu().numpy(), hw) for n, (c, hw) in maps.items()}
+    want = dict(zip(maps, _threaded(lambda n: serialize.coefficients_to_bytes(
+        maps[n][0], cfg.q_scale, cfg.retain_k, orig_shape=maps[n][1], transform=cfg.transform,
+        q_table=cfg.q_table), list(maps))))
+    for n in gray:
+        if read(d["tdc"], n + ".tdc") != want[n]:
+            _fail(f"batch: {n}.tdc differs from coefficients_to_bytes(encode_gray_auto) of the file alone")
+        c, hw = maps[n]
+        full = decode_gray_auto(p, c, cfg, hw, device=dev)
+        quarter = decode_gray_scaled_auto(p, c, cfg, hw, 4, device=dev)
+        if not np.array_equal(np.load(os.path.join(d["pix"], n + ".tdc.npy")), full):
+            _fail(f"unbatch: {n}.tdc.npy differs from decode_gray_auto of its coefficients")
+        if not np.array_equal(np.load(os.path.join(d["pix4"], n + ".tdc.npy")), quarter):
+            _fail(f"unbatch --scale 4/8: {n}.tdc.npy differs from decode_gray_scaled_auto of its coefficients")
+    print(f"  batch: {len(gray)} .tdc = coefficients_to_bytes(encode_gray_auto) of each file alone; unbatch and "
+          f"--scale 4/8: = decode_gray_auto / decode_gray_scaled_auto of each")
+    enc = {n: mc.encode_color_auto(p, img, cfg, device=dev) for n, img in rgb.items()}
+    enc = {n: ({kk: v.cpu().numpy() for kk, v in pl.items()}, meta) for n, (pl, meta) in enc.items()}
+    want = dict(zip(enc, _threaded(lambda n: serialize.color_to_bytes(
+        enc[n][0], enc[n][1], cfg.q_scale, cfg.retain_k, cfg.transform), list(enc))))
+    for n in rgb:
+        if read(d["tdcc"], n + ".tdcc") != want[n]:
+            _fail(f"batch --color: {n}.tdcc differs from color_to_bytes(encode_color_auto) of the file alone")
+        pl, meta = enc[n]
+        full = mc.decode_color_auto(p, pl, meta, cfg, device=dev).cpu().numpy()
+        half = mc.decode_color_scaled(p, pl, meta, cfg, 2, device=dev).cpu().numpy()
+        if not np.array_equal(np.load(os.path.join(d["cpix"], n + ".tdcc.npy")), full):
+            _fail(f"unbatch: {n}.tdcc.npy differs from decode_color_auto of its planes")
+        if not np.array_equal(np.load(os.path.join(d["cpix4"], n + ".tdcc.npy")), half):
+            _fail(f"unbatch --scale 4/8: {n}.tdcc.npy differs from decode_color_scaled of its planes")
+    print(f"  batch --color: {len(rgb)} .tdcc = color_to_bytes(encode_color_auto) of each file alone; unbatch and "
+          f"--scale 4/8: = decode_color_auto / decode_color_scaled of each")
+    data, _hw = st.encode_gray_streamed_bytes(p, big, cfg, device=dev)
+    if read(d["stream"], "big.npy.tdc") != data:
+        _fail("batch (streamed): the .tdc differs from encode_gray_streamed_bytes of the frame")
+    if not np.array_equal(np.load(os.path.join(d["spix"], "big.npy.tdc.npy")), st.decode_gray_streamed(
+            p, data, device=dev)):
+        _fail("unbatch (streamed): the raster differs from decode_gray_streamed")
+    cdata = read(d["stream"], "cam.npy.tdcc")
+    if not np.array_equal(np.load(os.path.join(d["spix"], "cam.npy.tdcc.npy")), st.decode_color_streamed(
+            p, cdata, device=dev)):
+        _fail("unbatch (streamed): the camera frame differs from decode_color_streamed")
+    print(f"  streamed branches: the {SQUARE}^2 .tdc = encode_gray_streamed_bytes, its raster = "
+          f"decode_gray_streamed; the camera .tdcc's raster = decode_color_streamed")
 
 
 def _memory_peak(fn) -> tuple:
@@ -2592,6 +2876,7 @@ def main() -> int:
     runs.append(timed(phase_measurement_path, dev, card))
     runs.append(timed(phase_file_path, dev, card))
     runs.append(timed(phase_streamed_path, dev, card))
+    runs.append(timed(phase_bulk_path, dev, card))
     times = timed(phase_timing, dev, card)
     kernels = []
     for name, (src, replaces, _bpp, _ops) in KERNELS.items():

@@ -447,9 +447,10 @@ def test_family_gates_pass_on_cpu():
     for name in ("hp", "batched"):
         reps = selftest.family_gates(tpudct_torch.get_pipeline(name), tpudct_torch.CodecConfig(),
                                      device="cpu")
-        assert [r["family"] for r in reps] == ["color420_u8", "f32", "scaled"]
-        assert reps[0]["gate"] == ("pass" if name == "hp" else "skip")
-        assert all(r["gate"] == "pass" for r in reps[1:])
+        streamed = ["streamed_gray", "streamed_color"] if name == "hp" else ["streamed"]
+        assert [r["family"] for r in reps] == ["color420_u8", "f32", "scaled", *streamed]
+        assert reps[0]["gate"] == reps[-1]["gate"] == ("pass" if name == "hp" else "skip")
+        assert all(r["gate"] == "pass" for r in reps[1:3])
         assert reps[2]["max_dev"] <= 1e-2 and ("fast_path" in reps[2]) == (name == "hp")
 
 

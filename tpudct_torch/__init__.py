@@ -12,8 +12,9 @@ Public API
 - models:     get_pipeline("cublas" | "batched" | "cublas2" | "fast" | "hp")
 - ops:        blockify / deblockify / dct2 / idct2 / quantize / dequantize
 - parallel:   band_mesh / grid_mesh, shard_* and the sharded steps, the rings
-- files:      utils.serialize (.tdc/.tdcc), utils.imageio; the CLI,
-              python -m tpudct_torch {run,encode,decode,inspect}
+- files:      utils.serialize (.tdc/.tdcc), utils.imageio, utils.streaming; the CLI,
+              python -m tpudct_torch {run,encode,decode,inspect,batch,unbatch,bench,
+              sweep,table,curve,scale,profile,selftest,compare,info}
 """
 
 from tpudct_torch.constants import BLOCK_SIZE, T, Q, haweel_integer_core, haweel_row_norms

@@ -11,8 +11,14 @@ benches return the reference's keys; ``backend`` names the device the work
 ran on (the card's name on CUDA).  ``k_pair`` is the reference's chain
 length, inert here (see ``utils.timing``).
 
-The accuracy tables, rate-distortion curves and the host-entropy and
-end-to-end benches need the serialize and image I/O layer and wait for it.
+The accuracy tables and the rate-distortion curves run the codec on the
+same device and report quality and on-disk bytes, not times.  The host
+benches time host clocks: ``bench_host_entropy`` the serializer alone (no
+device), ``bench_e2e_encode`` one image from a JPEG file to ``.tdc`` bytes
+on disk (the device phase a host wall that includes the copy back), and
+``bench_e2e_batch`` the CLI's ``batch`` verb over a directory of JPEGs.
+Whatever writes or reads a JPEG needs libjpeg (``utils/native.py``) or
+PIL, as in the reference.
 """
 
 from __future__ import annotations
@@ -339,12 +345,345 @@ def bench_cpu_numpy(size: int, cfg: Optional[CodecConfig] = None, reps: int = 3)
     return out
 
 
+def _test_image(image: str, size: int) -> np.ndarray:
+    gen = {"photo": photographic_image, "circuit": structured_image, "noise": synthetic_image}
+    try:
+        return gen[image](size)
+    except KeyError:
+        raise ValueError(f"unknown image {image!r}; available: {sorted(gen)}") from None
+
+
+def bench_host_entropy(size: int, cfg: Optional[CodecConfig] = None, reps: int = 3,
+                       image: str = "photo") -> list:
+    """Every .tdc codec's encode and decode, best of ``reps`` on the host
+    clock, over the quantized coefficient map of a deterministic test image
+    computed on the host (``_host_dct_quant``): the serializer alone, no
+    device.  Each decode is held bit-exact before its times are reported."""
+    from tpudct_torch.utils import serialize
+    from tpudct_torch.utils.entropy import native_entropy_available, rans_available
+
+    cfg = cfg or CodecConfig()
+    if size % 8:
+        raise ValueError(f"--size must be a multiple of 8, got {size}")
+    img = _test_image(image, size)
+    c = np.ascontiguousarray(
+        _host_dct_quant(img, cfg).transpose(0, 2, 1, 3).reshape(size, size)
+    ).astype(np.int16)
+    codecs = ["spectral", "raw", "auto", "auto-exact", "banded"]
+    if serialize.lzma is not None:  # a Python without liblzma: no xz
+        codecs.insert(1, "xz")
+    if native_entropy_available():
+        codecs.insert(0, "huffman")
+    if rans_available():
+        codecs.insert(0, "rans")
+    rows = []
+    for codec in codecs:
+        enc = dec = None
+        blob = None
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            blob = serialize.coefficients_to_bytes(
+                c, cfg.q_scale, cfg.retain_k, codec=codec, transform=cfg.transform, q_table=cfg.q_table,
+            )
+            dt = (time.perf_counter() - t0) * 1e3
+            enc = dt if enc is None else min(enc, dt)
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            back = serialize.bytes_to_coefficients(blob)[0]
+            dt = (time.perf_counter() - t0) * 1e3
+            dec = dt if dec is None else min(dec, dt)
+        if not np.array_equal(np.asarray(back, np.int16), c):
+            raise AssertionError(f"codec {codec} round-trip not bit-exact")
+        mb = c.nbytes / 1e6
+        rows.append({
+            "codec": codec, "size": size, "image": image,
+            "bytes": len(blob), "factor": round(c.nbytes / len(blob), 2),
+            "encode_ms": round(enc, 2), "decode_ms": round(dec, 2),
+            "encode_MBps": round(mb / (enc / 1e3), 1),
+            "decode_MBps": round(mb / (dec / 1e3), 1),
+        })
+    return rows
+
+
+def bench_e2e_encode(size: int = 8192, cfg: Optional[CodecConfig] = None, image: str = "photo",
+                     entropy: str = "auto", quality: int = 95, device=None) -> dict:
+    """One image from a JPEG file to ``.tdc`` bytes on disk, each phase on
+    the host clock: JPEG load, the device encode (a host wall: the upload,
+    the kernel and the copy of the coefficients back), the host entropy
+    stage, the file write (fsynced).  The input JPEG is made from the named
+    generator at ``quality`` first (not timed)."""
+    import os
+    import tempfile
+
+    from tpudct_torch.models.dispatch import encode_gray_auto
+    from tpudct_torch.utils import imageio, serialize
+
+    cfg = cfg or CodecConfig()
+    dev = default_device(device)
+    arr = _test_image(image, size).astype(np.uint8)
+    p = get_pipeline("hp")
+    fd, jpath = tempfile.mkstemp(suffix=".jpg")
+    os.close(fd)
+    fd, tpath = tempfile.mkstemp(suffix=".tdc")
+    os.close(fd)
+    try:
+        imageio.save_image(jpath, arr, quality=quality)
+        t0 = time.perf_counter()
+        img = imageio.load_image(jpath)
+        t_load = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        c, (h, w) = encode_gray_auto(p, img, cfg, device=dev)
+        c = c.cpu().numpy()  # the copy back is part of the phase
+        t_dev = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        blob = serialize.coefficients_to_bytes(
+            c, cfg.q_scale, cfg.retain_k, orig_shape=(h, w), transform=cfg.transform,
+            codec=entropy, q_table=cfg.q_table,
+        )
+        t_ent = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with open(tpath, "wb") as f:
+            f.write(blob)
+            f.flush()
+            os.fsync(f.fileno())
+        t_write = time.perf_counter() - t0
+        chosen = serialize.inspect_stream(blob)["codec"]
+    finally:
+        os.remove(jpath)
+        os.remove(tpath)
+    total = t_load + t_dev + t_ent + t_write
+    return {
+        "bench": "e2e-encode", "size": size, "image": image,
+        "entropy": entropy, "chosen_codec": chosen, "bytes": len(blob),
+        "load_s": round(t_load, 3), "device_wall_s": round(t_dev, 3),
+        "entropy_s": round(t_ent, 3), "write_s": round(t_write, 3),
+        "total_s": round(total, 3),
+        "backend": _backend(dev),
+    }
+
+
+def bench_e2e_batch(n_images: int = 32, size: int = 1024, cfg: Optional[CodecConfig] = None,
+                    entropy: str = "auto", quality: int = 95, device=None) -> dict:
+    """Bulk encode as a user runs it: ``n_images`` JPEGs through the port's
+    own ``batch`` verb (stacked device launches, threaded host entropy),
+    its host wall, and the histogram of the entropy stages ``auto`` chose
+    in the files it wrote.  The input JPEGs are made first (not timed)."""
+    import collections
+    import os
+    import tempfile
+
+    from tpudct_torch.cli import main as cli_main
+    from tpudct_torch.utils import imageio, serialize
+
+    cfg = cfg or CodecConfig()
+    dev = default_device(device)
+    with tempfile.TemporaryDirectory() as td:
+        src = os.path.join(td, "in")
+        dst = os.path.join(td, "out")
+        os.mkdir(src)
+        for i in range(n_images):
+            imageio.save_image(
+                os.path.join(src, f"im{i:04d}.jpg"),
+                photographic_image(size, seed=i).astype(np.uint8), quality=quality,
+            )
+        args = ["batch", src, dst, "--entropy", entropy, "--device", str(dev)]
+        if cfg.q_scale != 1.0:
+            args += ["--q-scale", str(cfg.q_scale)]
+        t0 = time.perf_counter()
+        rc = cli_main(args)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"batch exited {rc}")
+        hist: collections.Counter = collections.Counter()
+        total_bytes = 0
+        for name in os.listdir(dst):
+            if not name.endswith(".tdc"):
+                continue
+            with open(os.path.join(dst, name), "rb") as f:
+                data = f.read()
+            hist[serialize.inspect_stream(data)["codec"]] += 1
+            total_bytes += len(data)
+    return {
+        "bench": "e2e-batch", "images": n_images, "size": size,
+        "entropy": entropy, "wall_s": round(wall, 3),
+        "images_per_s": round(n_images / wall, 2),
+        "bytes_total": total_bytes, "codec_histogram": dict(hist),
+        "backend": _backend(dev),
+    }
+
+
 def sweep(sizes: Iterable[int] = (256, 512, 1024, 2048, 4096, 8192),
           pipelines: Iterable[str] = ("batched", "fast", "hp"), cfg: Optional[CodecConfig] = None,
           **kw) -> list:
     """The original codec's benchmark table (README.md:45-60): every
     pipeline at every size."""
     return [bench_pipeline(n, s, cfg, **kw) for s in sizes for n in pipelines]
+
+
+def accuracy_table(image: np.ndarray, pipeline: str = "hp", ks=(6, 7, 8, 9, 10, None),
+                   cfg_base: Optional[CodecConfig] = None, device=None) -> list:
+    """The original codec's accuracy table (README.md:62-69): PEEN, MSE and
+    the compression factors of ``utils.metrics.quality_report`` over the
+    retained-coefficient sweep (``retain_k`` over ``cfg_base``), each row
+    one ``p.roundtrip`` of the edge-padded f32 image on the device."""
+    import dataclasses
+
+    from tpudct_torch.ops.padding import crop, pad_to_blocks
+    from tpudct_torch.utils.metrics import quality_report
+
+    cfg_base = cfg_base or CodecConfig()
+    p = get_pipeline(pipeline)
+    dev = default_device(device)
+    x, (h, w) = pad_to_blocks(torch.as_tensor(np.asarray(image, np.float32), device=dev))
+    rows = []
+    for k in ks:
+        cfg = dataclasses.replace(cfg_base, retain_k=k)
+        c, rec = p.roundtrip(x, cfg)
+        rep = quality_report(np.asarray(image).astype(np.uint8), crop(rec, h, w).cpu().numpy(),
+                             c.cpu().numpy(), device=dev)
+        rep["k"] = "std" if k is None else k
+        rows.append(rep)
+    return rows
+
+
+def accuracy_table_color(rgb: np.ndarray, pipeline: str = "hp", ks=(6, 7, 8, 9, 10, None),
+                         cfg_base: Optional[CodecConfig] = None, subsample=True, device=None) -> list:
+    """The color accuracy table: RGB MSE and PSNR and the ``.tdcc``
+    compression factor (zlib of the raw RGB over the file's bytes) over the
+    retained-coefficient sweep, on the f32 color path
+    (``encode_color``/``decode_color``), as in the reference."""
+    import dataclasses
+    import zlib
+
+    from tpudct_torch.models.color import decode_color, encode_color
+    from tpudct_torch.utils.serialize import color_to_bytes
+
+    cfg_base = cfg_base or CodecConfig()
+    p = get_pipeline(pipeline)
+    dev = default_device(device)
+    x = torch.as_tensor(np.asarray(rgb, np.float32), device=dev)
+    raw = len(zlib.compress(np.ascontiguousarray(rgb, np.uint8).tobytes(), 6))
+    rows = []
+    for k in ks:
+        cfg = dataclasses.replace(cfg_base, retain_k=k)
+        planes, meta = encode_color(p, x, cfg, subsample=subsample)
+        rec = decode_color(p, planes, meta, cfg).cpu().numpy()
+        mse = float(((rec.astype(np.float64) - np.asarray(rgb, np.float64)) ** 2).mean())
+        blob = color_to_bytes(
+            {n: v.cpu().numpy() for n, v in planes.items()}, meta,
+            cfg.q_scale, cfg.retain_k, cfg.transform,
+        )
+        rows.append({
+            "mse": mse,
+            # the perfect-reconstruction cap: inf is not valid JSON
+            "psnr_db": 10 * np.log10(255.0**2 / max(mse, 1e-30)),
+            "compression_factor": raw / len(blob),
+            "k": "std" if k is None else k,
+        })
+    return rows
+
+
+def rate_distortion_curve(image: np.ndarray, pipeline: str = "hp",
+                          qualities=(10, 20, 30, 40, 50, 60, 70, 80, 90, 95),
+                          cfg_base: Optional[CodecConfig] = None, codec: str = "auto",
+                          device=None) -> list:
+    """Rate against distortion per IJG quality: the ``.tdc`` file's bytes
+    and PSNR (``p.roundtrip`` at ``q_scale_for_quality(q)``) beside
+    libjpeg's file and PSNR at the same quality setting."""
+    import dataclasses
+
+    from tpudct_torch.ops.padding import crop, pad_to_blocks
+    from tpudct_torch.ops.quant import q_scale_for_quality
+    from tpudct_torch.utils.imageio import encode_jpeg_bytes
+    from tpudct_torch.utils.serialize import coefficients_to_bytes
+
+    cfg_base = cfg_base or CodecConfig()
+    p = get_pipeline(pipeline)
+    dev = default_device(device)
+    img8 = np.array(image, np.uint8)  # writable: a .npy input is a read-only memory map
+    x, (h, w) = pad_to_blocks(torch.as_tensor(img8, device=dev).to(torch.float32))
+    rows = []
+    for q in qualities:
+        cfg = dataclasses.replace(cfg_base, q_scale=q_scale_for_quality(q))
+        c, rec = p.roundtrip(x, cfg)
+        rec8 = crop(rec, h, w).cpu().numpy().astype(np.float64)
+        mse = float(((rec8 - img8) ** 2).mean())
+        blob = coefficients_to_bytes(
+            c.cpu().numpy(), cfg.q_scale, cfg.retain_k, orig_shape=(h, w),
+            transform=cfg.transform, codec=codec, q_table=cfg.q_table,
+        )
+        jpg = encode_jpeg_bytes(img8, quality=int(q))
+        jmse = float(((_pil_decode(jpg).astype(np.float64) - img8) ** 2).mean())
+        rows.append({
+            "quality": int(q),
+            "tdc_bytes": len(blob),
+            "tdc_psnr_db": 10 * np.log10(255.0**2 / max(mse, 1e-9)),
+            "jpeg_bytes": len(jpg),
+            "jpeg_psnr_db": 10 * np.log10(255.0**2 / max(jmse, 1e-9)),
+        })
+    return rows
+
+
+def rate_distortion_curve_color(rgb: np.ndarray, pipeline: str = "hp",
+                                qualities=(10, 20, 30, 40, 50, 60, 70, 80, 90, 95),
+                                cfg_base: Optional[CodecConfig] = None, codec: str = "auto",
+                                subsample="420", device=None) -> list:
+    """The color rate-distortion curve: the ``.tdcc`` file's bytes and RGB
+    PSNR per IJG quality (``roundtrip_color_auto``: the u8 path where the
+    quality's q_scale is int8-safe, the f32 path below) beside libjpeg's
+    color file (YCbCr, 4:2:0) at the same quality setting."""
+    import dataclasses
+
+    from tpudct_torch.models.color import roundtrip_color_auto
+    from tpudct_torch.ops.quant import q_scale_for_quality
+    from tpudct_torch.utils.imageio import encode_jpeg_bytes
+    from tpudct_torch.utils.serialize import color_to_bytes
+
+    cfg_base = cfg_base or CodecConfig()
+    p = get_pipeline(pipeline)
+    dev = default_device(device)
+    img8 = np.array(rgb, np.uint8)
+    if img8.ndim != 3 or img8.shape[2] != 3:
+        raise ValueError(f"expected an (H, W, 3) RGB image, got {img8.shape}")
+    rows = []
+    for q in qualities:
+        cfg = dataclasses.replace(cfg_base, q_scale=q_scale_for_quality(q))
+        planes, meta, rec = roundtrip_color_auto(p, img8, cfg, subsample=subsample, device=dev)
+        mse = float(((rec.cpu().numpy().astype(np.float64) - img8) ** 2).mean())
+        blob = color_to_bytes(
+            {k: v.cpu().numpy() for k, v in planes.items()}, meta,
+            cfg.q_scale, cfg.retain_k, cfg.transform, codec=codec,
+        )
+        jpg = encode_jpeg_bytes(img8, quality=int(q))
+        jmse = float(((_pil_decode_rgb(jpg).astype(np.float64) - img8) ** 2).mean())
+        rows.append({
+            "quality": int(q),
+            "tdc_bytes": len(blob),
+            "tdc_psnr_db": 10 * np.log10(255.0**2 / max(mse, 1e-9)),
+            "jpeg_bytes": len(jpg),
+            "jpeg_psnr_db": 10 * np.log10(255.0**2 / max(jmse, 1e-9)),
+            "color": True,
+        })
+    return rows
+
+
+def _pil_decode(data: bytes) -> np.ndarray:
+    import io
+
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(data)).convert("L"))
+
+
+def _pil_decode_rgb(data: bytes) -> np.ndarray:
+    import io
+
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
 
 
 def bd_rate_pct(anchor, test) -> float:

@@ -1,15 +1,21 @@
-"""Command-line interface of the port: the file workflow of ``tpudct/cli.py``.
+"""Command-line interface of the port: the verbs of ``tpudct/cli.py``.
 
   python -m tpudct_torch run    --pipeline hp input.jpg output.jpg [--coeffs x.tdc]
   python -m tpudct_torch encode --pipeline hp input.npy coeffs.tdc
   python -m tpudct_torch decode coeffs.tdc output.npy
   python -m tpudct_torch inspect coeffs.tdc [more.tdcc ...]
+  python -m tpudct_torch batch  in/ out/              # bulk encode (resumable)
+  python -m tpudct_torch unbatch out/ pix/ --ext .npy # bulk decode (resumable)
+  python -m tpudct_torch bench  --size 1024 --pipelines hp,fast
+  python -m tpudct_torch sweep | table | curve | scale | profile
+  python -m tpudct_torch selftest | compare a b | info
 
 The files are the reference's: a ``.tdc``/``.tdcc`` written here has the
 bytes the reference writes for the same coefficients, and each package
-decodes the other's files.  Color via ``--color`` on run/encode; decode
-reads gray and color streams, in full or as ``--grayscale``, ``--scale
-M/8``, ``--planes N``, ``--preview`` and ``--rows A:B``.
+decodes the other's files.  Color via ``--color`` on run/encode/batch;
+decode reads gray and color streams, in full or as ``--grayscale``,
+``--scale M/8``, ``--planes N``, ``--preview`` and ``--rows A:B``.  The
+flags, defaults, JSON records and exit codes are the reference's.
 
 ``--device`` (which the reference lacks) names where the codec runs: the
 first CUDA card by default (``models.dispatch.default_device``); ``--device
@@ -22,19 +28,23 @@ image rides the card N rows at a time through pinned, double-buffered
 staging (``utils/streaming.py``), each band entropy-coding into its own
 segment of a banded stream, and every decode mode streams too.  Images and
 streams above ``streaming.STREAM_PIXELS`` (2^32 pixels) stream without the
-flag.  (``CodecConfig.band_rows`` is another thing: an inert field kept for
-the reference's config surface.)
+flag, in ``batch`` and ``unbatch`` too.  (``CodecConfig.band_rows`` is
+another thing: an inert field kept for the reference's config surface.)
 
-Not ported yet (each raises a ValueError that says so): ``.jpg`` decode
-inputs (the lossless coefficient import; ROADMAP A.4a(ii)), and the
-reference's other verbs.
+Not ported yet (each raises a ValueError that says so): the JPEG
+coefficient import and export of ROADMAP A.4a(ii), that is ``.jpg`` decode
+inputs, the verbs ``transcode`` and ``edit``, and ``--transcode`` on
+``batch``/``unbatch``.  ``selftest --families`` runs the reference's
+families less jpg_import, which waits for the same slice.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -780,6 +790,784 @@ def cmd_inspect(args) -> int:
     return rc
 
 
+_WAITS_FOR_COEF_IO = (
+    "is not in tpudct_torch yet: it needs the JPEG coefficient import and "
+    "export (ROADMAP A.4a(ii))"
+)
+
+
+def _dev(args):
+    from tpudct_torch.models.dispatch import default_device
+
+    return default_device(args.device)
+
+
+def cmd_bench(args) -> int:
+    from tpudct_torch import benchmark as B
+
+    if args.host_entropy:
+        # the host serializer alone: no device work at all
+        for row in B.bench_host_entropy(args.size, _cfg_from(args), reps=args.reps, image=args.image):
+            print(json.dumps(row))
+        return 0
+    dev = _dev(args)
+    if args.e2e:
+        # pixels to bytes on disk, by phase, then the bulk batch flow
+        print(json.dumps(B.bench_e2e_encode(
+            args.size, _cfg_from(args), image=args.image, entropy=args.entropy, device=dev,
+        )))
+        if args.batch:
+            print(json.dumps(B.bench_e2e_batch(
+                args.batch, min(args.size, 1024), _cfg_from(args), entropy=args.entropy, device=dev,
+            )))
+        return 0
+    for name in args.pipelines.split(","):
+        print(json.dumps(B.bench_pipeline(name.strip(), args.size, _cfg_from(args), reps=args.reps,
+                                          device=dev)))
+    if args.fused:
+        print(json.dumps(B.bench_fused_roundtrip(args.size, _cfg_from(args), reps=args.reps, device=dev)))
+    if args.batch:
+        print(json.dumps(B.bench_serving_throughput(args.size, args.batch, _cfg_from(args), reps=args.reps,
+                                                    device=dev)))
+    if args.cpu:
+        print(json.dumps(B.bench_cpu_numpy(args.size, _cfg_from(args), reps=args.reps)))
+    if args.color:
+        print(json.dumps(B.bench_color(
+            args.size, args.pipelines.split(",")[0].strip(), _cfg_from(args),
+            subsample=_chroma_mode(args), reps=args.reps, device=dev,
+        )))
+        if args.batch:
+            print(json.dumps(B.bench_color_serving(args.size, args.batch, _cfg_from(args), reps=args.reps,
+                                                   device=dev)))
+    return 0
+
+
+def cmd_sweep(args) -> int:
+    from tpudct_torch.benchmark import sweep
+
+    sizes = [int(s) for s in args.sizes.split(",")]
+    for row in sweep(sizes, [p.strip() for p in args.pipelines.split(",")], _cfg_from(args), reps=args.reps,
+                     device=_dev(args)):
+        print(json.dumps(row))
+    return 0
+
+
+def _default_rgb(gray: np.ndarray) -> np.ndarray:
+    """The built-in generator's image as RGB: the gray image and two rolls."""
+    return np.stack([gray, np.roll(gray, 2, 0), np.roll(gray, 4, 1)], -1)
+
+
+def cmd_table(args) -> int:
+    from tpudct_torch.benchmark import (
+        accuracy_table,
+        accuracy_table_color,
+        photographic_image,
+        structured_image,
+    )
+
+    # 'circuit' stands in for the original codec's Circuit image (its
+    # content), 'photo' for photographic statistics
+    gen = photographic_image if args.image == "photo" else structured_image
+    if args.color:
+        img = _default_rgb(gen()) if args.input is None else _load_rgb(args.input)
+        rows = accuracy_table_color(img, args.pipeline, cfg_base=_cfg_from(args),
+                                    subsample=_chroma_mode(args), device=_dev(args))
+    else:
+        if args.input is None:
+            img = gen()
+        else:
+            from tpudct_torch.utils import imageio
+
+            img = imageio.load_image(args.input)
+        rows = accuracy_table(img, args.pipeline, cfg_base=_cfg_from(args), device=_dev(args))
+    for row in rows:
+        print(json.dumps(row))
+    return 0
+
+
+def cmd_curve(args) -> int:
+    """Rate against distortion: .tdc/.tdcc bytes and PSNR beside libjpeg's
+    per IJG quality (gray by default; --color against libjpeg's color path
+    at equal RGB PSNR); with >= 4 points, the Bjontegaard summary."""
+    from tpudct_torch.benchmark import (
+        photographic_image,
+        rate_distortion_curve,
+        rate_distortion_curve_color,
+        structured_image,
+    )
+
+    qs = [int(q) for q in args.qualities.split(",")]
+    gen = photographic_image if args.image == "photo" else structured_image
+    if args.color:
+        img = _default_rgb(gen()) if args.input is None else _load_rgb(args.input)
+        rows = rate_distortion_curve_color(img, args.pipeline, qualities=qs, cfg_base=_cfg_from(args),
+                                           codec=args.entropy, subsample=_chroma_mode(args),
+                                           device=_dev(args))
+    else:
+        if args.input is None:
+            img = gen()
+        else:
+            from tpudct_torch.utils import imageio
+
+            img = imageio.load_image(args.input)
+        rows = rate_distortion_curve(img, args.pipeline, qualities=qs, cfg_base=_cfg_from(args),
+                                     codec=args.entropy, device=_dev(args))
+    for row in rows:
+        print(json.dumps(row))
+    if len(rows) >= 4:
+        # BD-rate/BD-PSNR against libjpeg over the whole curve (negative
+        # bd_rate: smaller files at the same PSNR)
+        from tpudct_torch.benchmark import bd_summary
+
+        summary = {"transform": getattr(args, "transform", "haweel")}
+        try:
+            summary.update(bd_summary(rows))
+        except ValueError as e:  # non-monotone or non-overlapping curves
+            summary["bd_error"] = str(e)
+        print(json.dumps(summary))
+    return 0
+
+
+def _err_kind(e: Exception) -> str:
+    """A manifest error's kind: "io" retries on resume, "stream" (the
+    file's own fault) stays done."""
+    return "io" if isinstance(e, OSError) else "stream"
+
+
+def cmd_unbatch(args) -> int:
+    """Bulk decode of a directory of .tdc/.tdcc files back to images,
+    resumable (the inverse of `batch`: the same manifest and corrupt-file
+    recovery).  --ext is the output format: .jpg (quality honored) or a
+    lossless one (.png, .npy) for exact pixels.
+
+    Full-size gray streams stack as one device launch per same-width,
+    same-config group (``decode_gray_batch_auto``; ``--scale`` on the
+    stacked scaled decode), color streams likewise
+    (``decode_color_batch_auto``); a group the stacked launch rejects with
+    a ValueError or OSError (a corrupt but parseable stream) decodes again
+    one stream at a time, so only the bad file fails.  Any other error
+    (a kernel that does not build or launch) ends the run.  Streams above
+    ``streaming.STREAM_PIXELS`` decode streamed, one at a time.  Every
+    device call runs on the calling thread; the thread pools read, parse
+    and save on the host."""
+    import os
+    import pathlib
+    import threading
+    from concurrent.futures import ThreadPoolExecutor, as_completed
+
+    from tpudct_torch.config import CodecConfig
+    from tpudct_torch.models import get_pipeline
+    from tpudct_torch.models.dispatch import _chunk
+    from tpudct_torch.utils import imageio, serialize, streaming
+
+    ext = args.ext if args.ext.startswith(".") else "." + args.ext
+    ext = ext.lower()
+    if ext not in imageio.SUPPORTED_EXTS:
+        raise SystemExit(
+            f"error: --ext {args.ext!r} not supported; use one of "
+            f"{sorted(imageio.SUPPORTED_EXTS)}"
+        )
+    m_scale = _parse_scale(args.scale) if args.scale is not None else None
+    src = pathlib.Path(args.input_dir)
+    dst = pathlib.Path(args.output_dir)
+    dst.mkdir(parents=True, exist_ok=True)
+    manifest = dst / "manifest.jsonl"
+    done = set()
+    if manifest.exists():
+        for line in manifest.read_text().splitlines():
+            try:
+                rec = json.loads(line)
+                # resume is per output format and per scale; a stream's own
+                # fault stays done, an I/O failure retries
+                out_name = rec.get("out", rec.get("jpg", ""))  # "jpg": the older key
+                if "error" in rec:
+                    if rec.get("error_kind", "stream") != "io":
+                        done.add(rec["file"])
+                elif out_name.lower().endswith(ext) and rec.get("scale") == m_scale:
+                    done.add(rec["file"])
+            except (json.JSONDecodeError, KeyError):
+                continue
+
+    if args.transcode and ext not in imageio.JPEG_EXTS:
+        raise SystemExit("error: --transcode restores .jpg files; use --ext .jpg")
+    if (args.optimize or args.progressive or args.arithmetic) and not args.transcode:
+        raise SystemExit(
+            "error: --optimize/--progressive/--arithmetic re-code the "
+            "output JPEG's entropy stage losslessly; they need --transcode "
+            "(the plain decode path re-encodes pixels, where only "
+            "--quality applies)"
+        )
+    if m_scale is not None and args.transcode:
+        raise SystemExit(
+            "error: --scale decodes pixels; it does not combine with the "
+            "lossless --transcode export"
+        )
+    if args.transcode:
+        raise ValueError(f"unbatch --transcode {_WAITS_FOR_COEF_IO}")
+    files = sorted(q.name for q in src.iterdir() if q.suffix.lower() in (".tdc", ".tdcc"))
+    todo = [name for name in files if name not in done]
+    decoded = failed = 0
+
+    p = get_pipeline(args.pipeline)
+    dev = _dev(args)
+    n_threads = min(os.cpu_count() or 4, 16)
+    chunk = n_threads * 4
+    lock = threading.Lock()
+
+    def _read(name):
+        try:
+            return (src / name).read_bytes()
+        except OSError as e:
+            return ("err", "io", str(e))
+
+    def _mf_error(mf, name, kind, msg):
+        """The one copy of the manifest's error record (resume reads
+        error_kind)."""
+        mf.write(json.dumps({"file": name, "error": msg, "error_kind": kind}) + "\n")
+        mf.flush()
+
+    def _mf_done(mf, name, out_name, shape, streamed=False):
+        rec = {"file": name, "out": out_name, "shape": list(shape)}
+        if streamed:
+            rec["streamed"] = True
+        if m_scale is not None:
+            rec["scale"] = m_scale
+        mf.write(json.dumps(rec) + "\n")
+        mf.flush()
+
+    def _parse(data):
+        """Entropy-decode one stream's bytes on a host thread."""
+        if isinstance(data, tuple):  # a read error, already tagged
+            return data
+        try:
+            if serialize.is_color_stream(data[:4]):
+                return ("color", *serialize.bytes_to_color(data))
+            coeffs, q_scale, _k, (h, w), transform, q_table = serialize.bytes_to_coefficients(
+                data, with_orig_shape=True, with_transform=True, with_q_table=True,
+            )
+            return ("gray", coeffs, CodecConfig(q_scale=q_scale, transform=transform, q_table=q_table), (h, w))
+        except (ValueError, OSError) as e:
+            return ("err", _err_kind(e), str(e))
+
+    def _map_elems(data) -> int:
+        """Decoded-map elements of a stream, from its header alone (sizes
+        the waves; a parse error surfaces later in `_parse`)."""
+        if isinstance(data, tuple):
+            return 0
+        try:
+            rep = serialize.inspect_stream(data)
+        except ValueError:
+            return 0
+        if "planes" in rep:
+            return sum(int(np.prod(pl["shape"])) for pl in rep["planes"])
+        return int(np.prod(rep["shape"]))
+
+    # decoded maps held at once: about 1 GiB, while still stacking and
+    # threading within each wave
+    wave_elems = 1 << 28
+
+    def _group_decode(stacked_fn, single_fn, items):
+        """The stacked decode, or, where it rejects the group with a
+        ValueError or OSError, each item alone, so only the bad stream
+        fails.  Other errors propagate."""
+        try:
+            return stacked_fn(items)
+        except (ValueError, OSError):
+            recs = []
+            for it in items:
+                try:
+                    recs.append(single_fn(it))
+                except (ValueError, OSError) as e:
+                    recs.append(("err", _err_kind(e), str(e)))
+            return recs
+
+    def _process_wave(names, parsed, mf):
+        nonlocal decoded, failed
+        from tpudct_torch.models import color as mc
+        from tpudct_torch.models import dispatch as dp
+
+        outputs: list = [None] * len(names)
+        gray_idx = [j for j, res in enumerate(parsed) if res[0] == "gray"]
+        if gray_idx:
+            items = [(parsed[j][1], parsed[j][2], parsed[j][3]) for j in gray_idx]
+            if m_scale is None:
+                recs = _group_decode(
+                    lambda its: dp.decode_gray_batch_auto(p, its, device=dev),
+                    lambda it: _np(dp.decode_gray_auto(p, *it, device=dev)),
+                    items,
+                )
+            else:
+                recs = _group_decode(
+                    lambda its: dp.decode_gray_scaled_batch_auto(p, its, m_scale, device=dev),
+                    lambda it: _np(dp.decode_gray_scaled_auto(p, *it, m_scale, device=dev)),
+                    items,
+                )
+            for j, r in zip(gray_idx, recs):
+                outputs[j] = r
+        color_idx = [j for j, res in enumerate(parsed) if res[0] == "color"]
+        if m_scale is None and color_idx:
+            recs = _group_decode(
+                lambda its: mc.decode_color_batch_auto(p, its, device=dev),
+                lambda it: _np(mc.decode_color_auto(p, *it, device=dev)),
+                [(parsed[j][1], parsed[j][2],
+                  CodecConfig(q_scale=parsed[j][2]["q_scale"], transform=parsed[j][2]["transform"]))
+                 for j in color_idx],
+            )
+            for j, r in zip(color_idx, recs):
+                outputs[j] = r
+        for j, res in enumerate(parsed):
+            if outputs[j] is not None or res[0] != "color":
+                continue
+            # color at a fractional scale, one stream at a time
+            _tag, planes, meta = res
+            ccfg = CodecConfig(q_scale=meta["q_scale"], transform=meta["transform"])
+            fac = 8 // m_scale if 8 % m_scale == 0 else None
+            try:
+                outputs[j] = _np(mc.decode_color_scaled(p, planes, meta, ccfg, fac,
+                                                        m=None if fac else m_scale, device=dev))
+            except (ValueError, OSError) as e:
+                outputs[j] = ("err", _err_kind(e), str(e))
+
+        def _save(j):
+            res = outputs[j] if outputs[j] is not None else parsed[j]
+            if isinstance(res, tuple) and res and res[0] == "err":
+                return res
+            out = dst / (names[j] + ext)
+            try:
+                imageio.save_image(out, res, quality=args.quality)
+            except (ValueError, OSError) as e:
+                return ("err", _err_kind(e), str(e))
+            return ("ok", out.name, list(res.shape))
+
+        with ThreadPoolExecutor(n_threads) as ex:
+            futs = {ex.submit(_save, j): j for j in range(len(names))}
+            for fut in as_completed(futs):
+                j = futs[fut]
+                res = fut.result()
+                with lock:
+                    if res[0] == "err":
+                        _mf_error(mf, names[j], res[1], res[2])
+                        failed += 1
+                    else:
+                        _mf_done(mf, names[j], res[1], res[2])
+                        decoded += 1
+
+    with open(manifest, "a") as mf:
+        for ci in range(0, len(todo), chunk):
+            cnames = todo[ci : ci + chunk]
+            with ThreadPoolExecutor(n_threads) as ex:
+                datas = list(ex.map(_read, cnames))
+            # streams above the threshold decode streamed, one at a time
+            # (a .npy output through a disk memmap), never as whole maps
+            bigset = set()
+            for j, d in enumerate(datas):
+                if isinstance(d, tuple) or _map_elems(d) <= streaming.STREAM_PIXELS:
+                    continue
+                bigset.add(j)
+                name = cnames[j]
+                out = dst / (name + ext)
+                try:
+                    kw = {"out_npy": str(out)} if ext == ".npy" else {}
+                    decode = (streaming.decode_color_streamed if serialize.is_color_stream(d[:4])
+                              else streaming.decode_gray_streamed)
+                    rec = decode(p, d, scale_m=m_scale, device=dev, **kw)
+                    if isinstance(rec, np.memmap):
+                        rec.flush()
+                    else:
+                        imageio.save_image(out, np.asarray(rec), quality=args.quality)
+                    _mf_done(mf, name, out.name, rec.shape, streamed=True)
+                    decoded += 1
+                except (ValueError, OSError) as e:
+                    _mf_error(mf, name, _err_kind(e), str(e))
+                    failed += 1
+            rest = [j for j in range(len(datas)) if j not in bigset]
+            for wave in _chunk(rest, [_map_elems(d) for d in datas], wave_elems):
+                with ThreadPoolExecutor(n_threads) as ex:
+                    parsed = list(ex.map(_parse, (datas[j] for j in wave)))
+                _process_wave([cnames[j] for j in wave], parsed, mf)
+
+    print(json.dumps({
+        "decoded": decoded, "skipped": len(files) - len(todo),
+        "failed": failed, "total": len(files), "manifest": str(manifest),
+    }))
+    return 0
+
+
+def cmd_batch(args) -> int:
+    """Bulk encode of a directory of images to .tdc/.tdcc files, resumably:
+    a manifest (JSONL, one record per finished file) makes a rerun skip
+    what is done under the same configuration.
+
+    Loads run on host threads (JPEGs on the native decoder's pool), then
+    each wave's same-width images ride one stacked device launch
+    (``encode_gray_batch_auto``, ``encode_color_batch_auto``; bit-identical
+    to each image alone) on the calling thread, and the entropy stage and
+    the writes run on a thread pool.  A file that does not load is
+    recorded and skipped; a kernel that does not build or launch ends the
+    run.  Gray images above ``streaming.STREAM_PIXELS`` stream band by
+    band into banded files.  The summary's "ms" splits the wall into the
+    host loads and the device encode with the entropy stage and writes."""
+    import os
+    import pathlib
+    import threading
+    from concurrent.futures import ThreadPoolExecutor, as_completed
+
+    from tpudct_torch.models import get_pipeline
+    from tpudct_torch.models.dispatch import _chunk as _split_waves
+    from tpudct_torch.models.dispatch import encode_gray_batch_auto
+    from tpudct_torch.utils import imageio, serialize, streaming
+
+    src = pathlib.Path(args.input_dir)
+    dst = pathlib.Path(args.output_dir)
+    dst.mkdir(parents=True, exist_ok=True)
+    manifest = dst / "manifest.jsonl"
+    # resume is per configuration: a success record carries the signature
+    # of what changes the output; a stream's own fault stays done, an I/O
+    # failure retries; records without these fields stay done
+    cfg = _cfg_from(args)
+    sig = (f"t={cfg.transform};q={cfg.q_scale};k={cfg.retain_k};"
+           f"qt={cfg.q_table};e={args.entropy};"
+           f"c={int(bool(getattr(args, 'color', False)))};"
+           f"s={_chroma_mode(args)};"
+           f"x={int(bool(getattr(args, 'transcode', False)))}")
+    done = set()
+    if manifest.exists():
+        for line in manifest.read_text().splitlines():
+            try:
+                rec = json.loads(line)
+                name = rec["file"]
+            except (json.JSONDecodeError, KeyError):
+                continue
+            if "error" in rec:
+                if rec.get("error_kind", "stream") != "io":
+                    done.add(name)
+            elif rec.get("cfg", sig) == sig:
+                done.add(name)
+    if args.transcode:
+        raise ValueError(f"batch --transcode {_WAITS_FOR_COEF_IO}")
+
+    p = get_pipeline(args.pipeline)
+    dev = _dev(args)
+    files = sorted(q.name for q in src.iterdir() if q.suffix.lower() in imageio.SUPPORTED_EXTS)
+    todo = [name for name in files if name not in done]
+    skipped = len(files) - len(todo)
+    coded = failed = 0
+    n_threads = args.decode_threads if args.decode_threads > 0 else min(os.cpu_count() or 4, 16)
+    chunk = n_threads * 4
+    lock = threading.Lock()
+    # a wave's images, padded stacks and maps stay within ~3x this many
+    # elements; the sizes come from the headers alone
+    wave_elems = 1 << 28
+
+    def _probe_elems(name) -> int:
+        hw = imageio.probe_image_size(str(src / name))
+        if hw is None:
+            return 0
+        return hw[0] * hw[1] * (3 if args.color else 1)
+
+    def _record(mf, rec: dict) -> None:
+        with lock:
+            mf.write(json.dumps(rec) + "\n")
+            mf.flush()
+
+    t_wall0 = time.perf_counter()
+    load_s = enc_ser_s = 0.0
+    with open(manifest, "a") as mf:
+        file_waves = [
+            [todo[i + j] for j in wave]
+            for i in range(0, len(todo), chunk)
+            for wave in _split_waves(
+                range(len(todo[i : i + chunk])),
+                [_probe_elems(n) for n in todo[i : i + chunk]],
+                wave_elems,
+            )
+        ]
+        for names in file_waves:
+            t_w0 = time.perf_counter()
+            # JPEGs decode on the native pool, other formats one by one; a
+            # file that does not load is None
+            jpgs = [n for n in names if pathlib.Path(n).suffix.lower() in imageio.JPEG_EXTS]
+            pooled = dict(zip(jpgs, imageio.load_jpeg_batch(
+                [src / n for n in jpgs], n_threads=n_threads, errors="none", force_gray=not args.color,
+            ))) if jpgs else {}
+            images = []
+            for n in names:
+                if n in pooled:
+                    images.append(pooled[n])
+                else:
+                    try:
+                        im = imageio.load_image(str(src / n), force_gray=not args.color)
+                        # a .npy raster is a read-only memory map: read it
+                        # here, so no tensor shares a read-only buffer
+                        images.append(np.array(im) if isinstance(im, np.memmap) else im)
+                    except (OSError, ValueError):
+                        images.append(None)
+            pairs = []
+            for name, img in zip(names, images):
+                if img is None:
+                    # recorded (a rerun skips it too), and the job goes on
+                    _record(mf, {"file": name, "error": "decode_failed"})
+                    failed += 1
+                    continue
+                pairs.append((name, img))
+            load_s += time.perf_counter() - t_w0
+            t_w1 = time.perf_counter()
+            if not pairs:
+                continue
+            if args.color:
+                from tpudct_torch.models.color import encode_color_batch_auto
+
+                rgbs = [np.stack([im] * 3, axis=-1) if im.ndim == 2 else im for _, im in pairs]
+                encc = encode_color_batch_auto(p, rgbs, cfg, subsample=_chroma_mode(args), device=dev)
+
+                def _save_color(j):
+                    name = pairs[j][0]
+                    planes, meta = encc[j]
+                    out = dst / (name + ".tdcc")
+                    n = serialize.save_color(out, planes, meta, cfg.q_scale, cfg.retain_k, cfg.transform,
+                                             codec=args.entropy)
+                    return name, out.name, n, meta["orig_shape"]
+
+                with ThreadPoolExecutor(n_threads) as ex:
+                    for fut in as_completed(ex.submit(_save_color, j) for j in range(len(pairs))):
+                        name, out_name, n, (h, w) = fut.result()
+                        _record(mf, {"file": name, "tdc": out_name, "bytes": n, "shape": [h, w, 3], "cfg": sig})
+                        coded += 1
+                enc_ser_s += time.perf_counter() - t_w1
+                continue
+            # frames above the threshold stream band by band into banded
+            # files (the path of `encode --band-rows`)
+            big = [(nm, im) for nm, im in pairs if im.size > streaming.STREAM_PIXELS]
+            if big:
+                pairs = [(nm, im) for nm, im in pairs if im.size <= streaming.STREAM_PIXELS]
+                for name, im in big:
+                    out = dst / (name + ".tdc")
+                    try:
+                        data, (h, w) = streaming.encode_gray_streamed_bytes(
+                            p, np.asarray(im, np.uint8), cfg, inner=_stream_inner(args.entropy), device=dev,
+                        )
+                        out.write_bytes(data)
+                    except (ValueError, OSError) as e:
+                        _record(mf, {"file": name, "error": str(e), "error_kind": _err_kind(e)})
+                        failed += 1
+                        continue
+                    _record(mf, {"file": name, "tdc": out.name, "bytes": len(data), "shape": [h, w],
+                                 "cfg": sig, "streamed": True})
+                    coded += 1
+                if not pairs:
+                    enc_ser_s += time.perf_counter() - t_w1
+                    continue
+            # same-width images ride one stacked launch (host arrays back
+            # after one copy per chunk); the entropy stage and writes thread
+            enc = encode_gray_batch_auto(p, [im for _, im in pairs], cfg, device=dev)
+
+            def _save(j):
+                name = pairs[j][0]
+                c, (h, w) = enc[j]
+                # the full input name: a.jpg and a.jpeg cannot collide
+                out = dst / (name + ".tdc")
+                n = serialize.save_coefficients(
+                    out, c, cfg.q_scale, cfg.retain_k, orig_shape=(h, w), transform=cfg.transform,
+                    codec=args.entropy, q_table=cfg.q_table,
+                )
+                return name, out.name, n, (h, w)
+
+            with ThreadPoolExecutor(n_threads) as ex:
+                for fut in as_completed(ex.submit(_save, j) for j in range(len(pairs))):
+                    name, out_name, n, (h, w) = fut.result()
+                    _record(mf, {"file": name, "tdc": out_name, "bytes": n, "shape": [h, w], "cfg": sig})
+                    coded += 1
+            enc_ser_s += time.perf_counter() - t_w1
+    print(json.dumps({
+        "encoded": coded, "skipped": skipped, "failed": failed,
+        "total": len(files), "manifest": str(manifest),
+        "ms": {"load": round(load_s * 1e3, 1),
+               "encode_serialize": round(enc_ser_s * 1e3, 1),
+               "wall": round((time.perf_counter() - t_wall0) * 1e3, 1)},
+    }))
+    return 0
+
+
+def cmd_scale(args) -> int:
+    from tpudct_torch.parallel.scaling import scaling_table
+
+    counts = None
+    if args.devices:
+        counts = [int(x) for x in args.devices.split(",")]
+    k_pair = None
+    if args.k_pair:
+        k_pair = tuple(int(x) for x in args.k_pair.split(","))
+        if len(k_pair) != 2:
+            raise ValueError(f"--k-pair expects A,B, got {args.k_pair!r}")
+    for row in scaling_table(args.size, args.pipeline, counts, _cfg_from(args), reps=args.reps, k_pair=k_pair,
+                             device=args.device):
+        print(json.dumps(row))
+    return 0
+
+
+def cmd_profile(args) -> int:
+    """A device trace of `reps` codec passes (``p.roundtrip`` of the seeded
+    noise image), after one warm-up pass outside the window, as a Chrome
+    trace (``trace.json`` in --out; Perfetto and chrome://tracing open it)."""
+    import torch
+
+    from tpudct_torch.benchmark import synthetic_image
+    from tpudct_torch.models import get_pipeline
+    from tpudct_torch.utils import profiling
+
+    cfg = _cfg_from(args)
+    p = get_pipeline(args.pipeline)
+    dev = _dev(args)
+    x = torch.as_tensor(synthetic_image(args.size), device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    p.roundtrip(x, cfg)  # builds the kernels outside the window
+    sync()
+    with profiling.trace(args.out):
+        with profiling.annotate(f"{p.name}-roundtrip-{args.size}"):
+            for _ in range(args.reps):
+                p.roundtrip(x, cfg)
+            sync()
+    print(json.dumps({"trace_dir": args.out, "pipeline": p.name, "size": args.size, "reps": args.reps}))
+    return 0
+
+
+def cmd_selftest(args) -> int:
+    """The correctness gate as a user command: one seed-42 image through the
+    kernels on the device, held against the float64 golden model
+    (``selftest.correctness_gate``); with --families one small case per
+    kernel family (``selftest.family_gates``).  The golden model covers the
+    reference configuration, so the gate checks exactly that."""
+    from tpudct_torch.config import CodecConfig
+    from tpudct_torch.models import get_pipeline
+    from tpudct_torch.selftest import correctness_gate, family_gates
+
+    p = get_pipeline(args.pipeline)
+    dev = _dev(args)
+    try:
+        rep = correctness_gate(p, CodecConfig(), size=args.size, device=dev)
+        fams = family_gates(p, CodecConfig(), device=dev) if args.families else []
+    except (AssertionError, ValueError, OSError, RuntimeError) as e:
+        print(json.dumps({"gate": "FAIL", "reason": str(e)}))
+        return 1
+    print(json.dumps(rep))
+    for f in fams:
+        print(json.dumps(f))
+    return 0
+
+
+def cmd_transcode(args) -> int:
+    raise ValueError(f"transcode {_WAITS_FOR_COEF_IO}")
+
+
+def cmd_edit(args) -> int:
+    raise ValueError(f"edit {_WAITS_FOR_COEF_IO}")
+
+
+def cmd_compare(args) -> int:
+    """Tolerance comparison of two images with the metric suite: exit code
+    0 where max|a - b| <= --tol, 1 where not, 2 where the shapes differ.
+    Color images compare in their channels (SSIM on BT.601 luma).  Two
+    .tdc/.tdcc inputs compare at the coefficient level instead: the count
+    of differing entries, the largest difference, and whether the
+    difference fits the +-1 on <= 0.5% tie class."""
+    from tpudct_torch.utils import imageio, metrics
+
+    def _is_tdc(path):
+        return str(path).lower().endswith((".tdc", ".tdcc"))
+
+    if _is_tdc(args.a) and _is_tdc(args.b):
+        from tpudct_torch.utils import serialize
+
+        def _planes(path):
+            with open(path, "rb") as f:
+                data = f.read()
+            if serialize.is_color_stream(data):
+                pl, _meta = serialize.bytes_to_color(data)
+                return {k: np.asarray(v, np.float64) for k, v in pl.items()}
+            c, _qs, _k = serialize.bytes_to_coefficients(data)
+            return {"y": np.asarray(c, np.float64)}
+
+        pa, pb = _planes(args.a), _planes(args.b)
+        if sorted(pa) != sorted(pb) or any(pa[k].shape != pb[k].shape for k in pa):
+            print(json.dumps({
+                "error": "shape_mismatch",
+                "a": {k: list(v.shape) for k, v in pa.items()},
+                "b": {k: list(v.shape) for k, v in pb.items()},
+            }))
+            return 2
+        total = sum(v.size for v in pa.values())
+        diff = {k: np.abs(pa[k] - pb[k]) for k in pa}
+        ndiff = int(sum((d > 0).sum() for d in diff.values()))
+        maxd = float(max(d.max() for d in diff.values()))
+        print(json.dumps({
+            "coefficients": True,
+            "planes": sorted(pa),
+            "total": total,
+            "differing": ndiff,
+            "differing_pct": round(100.0 * ndiff / total, 4),
+            "max_abs_diff": maxd,
+            "tol": args.tol,
+            "within_tie_class": bool(maxd <= 1.0 and ndiff <= total * 0.005),
+        }))
+        return 0 if maxd <= args.tol else 1
+
+    a = imageio.load_image(args.a, force_gray=False).astype(np.float64)
+    b = imageio.load_image(args.b, force_gray=False).astype(np.float64)
+    if a.shape != b.shape:
+        print(json.dumps({"error": "shape_mismatch", "shape_a": list(a.shape), "shape_b": list(b.shape)}))
+        return 2
+
+    def _luma(x):
+        if x.ndim == 2:
+            return x
+        return 0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2]
+
+    dev = _dev(args)
+    maxdiff = float(np.abs(a - b).max())
+    rep = {
+        "mse": float(metrics.mse(a, b, dev)),
+        "psnr_db": float(metrics.psnr(a, b, dev)),
+        "peen_pct": float(metrics.peen(a, b, dev)),
+        "ssim": float(metrics.ssim(_luma(a), _luma(b), device=dev)),
+    }
+    close = maxdiff <= args.tol
+    print(json.dumps({"shape": list(a.shape), "max_abs_diff": maxdiff, "tol": args.tol, "close": close, **rep}))
+    return 0 if close else 1
+
+
+def cmd_info(_args) -> int:
+    """The environment: the package, the torch backend ("cuda" where a card
+    is visible, else "cpu") and its devices (a card with its name), the
+    host libraries, pipelines, transforms and tables."""
+    import torch
+
+    import tpudct_torch
+    from tpudct_torch.constants import Q_TABLES, TRANSFORM_ALIASES, TRANSFORMS
+    from tpudct_torch.utils.entropy import native_entropy_available, rans_available
+    from tpudct_torch.utils.imageio import native_backend_available
+
+    cuda = torch.cuda.is_available()
+    devices = ([f"cuda:{i} ({torch.cuda.get_device_name(i)})" for i in range(torch.cuda.device_count())]
+               if cuda else ["cpu"])
+    print(json.dumps({
+        "version": tpudct_torch.__version__,
+        "backend": "cuda" if cuda else "cpu",
+        "devices": devices,
+        "native_jpeg": native_backend_available(),
+        "native_entropy": native_entropy_available(),
+        "native_rans": rans_available(),
+        "pipelines": tpudct_torch.available_pipelines(),
+        "transforms": sorted(TRANSFORMS),
+        "transform_aliases": dict(TRANSFORM_ALIASES),
+        "q_tables": sorted(Q_TABLES),
+    }))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="tpudct_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -825,9 +1613,141 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("output")
     sp.set_defaults(fn=cmd_decode)
 
+    sp = sub.add_parser("bench", help="one-size benchmark (the original benchmark programs' flow)")
+    _add_codec_flags(sp)
+    sp.add_argument("--size", type=int, default=1024)
+    sp.add_argument("--reps", type=int, default=5)
+    sp.add_argument("--pipelines", default="hp")
+    sp.add_argument("--fused", action="store_true", help="also time the single-kernel roundtrip")
+    sp.add_argument("--batch", type=int, default=0, help="also time serving throughput for a batch of N images")
+    sp.add_argument("--cpu", action="store_true", help="also time the host-CPU numpy baseline (the original CPU column's analog)")
+    sp.add_argument("--color", action="store_true", help="also time the full RGB color codec pass")
+    sp.add_argument("--chroma", choices=("420", "422", "444"), default=None,
+                    help="with --color: chroma mode for the color bench (default 420)")
+    sp.add_argument("--host-entropy", action="store_true", dest="host_entropy",
+                    help="benchmark the host entropy stage instead (every .tdc codec's encode/decode on this size; no device work)")
+    sp.add_argument("--e2e", action="store_true",
+                    help="end-to-end wall-time decomposition instead: load -> device -> entropy -> write for one --size image (+ the bulk batch flow when --batch N is given); needs a JPEG encoder (libjpeg or PIL)")
+    sp.add_argument("--image", default="photo", choices=("photo", "circuit", "noise"),
+                    help="test-image statistics for --host-entropy and --e2e (default photo)")
+    sp.set_defaults(fn=cmd_bench)
+
+    sp = sub.add_parser("sweep", help="size x pipeline benchmark table (the original README's table)")
+    _add_codec_flags(sp)
+    sp.add_argument("--sizes", default="256,512,1024,2048,4096,8192")
+    sp.add_argument("--pipelines", default="batched,fast,hp")
+    sp.add_argument("--reps", type=int, default=5)
+    sp.set_defaults(fn=cmd_sweep)
+
+    sp = sub.add_parser("table", help="PEEN/MSE/compression k-sweep (the original README's accuracy table)")
+    _add_codec_flags(sp)
+    sp.add_argument("input", nargs="?", default=None,
+                    help="image input; default: built-in generated image (see --image)")
+    sp.add_argument("--image", choices=("circuit", "photo"), default="circuit",
+                    help="built-in generator when no input is given: circuit-board content analog | photographic-statistics analog")
+    _add_color_flags(sp)
+    sp.set_defaults(fn=cmd_table)
+
+    sp = sub.add_parser("batch", help="bulk encode a directory to .tdc/.tdcc, resumable via manifest")
+    _add_codec_flags(sp)
+    _add_color_flags(sp)
+    sp.add_argument("input_dir")
+    sp.add_argument("output_dir")
+    sp.add_argument("--decode-threads", type=int, default=8,
+                    help="JPEG decode and entropy thread pool size (0 = one per CPU)")
+    sp.add_argument("--transcode", action="store_true",
+                    help="lossless archival mode (the JPEG coefficient import): not ported yet, ROADMAP A.4a(ii)")
+    sp.set_defaults(fn=cmd_batch)
+
+    sp = sub.add_parser("curve", help="rate-distortion sweep: .tdc vs libjpeg bytes+PSNR per quality (needs libjpeg or PIL)")
+    _add_codec_flags(sp)
+    sp.add_argument("input", nargs="?", default=None,
+                    help="image input; default: built-in generated image (see --image)")
+    sp.add_argument("--image", choices=("circuit", "photo"), default="photo")
+    sp.add_argument("--qualities", default="10,20,30,40,50,60,70,80,90,95")
+    _add_color_flags(sp)
+    sp.set_defaults(fn=cmd_curve)
+
+    sp = sub.add_parser("unbatch", help="bulk decode a directory of .tdc/.tdcc back to images, resumable")
+    sp.add_argument("--pipeline", default="hp")
+    sp.add_argument("--quality", type=int, default=100)
+    sp.add_argument("--ext", default=".jpg",
+                    help="output extension: .jpg (default, quality applies) or a lossless format like .png or .npy")
+    sp.add_argument("--scale", default=None, metavar="M/8",
+                    help="bulk thumbnailer: decode every stream at M/8 scale (M in 1..16; integer 8/M rides the fused scaled kernel — see decode --scale)")
+    sp.add_argument("--transcode", action="store_true",
+                    help="lossless export back to .jpg (the JPEG coefficient export): not ported yet, ROADMAP A.4a(ii)")
+    sp.add_argument("--optimize", action="store_true", help="with --transcode: two-pass optimal Huffman tables")
+    sp.add_argument("--progressive", action="store_true", help="with --transcode: progressive scan script")
+    sp.add_argument("--arithmetic", action="store_true", help="with --transcode: T.81 arithmetic entropy coding")
+    _add_device_flag(sp)
+    sp.add_argument("input_dir")
+    sp.add_argument("output_dir")
+    sp.set_defaults(fn=cmd_unbatch)
+
+    sp = sub.add_parser("scale", help="scaling-efficiency table across rank counts (virtual ranks on one card measure stream overlap, not scaling)")
+    _add_codec_flags(sp)
+    sp.add_argument("--size", type=int, default=2048)
+    sp.add_argument("--devices", default=None,
+                    help="comma list of rank counts, default powers of 2 up to the cards (or --device); counts above the cards put virtual ranks on them")
+    sp.add_argument("--reps", type=int, default=3)
+    sp.add_argument("--k-pair", default=None, dest="k_pair",
+                    help="the reference's chain-length pin, A,B: accepted and inert (CUDA events time each call)")
+    sp.set_defaults(fn=cmd_scale)
+
+    sp = sub.add_parser("profile", help="capture a per-kernel device trace (Chrome trace: Perfetto, chrome://tracing)")
+    _add_codec_flags(sp)
+    sp.add_argument("--size", type=int, default=2048)
+    sp.add_argument("--reps", type=int, default=3)
+    sp.add_argument("--out", default=os.path.join(tempfile.gettempdir(), "tpudct_torch-trace"),
+                    help="trace output directory (trace.json)")
+    sp.set_defaults(fn=cmd_profile)
+
+    sp = sub.add_parser("selftest", help="on-device correctness gate vs the f64 golden (the reference configuration)")
+    sp.add_argument("--pipeline", default="hp")
+    sp.add_argument("--size", type=int, default=512)
+    sp.add_argument("--families", action="store_true",
+                    help="also sweep one small case per kernel family (color 4:2:0 u8, f32, scaled decode, "
+                         "streamed gray and color; the reference's jpg import waits for ROADMAP A.4a(ii))")
+    _add_device_flag(sp)
+    sp.set_defaults(fn=cmd_selftest)
+
     sp = sub.add_parser("inspect", help="header-only report on .tdc/.tdcc files (codec, geometry, entropy stage, payload bytes; no decode)")
     sp.add_argument("files", nargs="+")
     sp.set_defaults(fn=cmd_inspect)
+
+    sp = sub.add_parser("transcode", help="lossless coefficient-domain jpg <-> .tdc/.tdcc: not ported yet (ROADMAP A.4a(ii))")
+    sp.add_argument("src")
+    sp.add_argument("dst")
+    sp.add_argument("--entropy", default="auto", type=_entropy_spec)
+    sp.add_argument("--optimize", action="store_true")
+    sp.add_argument("--progressive", action="store_true")
+    sp.add_argument("--arithmetic", action="store_true")
+    sp.set_defaults(fn=cmd_transcode)
+
+    sp = sub.add_parser("edit", help="lossless coefficient-domain flip/rotate/crop/grayscale: not ported yet (ROADMAP A.4a(ii))")
+    sp.add_argument("src")
+    sp.add_argument("dst")
+    sp.add_argument("--op", action="append",
+                    choices=("hflip", "vflip", "rot90", "rot180", "rot270", "transpose"))
+    sp.add_argument("--crop", nargs=4, type=int, metavar=("Y0", "X0", "H", "W"))
+    sp.add_argument("--grayscale", action="store_true")
+    sp.add_argument("--entropy", default="auto",
+                    choices=("auto", "auto-exact", "spectral", "huffman", "rans", "xz", "raw", "banded"))
+    sp.add_argument("--optimize", action="store_true")
+    sp.add_argument("--progressive", action="store_true")
+    sp.add_argument("--arithmetic", action="store_true")
+    sp.set_defaults(fn=cmd_edit)
+
+    sp = sub.add_parser("compare", help="tolerance-compare two images + metric suite; two .tdc/.tdcc inputs diff at the coefficient level")
+    sp.add_argument("a")
+    sp.add_argument("b")
+    sp.add_argument("--tol", type=float, default=0.0, help="max |a-b| accepted as close (default 0: bit-exact)")
+    _add_device_flag(sp)
+    sp.set_defaults(fn=cmd_compare)
+
+    sp = sub.add_parser("info", help="environment / backend report")
+    sp.set_defaults(fn=cmd_info)
     return ap
 
 

@@ -9,10 +9,10 @@ reassembly is a host gather or a ring all-gather whose hops are CUDA
 kernels (B14-B16), decoding each band as it forwards it.  A band-sharded
 coefficient map saves to a .tdc or .tdcc without a gather
 (``save_sharded``/``save_color_sharded``: one banded segment per rank).
+``scaling_table`` times the band-local codec pair per rank count.
 
 Left out, as the module docstrings say: ``distributed_init`` (multi-process
-bring-up), ``band_spec``/``grid_spec`` (JAX partition specs) and
-``scaling_table`` (its timer).
+bring-up) and ``band_spec``/``grid_spec`` (JAX partition specs).
 """
 
 from tpudct_torch.parallel.mesh import BAND_AXIS, COL_AXIS, Mesh, band_mesh, grid_mesh
@@ -22,6 +22,7 @@ from tpudct_torch.parallel.ring import (
     ring_decode_color_gather,
     ring_decode_gather,
 )
+from tpudct_torch.parallel.scaling import scaling_table
 from tpudct_torch.parallel.sharding import (
     Sharded,
     gather,
@@ -59,6 +60,7 @@ __all__ = [
     "ring_decode_gather",
     "save_color_sharded",
     "save_sharded",
+    "scaling_table",
     "shard_batch",
     "shard_image",
     "shard_image_grid",

@@ -207,9 +207,17 @@ def family_gates(p, cfg, device=None) -> list:
     - scaled: the 1/2 decode (``ops.scaled.scaled_decode``) within 1e-2 of
       the box average of the full f32 decode; with u8 kernels, the fast
       form ``scaled_decode_u8`` (hp_scaled_decode_u8) equal to
-      ``box_pool_u8(decode_u8)`` bit for bit.
+      ``box_pool_u8(decode_u8)`` bit for bit;
+    - streamed_gray, streamed_color (pipelines with u8 kernels; one
+      "streamed" skip otherwise): a 96x128 image in 32-row bands and a
+      64x128 RGB in one 64-row band through ``utils.streaming``'s encoders
+      and decoders, the bytes equal to the in-memory banded writer's
+      (``banded:3``, ``banded:1``) and the pixels to ``decode_gray_auto`` /
+      ``decode_color_auto``.
 
-    ``device`` None is the first CUDA card."""
+    The reference's last family, jpg_import, waits for the JPEG
+    coefficient import (ROADMAP A.4a(ii)).  ``device`` None is the first
+    CUDA card."""
     from tpudct_torch.models.dispatch import default_device
     from tpudct_torch.ops.scaled import box_pool_u8, scaled_decode, scaled_decode_u8
     from tpudct_torch.ops.transform import to_uint8
@@ -221,7 +229,7 @@ def family_gates(p, cfg, device=None) -> list:
     c = p.dct(x, cfg)
     full = p.idct(c, cfg)
     rep = check_against_golden(img, c, to_uint8(full), cfg)
-    reports.append({**rep, "gate": "pass", "family": "f32"})
+    reports.append({**rep, "gate": "pass", "family": "f32", "size": 256, "path": "f32"})
 
     s = _np(scaled_decode(c, cfg, 2)).astype(np.float64)
     box = _np(full).astype(np.float64).reshape(128, 2, 128, 2).mean(axis=(1, 3))
@@ -235,4 +243,41 @@ def family_gates(p, cfg, device=None) -> list:
                "fast scaled decode diverged from pool(decode_u8) contract")
         rep["fast_path"] = "pass"
     reports.append(rep)
+    reports.extend(_streamed_gates(p, cfg, device))
+    return reports
+
+
+def _streamed_gates(p, cfg, device) -> list:
+    """The streamed_gray and streamed_color families of :func:`family_gates`."""
+    from tpudct_torch.models.color import decode_color_auto, encode_color_u8
+    from tpudct_torch.models.dispatch import decode_gray_auto, encode_gray_auto
+    from tpudct_torch.utils import serialize, streaming
+
+    if not hasattr(p, "encode_u8"):
+        return [{"gate": "skip", "family": "streamed", "reason": f"pipeline {p.name!r} has no u8 kernels"}]
+    gimg = synthetic_image(128).astype(np.uint8)[:96]  # 96x128: 3 bands
+    sdata, _ = streaming.encode_gray_streamed_bytes(p, gimg, cfg, band_rows=32, device=device)
+    c_ref, (gh, gw) = encode_gray_auto(p, gimg, cfg, device=device)
+    mdata = serialize.coefficients_to_bytes(
+        _np(c_ref), cfg.q_scale, cfg.retain_k, orig_shape=(gh, gw), transform=cfg.transform,
+        q_table=cfg.q_table, codec="banded:3",
+    )
+    _check(sdata == mdata, "streamed gray encode bytes differ from the in-memory banded writer")
+    rec_s = streaming.decode_gray_streamed(p, sdata, band_rows=32, device=device)
+    rec_m = decode_gray_auto(p, c_ref, cfg, (gh, gw))
+    _check(np.array_equal(rec_s, rec_m), "streamed gray decode differs from the in-memory decode")
+    reports = [{"gate": "pass", "family": "streamed_gray", "bytes": len(sdata)}]
+
+    crgb = np.stack([gimg[:64], np.roll(gimg[:64], 3, 0), np.roll(gimg[:64], 5, 1)], -1)
+    csdata, _ = streaming.encode_color_streamed_bytes(p, crgb, cfg, band_rows=64, device=device)
+    pl_ref, meta_ref = encode_color_u8(p, crgb, cfg, device=device)
+    cmdata = serialize.color_to_bytes(
+        {k: _np(v) for k, v in pl_ref.items()}, meta_ref, cfg.q_scale, cfg.retain_k, cfg.transform,
+        codec="banded:1",
+    )
+    _check(csdata == cmdata, "streamed color encode bytes differ from the in-memory banded writer")
+    crec_s = streaming.decode_color_streamed(p, csdata, band_rows=64, device=device)
+    crec_m = _np(decode_color_auto(p, pl_ref, meta_ref, cfg))
+    _check(np.array_equal(crec_s, crec_m), "streamed color decode differs from the in-memory decode")
+    reports.append({"gate": "pass", "family": "streamed_color", "bytes": len(csdata)})
     return reports

@@ -256,7 +256,10 @@ def probe_image_size(path: str):
     Used by the bulk commands to bound per-wave host residency before
     loading anything.  Returns None when the header can't be read (the
     caller treats the file as size-unknown; the actual load surfaces the
-    error with the per-file recovery contract)."""
+    error with the per-file recovery contract).  A ``.npy`` raster is
+    size-unknown here too, as it is to PIL, without importing PIL."""
+    if pathlib.Path(path).suffix.lower() == ".npy":
+        return None
     from PIL import Image
 
     try:
