@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py --mp-worker ...   (one process of phase 6's multi-process path)
+
 Builds the port's CUDA kernels (the hp codec B1-B7, the YCbCr split and
 merge B8-B13, the ring hops B14-B16 and the study kernels B17-B36: the u8
 copy floors, the fused 4:2:0 color encode and decode, the color split/merge
@@ -190,7 +192,32 @@ variants) from ``tpudct_torch/csrc`` and, in order:
      (its trace.json must name k_rt_f32), ``compare`` and ``info`` (it must
      report cuda and the card) -- each call moving exactly its counters;
      then every file against the per-file library call and every raster
-     against the per-file decode, bit for bit;
+     against the per-file decode, bit for bit; then the coefficient path,
+     its counters set to 0 just before it: an 8192^2 photo-like gray frame
+     and the 4032x3024 camera frame at 4:2:0 encoded by the plain twins as
+     import_jpeg's stream (transform "dct", q_scale 1, IJG quality-90
+     tables as custom q-tables), through ``edit`` for every op, a
+     block-aligned ``--crop`` and ``--grayscale`` (none: host work),
+     ``transcode`` rans -> huffman -> banded:4 -> rans (none) and
+     ``decode`` of every output (one B6 per gray decode; the camera
+     frame's color decode none, its widths off the kernel grid) -- each
+     call moving exactly its counters; then every decode bit-identical to
+     the plain twins' decode of the file's coefficients, every edited map
+     equal to its op applied to the unedited map, the restage to the same
+     coefficients and back to the source's bytes, and per op the count of
+     pixels where decode(edit) differs from op(decode); where the host
+     JPEG library builds also jpg -> tdc -> jpg bit-exact and ``decode
+     in.jpg`` (the card's machine has no libjpeg headers: the phase says
+     the legs ran in the CPU tests only); then the multi-process path:
+     two worker processes of this script (``--mp-worker``), each joining a
+     gloo group through distributed_init on a localhost port and driving 2
+     virtual ranks on the card with its slab of each input, through
+     sharded_codec_step and the grid step on 8192^2, sharded_color_step
+     and sharded_color_encode on 8192^2 RGB, sharded_serving_step on 32 x
+     1024^2 frames, save_sharded, save_color_sharded and gather of every
+     output -- every hash, file, byte count and metric equal to the same
+     steps in this process on 4 virtual ranks, the workers' launches adding
+     up to that run's, and per step the host wall and its gloo seconds;
   7. times each kernel against its twin with
      tpudct_torch.utils.timing.device_time_ms (CUDA events, the median of
      each batch of calls, L2 flushed before every call; order plain,
@@ -2275,6 +2302,452 @@ def _check_bulk(p, cfg, dev, d: dict, gray: dict, rgb: dict, big: np.ndarray) ->
           f"decode_gray_streamed; the camera .tdcc's raster = decode_color_streamed")
 
 
+# the coefficient path: streams as import_jpeg emits them (transform "dct",
+# q_scale 1, a JPEG's integer tables as custom q-tables; here IJG's at this
+# quality), edited and restaged with a fast entropy stage
+COEF_QUALITY, COEF_ENTROPY = 90, "rans"
+# the multi-process path: worker processes x virtual ranks of each on the card
+MP_PROCS, MP_RANKS = 2, 2
+MP_BATCH = (32, 1024)
+
+
+def _coef_crop(h: int, w: int) -> tuple:
+    """(Y0, X0, H, W) of the coefficient path's crop of an h x w frame: a
+    16-aligned origin (whole 4:2:0 chroma blocks) a quarter in, odd sizes
+    (partial edge blocks) about half of each side."""
+    return h // 4 // 16 * 16, w // 4 // 16 * 16, h // 2 - 3, w // 2 - 5
+
+
+def _ijg_tables(quality: int) -> tuple:
+    """(luma, chroma) names of IJG's integer tables at `quality` (libjpeg's
+    jpeg_quality_scaling), registered as custom q-tables, as a JPEG file
+    carries them."""
+    from tpudct_torch.constants import Q, QC, register_q_table
+
+    scale = 200 - 2 * quality if quality >= 50 else 5000 // quality
+    return tuple(register_q_table(np.clip((t.astype(np.int64) * scale + 50) // 100, 1, 255).astype(np.float32))
+                 for t in (Q, QC))
+
+
+def _dct_streams(gray: np.ndarray, rgb: np.ndarray, dev) -> tuple:
+    """The .tdc of `gray` and the 4:2:0 .tdcc of `rgb` that import_jpeg
+    writes for JPEGs of the same coefficients: the plain twins (hp.dct_plain
+    on the f32-literal dct core, color.split_plain) on the card, IJG
+    quality-COEF_QUALITY tables, COEF_ENTROPY coded."""
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.kernels import hp
+    from tpudct_torch.models import color as mc
+    from tpudct_torch.ops.padding import pad_to_kernel, padded_shape
+    from tpudct_torch.utils import serialize
+
+    yq, cq = _ijg_tables(COEF_QUALITY)
+
+    def fwd(plane, table):
+        return hp.dct_plain(plane.to(torch.float32), 1.0, table, "dct", int_core=False)
+
+    c = fwd(torch.as_tensor(gray, device=dev), yq).cpu().numpy()
+    g = serialize.coefficients_to_bytes(c, 1.0, None, orig_shape=gray.shape, transform="dct", q_table=yq,
+                                        codec=COEF_ENTROPY)
+    h, w = rgb.shape[:2]
+    x, _ = pad_to_kernel(torch.as_tensor(rgb, device=dev).movedim(-1, 0).contiguous(), *mc._GRID)
+    y, cb, cr = ck.split_plain(x, "420")
+    ch, cw = mc._chroma_plane_shape("420", h, w)
+    (yh, yw), (c8h, c8w) = padded_shape(h, w), padded_shape(ch, cw)
+    planes = {"y": fwd(y, yq)[:yh, :yw], "cb": fwd(cb, cq)[:c8h, :c8w], "cr": fwd(cr, cq)[:c8h, :c8w]}
+    meta = {"orig_shape": (h, w), "chroma_shape": (ch, cw), "subsample": "420", "y_q_table": yq, "c_q_table": cq}
+    cdata = serialize.color_to_bytes({k: v.cpu().numpy() for k, v in planes.items()}, meta, 1.0, None, "dct",
+                                     codec=COEF_ENTROPY)
+    return g, cdata
+
+
+@contextlib.contextmanager
+def _plain_decode():
+    """hp_idct and hp_decode_u8 swapped for their plain twins (the same
+    value chains in torch ops, run on the card) while the block runs: the
+    decode that a kernel decode is held against."""
+    from tpudct_torch.kernels import hp
+
+    saved = hp.hp_idct, hp.hp_decode_u8
+    hp.hp_idct = lambda c, q_scale=1.0, q_table="luma", decode_precision="butterfly", transform="haweel": (
+        hp.idct_plain(c, q_scale, q_table, decode_precision, transform))
+    hp.hp_decode_u8 = lambda c, q_scale=1.0, q_table="luma", decode_precision="butterfly", transform="haweel": (
+        hp.decode_u8_plain(c, q_scale, q_table, decode_precision, transform))
+    try:
+        yield
+    finally:
+        hp.hp_idct, hp.hp_decode_u8 = saved
+
+
+_PARITY = (-1.0) ** np.arange(8)  # the DCT rows' parity under index reversal
+
+
+def _block_op(m: np.ndarray, op: str) -> np.ndarray:
+    """A geometric op on a coefficient map by its definition: hflip reverses
+    the block columns and negates the odd coefficient columns, vflip the
+    same on rows, transpose swaps the block grid and each block; rot90
+    (clockwise) = hflip of transpose, rot270 = vflip of transpose, rot180 =
+    vflip of hflip."""
+    hb, wb = m.shape[0] // 8, m.shape[1] // 8
+    b = m.reshape(hb, 8, wb, 8)
+    if op == "hflip":
+        return (b[:, :, ::-1, :] * _PARITY[None, None, None, :]).reshape(m.shape).astype(m.dtype)
+    if op == "vflip":
+        return (b[::-1] * _PARITY[None, :, None, None]).reshape(m.shape).astype(m.dtype)
+    if op == "transpose":
+        return np.ascontiguousarray(b.transpose(2, 3, 0, 1)).reshape(m.shape[1], m.shape[0])
+    first, then = {"rot90": ("transpose", "hflip"), "rot270": ("transpose", "vflip"),
+                   "rot180": ("hflip", "vflip")}[op]
+    return _block_op(_block_op(m, first), then)
+
+
+def _pixel_op(a: np.ndarray, op: str) -> np.ndarray:
+    """The same op on a raster ((H, W) or (H, W, 3))."""
+    return {"hflip": lambda: a[:, ::-1], "vflip": lambda: a[::-1], "rot180": lambda: a[::-1, ::-1],
+            "transpose": lambda: a.swapaxes(0, 1), "rot90": lambda: np.rot90(a, -1, (0, 1)),
+            "rot270": lambda: np.rot90(a, 1, (0, 1))}[op]()
+
+
+def phase_coefficient_path(dev, card: str) -> dict:
+    """The coefficient path (python -m tpudct_torch edit / transcode /
+    decode) in process, its counters set to 0 just before it and read just
+    after; each call moves exactly its counters (the edits and restages
+    none: they are host work; a gray decode one B6 on the f32-literal dct
+    core, since a quality-COEF_QUALITY table's coefficients exceed int8; a
+    camera-frame color decode none, its widths off the kernel grid, so the
+    f32 path's plain fallback).  Inputs: an 8192^2 photo-like gray frame
+    and the 4032x3024 camera frame at 4:2:0 (sides multiples of 16, so every
+    op is representable), encoded by the plain twins as import_jpeg's
+    stream.  Then: every edited map equal to its op applied to the
+    unedited map by definition (_block_op); every decode bit-identical to
+    the plain twins' decode of the file's coefficients; the restage rans ->
+    huffman -> banded:4 back to the same coefficients (and to the same
+    bytes once rans again); per op the count of pixels where decode(edit)
+    differs from op(decode) (a count, not a gate).  Where the host JPEG
+    library builds, also jpg -> tdc -> jpg bit-exact and ``decode in.jpg``."""
+    from tpudct_torch import CodecConfig, get_pipeline
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.kernels import hp
+    from tpudct_torch.models.color import decode_color_auto
+    from tpudct_torch.models.dispatch import decode_gray_auto
+    from tpudct_torch.utils import coefops, jpegcoef, native, serialize
+
+    _phase(6, "coefficient path")
+    t_phase = time.perf_counter()
+    p = get_pipeline("hp")
+    counts, step = _stepper(hp.LAUNCHES, ck.LAUNCHES)
+    jpeg = jpegcoef.coef_io_available()
+    print(f"  coef_io_available(): {jpeg}; the host JPEG library: "
+          + ("built" if native.jpeg_library() is not None else "unavailable (no libjpeg headers)"))
+    sq, cam = f"{SQUARE}^2", "x".join(map(str, COLOR_FRAME))
+    gray = _camera_frame(SQUARE, SQUARE, seed=42)
+    rgb = _camera_rgb(*COLOR_FRAME)
+    with tempfile.TemporaryDirectory() as tmp:
+        f = lambda name: os.path.join(tmp, name)  # noqa: E731
+        gdata, cdata = _dct_streams(gray, rgb, dev)
+        for name, data in (("g.tdc", gdata), ("c.tdcc", cdata)):
+            with open(f(name), "wb") as fh:
+                fh.write(data)
+        print(f"  {sq} .tdc {len(gdata)} bytes, {cam} .tdcc {len(cdata)} bytes (transform dct, "
+              f"IJG quality {COEF_QUALITY} tables, {COEF_ENTROPY})")
+
+        def cli_step(label, expected, argv) -> list:
+            return _cli_records(step, card, label, expected, argv)
+
+        hp.reset_launches()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        edits = {}  # output -> (source, op or None, crop or None, grayscale)
+        for src, label in (("g.tdc", sq), ("c.tdcc", cam)):
+            stem, ext = os.path.splitext(src)
+            for op in coefops.OPS:
+                edits[f"{stem}.{op}{ext}"] = (src, op, None, False)
+            edits[f"{stem}.crop{ext}"] = (src, None, _coef_crop(*(gray.shape if ext == ".tdc" else rgb.shape[:2])),
+                                          False)
+        edits["c.gray.tdc"] = ("c.tdcc", None, None, True)
+        for out, (src, op, crop, gray_only) in edits.items():
+            flags = (["--op", op] if op else []) + (["--crop", *map(str, crop)] if crop else [])
+            flags += ["--grayscale"] if gray_only else []
+            cli_step(f"{sq if src == 'g.tdc' else cam} edit {' '.join(flags)}", {},
+                     ["edit", "--entropy", COEF_ENTROPY, *flags, f(src), f(out)])
+        chain = ("g.tdc", "g.huffman.tdc", "g.banded4.tdc", "g.rans.tdc")
+        for a, b, stage in zip(chain, chain[1:], ("huffman", "banded:4", "rans")):
+            cli_step(f"{sq} transcode --entropy {stage}", {}, ["transcode", "--entropy", stage, f(a), f(b)])
+        decodes = ["g.tdc", "c.tdcc", *edits, "g.banded4.tdc"]
+        if jpeg:
+            cli_step(f"{sq} transcode tdc -> jpg", {}, ["transcode", f("g.tdc"), f("g.jpg")])
+            cli_step(f"{sq} transcode jpg -> tdc", {}, ["transcode", "--entropy", COEF_ENTROPY, f("g.jpg"),
+                                                         f("g.jpg.tdc")])
+            decodes.append("g.jpg")
+        for name in decodes:
+            color = name.endswith(".tdcc")
+            cli_step(f"decode {name}", {} if color else {"hp_idct": 1},
+                     ["decode", "--device", str(dev), f(name), f(name + ".npy")])
+        launches = counts()
+        print(f"  coefficient path: {time.perf_counter() - t0:.1f} s for the CLI calls; launches:",
+              json.dumps(launches))
+        # the checks (launches here come after the counts were read)
+        cfg_of = {}
+        maps = {}
+        for name in decodes:
+            if name.endswith(".jpg"):
+                data = jpegcoef.import_jpeg(f(name), codec="raw")
+            else:
+                data = open(f(name), "rb").read()
+            if name.endswith(".tdcc"):
+                planes, meta = serialize.bytes_to_color(data)
+                maps[name] = planes
+                with _plain_decode():
+                    ref = decode_color_auto(p, planes, meta, CodecConfig(q_scale=meta["q_scale"],
+                                                                         transform=meta["transform"]), device=dev)
+            else:
+                c, qs, _k, shape, tr, qt = serialize.bytes_to_coefficients(
+                    data, with_orig_shape=True, with_transform=True, with_q_table=True)
+                maps[name] = {"y": c}
+                cfg_of[name] = CodecConfig(q_scale=qs, transform=tr, q_table=qt)
+                with _plain_decode():
+                    ref = decode_gray_auto(p, c, cfg_of[name], shape, device=dev)
+            if not np.array_equal(np.load(f(name + ".npy")), _host(ref)):
+                _fail(f"decode {name}: the raster differs from the plain twins' decode of its coefficients")
+        if counts() != launches:
+            _fail(f"the twins' decodes launched kernels: {counts()} against {launches}")
+        print(f"  {len(decodes)} decodes bit-identical to the plain twins' decodes of the same coefficients")
+        for out, (src, op, crop, gray_only) in edits.items():
+            for k, m in maps[out].items():
+                base = maps[src]["y" if gray_only else k]
+                if crop is not None:  # 4:2:0 chroma: the crop at half the luma's coordinates
+                    sub = 2 if k != "y" else 1
+                    y0, x0, hh, ww = crop[0] // sub, crop[1] // sub, -(-crop[2] // sub), -(-crop[3] // sub)
+                    want = base[y0 : y0 + -(-hh // 8) * 8, x0 : x0 + -(-ww // 8) * 8]
+                else:
+                    want = _block_op(base, op) if op else base
+                if not np.array_equal(m, want):
+                    _fail(f"edit {out} plane {k}: the map differs from the op applied to {src}'s map")
+        print(f"  {len(edits)} edited maps equal to their op applied to the unedited map, plane by plane")
+        for a in chain[1:]:
+            if not np.array_equal(serialize.bytes_to_coefficients(open(f(a), "rb").read())[0], maps["g.tdc"]["y"]):
+                _fail(f"restage {a}: the coefficients differ from g.tdc's")
+        if open(f("g.rans.tdc"), "rb").read() != gdata:
+            _fail("restage rans -> huffman -> banded:4 -> rans: the bytes differ from the source's")
+        print("  restage rans -> huffman -> banded:4 -> rans: the same coefficients at every hop, the source's bytes "
+              "at the end")
+        if jpeg:
+            back = serialize.bytes_to_coefficients(open(f("g.jpg.tdc"), "rb").read())[0]
+            if not np.array_equal(back, maps["g.tdc"]["y"]) or not np.array_equal(maps["g.jpg"]["y"], back):
+                _fail("jpg -> tdc -> jpg: the coefficients differ")
+            print("  jpg -> tdc -> jpg: the coefficients bit-exact; decode g.jpg as the twins'")
+        else:
+            print("  the JPEG legs (jpg -> tdc -> jpg, decode in.jpg) ran in the CPU tests only: no libjpeg "
+                  "headers on this machine (a host library, not a device or kernel failure)")
+        for src in ("g.tdc", "c.tdcc"):
+            stem, ext = os.path.splitext(src)
+            base = np.load(f(src + ".npy"))
+            for op in coefops.OPS:
+                got = np.load(f(f"{stem}.{op}{ext}.npy"))
+                diff = np.abs(got.astype(np.int16) - _pixel_op(base, op))
+                print(f"    {sq if src == 'g.tdc' else cam} {op}: decode(edit) differs from op(decode) on "
+                      f"{int((diff > 0).any(axis=-1).sum() if diff.ndim == 3 else (diff > 0).sum())} of "
+                      f"{diff.shape[0] * diff.shape[1]} pixels (max {int(diff.max())}) [{card}]")
+    print(f"  coefficient phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _mp_inputs(side: int, batch: tuple) -> dict:
+    """The multi-process path's inputs from seeds: a side^2 gray image
+    (f32), a side^2 planar RGB (u8), a serving batch of batch[0] frames of
+    batch[1]^2 (u8)."""
+    rng = np.random.default_rng(5)
+    return {
+        "gray": rng.integers(0, 256, (side, side), dtype=np.uint8).astype(np.float32),
+        "rgb": rng.integers(0, 256, (3, side, side), dtype=np.uint8),
+        "batch": rng.integers(0, 256, (batch[0], batch[1], batch[1]), dtype=np.uint8),
+    }
+
+
+def _mp_steps(mesh, gmesh, parts: dict, side: int, out_dir: str) -> dict:
+    """Every step of the multi-process path on `mesh` and `gmesh` with
+    `parts` as this process's slabs: the gathered outputs' hashes, the
+    metrics, the files' byte counts and hashes, and per step its host wall
+    and the seconds its gloo collectives took (0 in one process)."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from tpudct_torch import CodecConfig, get_pipeline
+    from tpudct_torch import parallel as PP
+
+    p, cfg = get_pipeline("hp"), CodecConfig()
+    coll = [0.0]
+    if dist.is_initialized():
+        plain = dist.all_gather
+
+        def timed_all_gather(*a, **k):
+            t = time.perf_counter()
+            try:
+                return plain(*a, **k)
+            finally:
+                coll[0] += time.perf_counter() - t
+
+        dist.all_gather = timed_all_gather
+    res, walls = {}, {}
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    def sync():
+        if mesh.is_cuda:
+            torch.cuda.synchronize()
+
+    def timed(label, fn):
+        c0 = coll[0]
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        walls[label] = (round(time.perf_counter() - t, 4), round(coll[0] - c0, 4))
+        return out
+
+    def metrics(m) -> dict:
+        return {k: float(v) for k, v in m.items()}
+
+    (c, r), m = timed("sharded_codec_step", lambda: PP.sharded_codec_step(p, cfg, mesh)(
+        PP.shard_image(parts["gray"], mesh)))
+    rgb_rec, mc = timed("sharded_color_step", lambda: PP.sharded_color_step(p, cfg, mesh)(
+        PP.shard_rgb(parts["rgb"], mesh)))
+    (bc, br), bm = timed("sharded_serving_step", lambda: PP.sharded_serving_step(p, cfg, mesh)(
+        PP.shard_batch(parts["batch"], mesh)))
+    (gc, gr), gm = timed("sharded_codec_step_grid", lambda: PP.sharded_codec_step_grid(p, cfg, gmesh)(
+        PP.shard_image_grid(parts["gray"], gmesh)))
+    step, meta_fn = PP.sharded_color_encode(p, cfg, mesh)
+    planes = timed("sharded_color_encode", lambda: dict(zip(("y", "cb", "cr"), step(PP.shard_rgb(parts["rgb"], mesh)))))
+    os.makedirs(out_dir, exist_ok=True)
+    n_tdc = timed("save_sharded", lambda: PP.save_sharded(os.path.join(out_dir, "s.tdc"), c, orig_shape=(side, side)))
+    n_tdcc = timed("save_color_sharded", lambda: PP.save_color_sharded(
+        os.path.join(out_dir, "s.tdcc"), planes, meta_fn(side, side)))
+    res["metrics"] = {"gray": metrics(m), "color": metrics(mc), "serving": metrics(bm), "grid": metrics(gm)}
+    res["bytes"] = [n_tdc, n_tdcc]
+    for k, v in (("coeffs", c), ("recon", r), ("rgb", rgb_rec), ("batch_coeffs", bc), ("batch_recon", br),
+                 ("grid_coeffs", gc), ("grid_recon", gr), *planes.items()):
+        res[k] = sha(timed(f"gather {k}", lambda v=v: PP.gather(v)))
+    for name in ("s.tdc", "s.tdcc"):
+        path = os.path.join(out_dir, name)
+        res[name] = hashlib.sha256(open(path, "rb").read()).hexdigest() if os.path.exists(path) else None
+    res["walls"] = walls
+    return res
+
+
+def _mp_worker(pid: int, nproc: int, port: int, side: int, batch_n: int, batch_side: int, out: str,
+               device: str) -> int:
+    """One process of the multi-process path: joins the gloo group, drives
+    MP_RANKS virtual ranks on `device` with its slabs of the inputs, writes
+    its results and its kernel launches as JSON."""
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.kernels import hp
+    from tpudct_torch.parallel import band_mesh, distributed_init, grid_mesh
+
+    t0 = time.perf_counter()
+    distributed_init(f"localhost:{port}", num_processes=nproc, process_id=pid, timeout=300)
+    t_init = time.perf_counter() - t0
+    devs = [device] * MP_RANKS
+    mesh, gmesh = band_mesh(devices=devs), grid_mesh((2, 2), devices=devs)
+    parts = {}
+    for k, a in _mp_inputs(side, (batch_n, batch_side)).items():
+        ax = 1 if k == "rgb" else 0
+        n = a.shape[ax] // nproc
+        parts[k] = np.ascontiguousarray(a.take(range(pid * n, (pid + 1) * n), axis=ax))
+    hp.reset_launches()
+    ck.reset_launches()
+    res = _mp_steps(mesh, gmesh, parts, side, os.path.join(out, f"p{pid}"))
+    res["launches"] = {k: v for c in (hp.LAUNCHES, ck.LAUNCHES) for k, v in c.items() if v}
+    res["addressable"] = mesh.is_fully_addressable
+    res["init_s"] = round(t_init, 3)
+    with open(os.path.join(out, f"result{pid}.json"), "w") as fh:
+        json.dump(res, fh)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_multi_process_path(dev, card: str) -> dict:
+    """The multi-process path: MP_PROCS worker processes (this script with
+    --mp-worker), each joining a gloo group through distributed_init over a
+    localhost port and driving MP_RANKS virtual ranks on the card with its
+    slab of each input: sharded_codec_step (hp) and the grid step on a
+    (2, 2) mesh on 8192^2 gray, sharded_color_step and sharded_color_encode
+    on 8192^2 RGB, sharded_serving_step on 32 x 1024^2 frames, save_sharded
+    and save_color_sharded, gather of every output.  Every gathered hash,
+    file and byte count equal to a single-process run on MP_PROCS x MP_RANKS
+    virtual ranks of this card, the metrics within rtol 1e-6 (equal here:
+    the all-gathered partials add in rank order), the workers' launches
+    adding up to the single run's.  A worker that fails fails the run."""
+    import socket
+    import subprocess
+    import sys
+
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.kernels import hp
+    from tpudct_torch.parallel import band_mesh, grid_mesh
+
+    _phase(6, "multi-process path")
+    t_phase = time.perf_counter()
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        args = [str(MP_PROCS), str(port), str(SQUARE), *map(str, MP_BATCH), tmp, str(dev)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mp-worker", str(i), *args],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for i in range(MP_PROCS)]
+        try:
+            logs = [pr.communicate(timeout=400)[0] for pr in procs]
+        finally:
+            for pr in procs:
+                pr.kill()
+        t_workers = time.perf_counter() - t0
+        for i, (pr, log) in enumerate(zip(procs, logs)):
+            for line in log.splitlines()[-20:]:
+                print(f"    [worker {i}] {line}")
+            if pr.returncode:
+                _fail(f"multi-process worker {i} exited with {pr.returncode}")
+        got = [json.load(open(os.path.join(tmp, f"result{i}.json"))) for i in range(MP_PROCS)]
+        n = MP_PROCS * MP_RANKS
+        hp.reset_launches()
+        ck.reset_launches()
+        one = _mp_steps(band_mesh(devices=[dev] * n), grid_mesh((2, 2), devices=[dev] * n),
+                        _mp_inputs(SQUARE, MP_BATCH), SQUARE, os.path.join(tmp, "single"))
+        single_launches = {k: v for c in (hp.LAUNCHES, ck.LAUNCHES) for k, v in c.items() if v}
+    worker_launches = collections.Counter()
+    for i, r in enumerate(got):
+        if r["addressable"]:
+            _fail(f"worker {i}: its mesh is fully addressable")
+        worker_launches.update(r["launches"])
+        for k in one:
+            if k in ("walls",) or (i and k in ("s.tdc", "s.tdcc")):
+                continue
+            if k == "metrics":
+                for step_, mm in one[k].items():
+                    for name, v in mm.items():
+                        if abs(r[k][step_][name] - v) > 1e-6 * abs(v):
+                            _fail(f"worker {i} {step_} {name}: {r[k][step_][name]} against {v}")
+            elif r[k] != one[k]:
+                _fail(f"worker {i} {k}: {r[k]} differs from the single-process run's {one[k]}")
+        if i and (r["s.tdc"] or r["s.tdcc"]):
+            _fail(f"worker {i} wrote a file; only process 0 writes")
+    if dict(worker_launches) != single_launches:
+        _fail(f"the workers launched {dict(worker_launches)}, the single-process run {single_launches}")
+    print(f"  {MP_PROCS} processes x {MP_RANKS} virtual ranks on {card}: workers {t_workers:.1f} s in all "
+          f"(init {[r['init_s'] for r in got]} s); gathered outputs, files ({one['bytes']} bytes) and metrics equal "
+          f"to the single-process run on {n} ranks; launches {json.dumps(dict(worker_launches))}")
+    for label in one["walls"]:
+        w1 = one["walls"][label][0]
+        ws = [r["walls"][label] for r in got]
+        print(f"    {label}: host wall per worker {[w for w, _ in ws]} s (gloo {[c for _, c in ws]} s, "
+              f"{[round(100 * c / w, 1) if w else 0.0 for w, c in ws]}%), single process {w1} s [{card}]")
+    print(f"  multi-process phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(worker_launches)
+
+
 def _memory_peak(fn) -> tuple:
     """(fn(), host wall s, peak of fn's own device allocations, peak of the
     bytes the caching allocator reserved during it): the allocated bytes
@@ -2877,6 +3350,8 @@ def main() -> int:
     runs.append(timed(phase_file_path, dev, card))
     runs.append(timed(phase_streamed_path, dev, card))
     runs.append(timed(phase_bulk_path, dev, card))
+    runs.append(timed(phase_coefficient_path, dev, card))
+    runs.append(timed(phase_multi_process_path, dev, card))
     times = timed(phase_timing, dev, card)
     kernels = []
     for name, (src, replaces, _bpp, _ops) in KERNELS.items():
@@ -2896,4 +3371,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    import sys
+
+    if sys.argv[1:2] == ["--mp-worker"]:  # one process of phase 6's multi-process path
+        raise SystemExit(_mp_worker(*map(int, sys.argv[2:8]), *sys.argv[8:10]))
     raise SystemExit(main())

@@ -23,8 +23,8 @@ how closely:
   packages): the same bytes and pixels.
 And the port's own rules: a RuntimeError from a stacked launch (a kernel
 that does not build or launch) ends the run, unretried and unrecorded;
-``probe_image_size`` needs no PIL for ``.npy``; ``--transcode`` waits for
-ROADMAP A.4a(ii).
+``probe_image_size`` needs no PIL for ``.npy``; ``--transcode`` and the
+other coefficient-level verbs run the reference's branches.
 """
 
 import json
@@ -37,6 +37,8 @@ import pytest
 import tpudct.cli as RCLI
 import tpudct.utils.serialize as RS
 import tpudct_torch.cli as CLI
+
+from test_torch_jpegcoef import registries  # noqa: F401  (the shared registry fixture)
 
 SHAPES = {"a.npy": (64, 128), "b.npy": (64, 128), "c.npy": (97, 128), "d.npy": (40, 44),
           "e.npy": (64, 128, 3)}
@@ -387,16 +389,42 @@ def test_probe_image_size_is_the_reference(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["batch", "--transcode", "{d}", "{d}/out"],
-    ["unbatch", "--transcode", "--ext", ".jpg", "{d}", "{d}/out"],
-    ["transcode", "{d}/a.jpg", "{d}/a.tdc"],
-    ["edit", "--op", "rot90", "{d}/a.tdc", "{d}/b.tdc"],
+    ["batch", "--transcode", "{d}", "{d}/{who}"],
+    ["unbatch", "--transcode", "--ext", ".jpg", "{d}", "{d}/{who}"],
+    ["transcode", "{d}/a.jpg", "{d}/{who}.tdc"],
+    ["edit", "--op", "rot90", "{d}/a.tdc", "{d}/{who}.tdc"],
 ])
-def test_coefficient_io_waits_for_its_slice(tmp_path, capsys, argv):
+def test_coefficient_io_waits_for_its_slice(tmp_path, capsys, registries, argv):
+    """The coefficient-level verbs (once refused here) run the reference's
+    branches: on a 48x40 gray JPEG and its imported .tdc, each verb in both
+    CLIs, the same records (paths and timings aside) and the same files
+    (test_torch_cli_coef.py covers them in depth)."""
+    from tpudct.utils import imageio as RIO
+    from tpudct_torch.utils.jpegcoef import coef_io_available, import_jpeg
+
+    if not coef_io_available():
+        pytest.skip("native coefficient I/O unavailable (no libjpeg headers)")
+    RIO.save_jpeg(tmp_path / "a.jpg", _photo(4, (48, 40)), quality=80)
+    (tmp_path / "a.tdc").write_bytes(import_jpeg(tmp_path / "a.jpg"))
     dev = ["--device", "cpu"] if argv[0] in ("batch", "unbatch") else []
-    assert CLI.main([a.format(d=tmp_path) for a in argv] + dev) == 1
-    err = capsys.readouterr().err
-    assert err.startswith("error: ") and "ROADMAP A.4a(ii)" in err, err
+    capsys.readouterr()
+    assert RCLI.main([a.format(d=tmp_path, who="ref") for a in argv]) == 0
+    want = _records(capsys)
+    assert CLI.main([a.format(d=tmp_path, who="mine") for a in argv] + dev) == 0
+    got = _records(capsys)
+    for g, w in zip(got, want, strict=True):
+        norm = {k: v.replace("mine", "ref") if isinstance(v, str) else v for k, v in g.items()}
+        assert norm == w
+    for name in ("ref", "mine"):  # what each side wrote
+        assert (tmp_path / (name + (".tdc" if argv[0] in ("transcode", "edit") else ""))).exists()
+    if argv[0] in ("transcode", "edit"):
+        assert (tmp_path / "mine.tdc").read_bytes() == (tmp_path / "ref.tdc").read_bytes()
+    else:
+        mine, ref = (sorted(p.name for p in (tmp_path / who).iterdir()) for who in ("mine", "ref"))
+        assert mine == ref and len(mine) == 2  # the output file and the manifest
+        assert _manifest(tmp_path / "mine") == _manifest(tmp_path / "ref")
+        for f in mine:
+            assert (tmp_path / "mine" / f).read_bytes() == (tmp_path / "ref" / f).read_bytes(), f
 
 
 def test_bulk_verbs_follow_the_device_rule(src, streams, tmp_path, monkeypatch):

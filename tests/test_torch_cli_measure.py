@@ -23,8 +23,11 @@ agree, and how closely:
 - ``info``, ``scale``, ``selftest`` and ``profile`` records: the
   reference's keys.  The port's selftest records add "device" and, for
   color420_u8, the twins' counts ("twin_mse", "plane_diffs",
-  "recon_diff_pixels"); its family list is the reference's less
-  jpg_import, which waits for ROADMAP A.4a(ii).
+  "recon_diff_pixels"); its family list is the reference's, jpg_import
+  included.  ``info``'s ``q_tables`` is a process-global registry that
+  other test files on the same worker fill, so both calls run with each
+  package's registry reset to its built-in tables (``registries``), then
+  again with one custom table registered in both.
 """
 
 import json
@@ -34,6 +37,8 @@ import pytest
 
 import tpudct.cli as RCLI
 import tpudct_torch.cli as CLI
+
+from test_torch_jpegcoef import registries  # noqa: F401  (the shared registry fixture)
 
 H, W = 64, 128
 
@@ -251,13 +256,24 @@ def test_curve_is_the_reference(files, capsys, color):
     assert abs(gs["bd_psnr_db_vs_libjpeg"] - ws["bd_psnr_db_vs_libjpeg"]) <= 0.01 + 1e-9
 
 
-def test_info_is_the_reference(capsys):
-    got, want = _both(capsys, ["info"], device=False)
-    (g,), (w,) = got, want
-    assert g.keys() == w.keys() and g["backend"] == w["backend"] == "cpu" and g["devices"] == ["cpu"]
-    for k in ("version", "native_jpeg", "native_entropy", "native_rans", "pipelines", "transforms",
-              "transform_aliases", "q_tables"):
-        assert g[k] == w[k], k
+def test_info_is_the_reference(capsys, registries):
+    """Every key equal, ``q_tables`` too: with the built-in tables alone,
+    then with one custom table registered in both packages (a
+    content-derived name is the same in each)."""
+    import tpudct.constants as RK
+    import tpudct_torch.constants as PK
+
+    for custom in (False, True):
+        if custom:
+            table = np.arange(2, 66, dtype=np.float32).reshape(8, 8)
+            assert PK.register_q_table(table) == RK.register_q_table(table)
+        got, want = _both(capsys, ["info"], device=False)
+        (g,), (w,) = got, want
+        assert g.keys() == w.keys() and g["backend"] == w["backend"] == "cpu" and g["devices"] == ["cpu"]
+        for k in ("version", "native_jpeg", "native_entropy", "native_rans", "pipelines", "transforms",
+                  "transform_aliases", "q_tables"):
+            assert g[k] == w[k], k
+        assert len(g["q_tables"]) == 2 + custom and {"luma", "chroma"} <= set(g["q_tables"])
 
 
 def test_profile_writes_a_chrome_trace(tmp_path, capsys):
@@ -271,20 +287,25 @@ def test_profile_writes_a_chrome_trace(tmp_path, capsys):
     assert any(e.get("name") == "batched-roundtrip-64" for e in trace["traceEvents"])
 
 
-def test_selftest_is_the_reference(capsys):
+def test_selftest_is_the_reference(capsys, registries):
     """The gate and the families (batched: the color and streamed families
-    skip in both); the port's list is the reference's less jpg_import."""
+    skip in both), jpg_import included (its max_dev equal: the same
+    coefficients through batched's f32 inverse)."""
+    from tpudct_torch.utils.jpegcoef import coef_io_available
+
     got, want = _both(capsys, ["selftest", "--pipeline", "batched", "--size", "128", "--families"])
     assert got[0]["gate"] == want[0]["gate"] == "pass"
     fams = [r.get("family") for r in got[1:]]
-    assert fams == [r.get("family") for r in want[1:] if r.get("family") != "jpg_import"]
-    assert fams == ["color420_u8", "f32", "scaled", "streamed"]
-    for g, w in zip(got, [want[0], *(r for r in want[1:] if r.get("family") != "jpg_import")]):
+    assert fams == [r.get("family") for r in want[1:]]
+    assert fams == ["color420_u8", "f32", "scaled", "streamed", "jpg_import"]
+    for g, w in zip(got, want):
         assert set(w) <= set(g) and set(g) - set(w) <= {"device"}, (g, w)
         assert g["gate"] == w["gate"]
+    assert got[-1]["gate"] == ("pass" if coef_io_available() else "skip")
+    assert got[-1].get("max_dev") == want[-1].get("max_dev")
 
 
-def test_selftest_families_hp(capsys):
+def test_selftest_families_hp(capsys, registries):
     """hp runs every family the port has, each passing, with the reference's
     keys for that family (the reference's hp records, bench.py)."""
     assert CLI.main(["selftest", "--size", "128", "--families", "--device", "cpu"]) == 0
@@ -296,6 +317,7 @@ def test_selftest_families_hp(capsys):
         "scaled": {"gate", "family", "max_dev", "fast_path"},
         "streamed_gray": {"gate", "family", "bytes"},
         "streamed_color": {"gate", "family", "bytes"},
+        "jpg_import": {"gate", "family", "max_dev"},
     }
     assert [r.get("family") for r in rows] == list(ref_keys)
     for r in rows:

@@ -35,6 +35,8 @@ import tpudct_torch
 import tpudct_torch.constants
 import tpudct_torch.models.dispatch as PD
 from tests.golden import golden_roundtrip
+
+from test_torch_jpegcoef import registries  # noqa: F401  (the shared registry fixture)
 from tpudct.benchmark import synthetic_image
 from tpudct_torch import selftest
 
@@ -443,15 +445,20 @@ def test_selftest_gate_fails_a_wrong_codec():
         selftest.correctness_gate(Broken(), tpudct_torch.CodecConfig(), size=128, device="cpu")
 
 
-def test_family_gates_pass_on_cpu():
+def test_family_gates_pass_on_cpu(registries):
+    from tpudct_torch.utils.jpegcoef import coef_io_available
+
     for name in ("hp", "batched"):
         reps = selftest.family_gates(tpudct_torch.get_pipeline(name), tpudct_torch.CodecConfig(),
                                      device="cpu")
         streamed = ["streamed_gray", "streamed_color"] if name == "hp" else ["streamed"]
-        assert [r["family"] for r in reps] == ["color420_u8", "f32", "scaled", *streamed]
-        assert reps[0]["gate"] == reps[-1]["gate"] == ("pass" if name == "hp" else "skip")
+        assert [r["family"] for r in reps] == ["color420_u8", "f32", "scaled", *streamed, "jpg_import"]
+        assert reps[0]["gate"] == reps[-2]["gate"] == ("pass" if name == "hp" else "skip")
         assert all(r["gate"] == "pass" for r in reps[1:3])
         assert reps[2]["max_dev"] <= 1e-2 and ("fast_path" in reps[2]) == (name == "hp")
+        # where the JPEG library builds, the import decodes within 1 of libjpeg's pixels
+        assert reps[-1]["gate"] == ("pass" if coef_io_available() else "skip")
+        assert reps[-1].get("max_dev", 0) <= 1
 
 
 @pytest.mark.parametrize("kw", [{"transform": "dct"}, {"q_scale": 0.5}, {"exact_int_core": False},

@@ -9,6 +9,8 @@
   python -m tpudct_torch bench  --size 1024 --pipelines hp,fast
   python -m tpudct_torch sweep | table | curve | scale | profile
   python -m tpudct_torch selftest | compare a b | info
+  python -m tpudct_torch transcode in.jpg out.tdc     # lossless, and back
+  python -m tpudct_torch edit --op rot90 in.jpg out.jpg
 
 The files are the reference's: a ``.tdc``/``.tdcc`` written here has the
 bytes the reference writes for the same coefficients, and each package
@@ -31,11 +33,14 @@ streams above ``streaming.STREAM_PIXELS`` (2^32 pixels) stream without the
 flag, in ``batch`` and ``unbatch`` too.  (``CodecConfig.band_rows`` is
 another thing: an inert field kept for the reference's config surface.)
 
-Not ported yet (each raises a ValueError that says so): the JPEG
-coefficient import and export of ROADMAP A.4a(ii), that is ``.jpg`` decode
-inputs, the verbs ``transcode`` and ``edit``, and ``--transcode`` on
-``batch``/``unbatch``.  ``selftest --families`` runs the reference's
-families less jpg_import, which waits for the same slice.
+The coefficient-level JPEG paths (``utils/jpegcoef.py``,
+``utils/coefops.py``): ``.jpg`` decode inputs (imported without a pixel
+hop, then decoded on the device), ``transcode``, ``edit`` and
+``--transcode`` on ``batch``/``unbatch`` (host work, no device).  Where
+they read or write a ``.jpg`` they need the native JPEG library, which
+builds only against libjpeg's headers, and raise a ValueError without it,
+as the reference's do; a tdc -> tdc restage and an edit between ``.tdc``
+streams need no library.
 """
 
 from __future__ import annotations
@@ -453,19 +458,35 @@ def _parse_scale(s: str) -> int:
     )
 
 
+def _is_jpg(path) -> bool:
+    return str(path).lower().endswith((".jpg", ".jpeg"))
+
+
 def cmd_decode(args) -> int:
-    if args.input.lower().endswith((".jpg", ".jpeg")):
-        raise ValueError(
-            f"{args.input}: decoding .jpg inputs (the lossless coefficient "
-            "import) is not in tpudct_torch yet (ROADMAP A.4a(ii)); decode a "
-            ".tdc/.tdcc stream"
-        )
+    if _is_jpg(args.input):
+        # djpeg drop-in: a .jpg input imports its quantized coefficients
+        # losslessly (utils/jpegcoef.py, no pixel hop) at codec "raw" (header
+        # and memcpy) and decodes through the same machinery, so --scale,
+        # --planes, --preview and --rows all work on JPEG files
+        from tpudct_torch.utils import jpegcoef
+
+        if not jpegcoef.coef_io_available():
+            raise ValueError(f"decoding .jpg inputs needs {jpegcoef.NATIVE_HINT}")
+        data = jpegcoef.import_jpeg(args.input, codec="raw")
+        fd, tmppath = tempfile.mkstemp(suffix=".tdc")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                f.write(data)
+            return _decode_stream(args, tmppath, shown=args.input)
+        finally:
+            os.remove(tmppath)
     return _decode_stream(args, args.input)
 
 
-def _decode_stream(args, path: str) -> int:
-    """Decode the .tdc/.tdcc stream at `path`.  A non-stream file fails
-    with a format hint instead of a parser traceback.
+def _decode_stream(args, path: str, shown: "str | None" = None) -> int:
+    """Decode the .tdc/.tdcc stream at `path`.  `shown` is the name printed
+    in messages (the original .jpg for imported inputs).  A non-stream file
+    fails with a format hint instead of a parser traceback.
 
     Every decode mode streams (``utils/streaming.py``) where asked
     (``--band-rows``) or where the container exceeds
@@ -475,13 +496,15 @@ def _decode_stream(args, path: str) -> int:
     from tpudct_torch.models import get_pipeline
     from tpudct_torch.utils import imageio, serialize, streaming
 
+    if shown is None:
+        shown = path
     with open(path, "rb") as f:
         data = f.read()
     head = data[:4]
     color = serialize.is_color_stream(head)
     if not (color or serialize.is_tdc_stream(head)):
         raise ValueError(
-            f"{path}: not a .tdc/.tdcc stream (magic {head!r}); "
+            f"{shown}: not a .tdc/.tdcc stream (magic {head!r}); "
             "JPEG inputs must be named .jpg/.jpeg"
         )
     if color:
@@ -532,7 +555,7 @@ def _decode_stream(args, path: str) -> int:
                     scale_m=m, out_npy=out_npy, device=dev(),
                 )
             save(rec)
-            print(f"decoded {path} at {m}/8 scale (streamed) -> {args.output}")
+            print(f"decoded {shown} at {m}/8 scale (streamed) -> {args.output}")
             return 0
         if color:
             from tpudct_torch.models.color import _luma_cfg, decode_color_scaled
@@ -562,7 +585,7 @@ def _decode_stream(args, path: str) -> int:
             )
             cfg = CodecConfig(q_scale=q_scale, transform=transform, q_table=q_table)
             save(decode_gray_scaled_auto(pipe(), coeffs, cfg, (h, w), m, device=dev()))
-        print(f"decoded {path} at {m}/8 scale -> {args.output}")
+        print(f"decoded {shown} at {m}/8 scale -> {args.output}")
         return 0
     if args.preview:
         # 1/8-scale DC-only thumbnail on the host (.tdcc in full color; with
@@ -574,7 +597,7 @@ def _decode_stream(args, path: str) -> int:
         else:
             pv = serialize.preview_from_bytes(data)
         save(pv)
-        print(f"preview (1/8 scale, DC-only) {path} -> {args.output}")
+        print(f"preview (1/8 scale, DC-only) {shown} -> {args.output}")
         return 0
     if args.planes is not None:
         from tpudct_torch.models.dispatch import decode_gray_auto
@@ -594,7 +617,7 @@ def _decode_stream(args, path: str) -> int:
                     n_planes=args.planes, out_npy=out_npy, device=dev(),
                 )
             save(rec)
-            print(f"decoded {path} ({args.planes} spectral planes, streamed) -> {args.output}")
+            print(f"decoded {shown} ({args.planes} spectral planes, streamed) -> {args.output}")
             return 0
         if color and not args.grayscale:
             # Progressive color decode: the first N spectral planes of each
@@ -609,7 +632,7 @@ def _decode_stream(args, path: str) -> int:
                 CodecConfig(q_scale=meta["q_scale"], transform=meta["transform"]),
                 device=dev(),
             ))
-            print(f"decoded {path} ({args.planes} spectral planes, "
+            print(f"decoded {shown} ({args.planes} spectral planes, "
                   f"color) -> {args.output}")
             return 0
         # gray, or the luma plane alone of a color stream (chroma never
@@ -622,12 +645,12 @@ def _decode_stream(args, path: str) -> int:
                           q_table=p["q_table"])
         save(decode_gray_auto(pipe(), p["coeffs"], cfg, p["orig_shape"], device=dev()))
         which = ", luma only" if color else ""
-        print(f"decoded {path} ({args.planes} spectral planes{which}) -> {args.output}")
+        print(f"decoded {shown} ({args.planes} spectral planes{which}) -> {args.output}")
         return 0
     if stream:
-        return _decode_streamed(args, path, data, color, s_band, out_npy, pipe, dev, save)
+        return _decode_streamed(args, shown, data, color, s_band, out_npy, pipe, dev, save)
     if color:
-        return _decode_color_full(args, path, data, pipe, dev, save)
+        return _decode_color_full(args, shown, data, pipe, dev, save)
     t0 = time.perf_counter()
     coeffs, q_scale, _k, (h, w), transform, q_table = (
         serialize.bytes_to_coefficients(
@@ -649,14 +672,14 @@ def _decode_stream(args, path: str) -> int:
         a8 = a - a % 8
         b8 = min(coeffs.shape[0], -(-bnd // 8) * 8)
         save(decode_gray_auto(pipe(), coeffs[a8:b8], cfg, (b8 - a8, w), device=dev())[a - a8 : bnd - a8])
-        print(f"decoded rows {a}:{bnd} of {path} -> {args.output}")
+        print(f"decoded rows {a}:{bnd} of {shown} -> {args.output}")
         return 0
     t1 = time.perf_counter()
     rec_u8 = decode_gray_auto(pipe(), coeffs, cfg, (h, w), device=dev())
     t2 = time.perf_counter()
     save(rec_u8)
     t3 = time.perf_counter()
-    print(f"decoded {path} -> {args.output}")
+    print(f"decoded {shown} -> {args.output}")
     # bytes-to-pixels phase decomposition, mirroring `encode`'s record
     print(json.dumps({"ms": {
         "entropy": round(t_entropy * 1e3, 1),
@@ -788,12 +811,6 @@ def cmd_inspect(args) -> int:
             continue
         print(json.dumps({"file": path, **rep}))
     return rc
-
-
-_WAITS_FOR_COEF_IO = (
-    "is not in tpudct_torch yet: it needs the JPEG coefficient import and "
-    "export (ROADMAP A.4a(ii))"
-)
 
 
 def _dev(args):
@@ -1002,10 +1019,10 @@ def cmd_unbatch(args) -> int:
             "error: --scale decodes pixels; it does not combine with the "
             "lossless --transcode export"
         )
-    if args.transcode:
-        raise ValueError(f"unbatch --transcode {_WAITS_FOR_COEF_IO}")
     files = sorted(q.name for q in src.iterdir() if q.suffix.lower() in (".tdc", ".tdcc"))
     todo = [name for name in files if name not in done]
+    if args.transcode:
+        return _unbatch_transcode(args, src, dst, manifest, ext, files, todo)
     decoded = failed = 0
 
     p = get_pipeline(args.pipeline)
@@ -1193,6 +1210,122 @@ def cmd_unbatch(args) -> int:
     return 0
 
 
+def _unbatch_transcode(args, src, dst, manifest, ext, files, todo) -> int:
+    """``unbatch --transcode``, the inverse of ``batch --transcode``: each
+    coefficient map entropy-encoded straight back into a .jpg (bit-exact,
+    no pixel hop, no device) on a file-level thread pool (the C coder
+    releases the GIL)."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor, as_completed
+
+    from tpudct_torch.utils import jpegcoef
+
+    if not jpegcoef.coef_io_available():
+        raise ValueError(f"unbatch --transcode needs {jpegcoef.NATIVE_HINT}")
+
+    def _one(name):
+        out = dst / (name + ext)
+        try:
+            data = (src / name).read_bytes()
+        except OSError as e:
+            return ("err", "io", str(e))
+        try:
+            jpegcoef.export_jpeg(data, out, optimize=args.optimize, progressive=args.progressive,
+                                 arithmetic=args.arithmetic)
+        except ValueError as e:
+            return ("err", "stream", str(e))
+        except OSError as e:
+            return ("err", "io", str(e))
+        return ("ok", out.name)
+
+    decoded = failed = 0
+    lock = threading.Lock()
+    jobs = min(os.cpu_count() or 4, 16)
+    with open(manifest, "a") as mf, ThreadPoolExecutor(jobs) as ex:
+        futs = {ex.submit(_one, n): n for n in todo}
+        for fut in as_completed(futs):
+            name = futs[fut]
+            res = fut.result()
+            with lock:
+                if res[0] == "err":
+                    mf.write(json.dumps({"file": name, "error": res[2], "error_kind": res[1]}) + "\n")
+                    failed += 1
+                else:
+                    mf.write(json.dumps({"file": name, "out": res[1], "transcode": True}) + "\n")
+                    decoded += 1
+                mf.flush()
+    print(json.dumps({
+        "decoded": decoded, "skipped": len(files) - len(todo),
+        "failed": failed, "total": len(files), "manifest": str(manifest),
+    }))
+    return 0
+
+
+def _batch_transcode(args, src, dst, manifest, sig: str, done: set) -> int:
+    """``batch --transcode``, the lossless archival mode: each .jpg's
+    coefficients imported (``jpegcoef.import_jpeg``: no IDCT, no FDCT, no
+    device) into a .tdc/.tdcc that ``unbatch --transcode`` restores bit for
+    bit, on a file-level thread pool (the C reader and the entropy coders
+    release the GIL).  A file that does not parse stays failed on resume
+    ("stream"); a failed write retries ("io")."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor, as_completed
+
+    from tpudct_torch.utils import imageio, jpegcoef, serialize
+
+    if not jpegcoef.coef_io_available():
+        raise ValueError(f"batch --transcode needs {jpegcoef.NATIVE_HINT}")
+    files = sorted(q.name for q in src.iterdir() if q.suffix.lower() in imageio.JPEG_EXTS)
+    todo = [name for name in files if name not in done]
+    coded = failed = 0
+    bytes_in = bytes_out = 0
+    jobs = args.decode_threads if args.decode_threads > 0 else min(os.cpu_count() or 4, 16)
+
+    def _one(name):
+        # the kind follows the phase, not the exception type: a parse
+        # failure is the file's own (jpegcoef raises IOError for those too)
+        try:
+            data = jpegcoef.import_jpeg(src / name, codec=args.entropy)
+        except (OSError, ValueError) as e:
+            return ("err", "stream", str(e))
+        out = dst / (name + (".tdcc" if serialize.is_color_stream(data) else ".tdc"))
+        try:
+            out.write_bytes(data)
+            src_bytes = (src / name).stat().st_size
+        except OSError as e:
+            return ("err", "io", str(e))
+        return ("ok", out.name, len(data), src_bytes)
+
+    lock = threading.Lock()
+    with open(manifest, "a") as mf, ThreadPoolExecutor(jobs) as ex:
+        futs = {ex.submit(_one, n): n for n in todo}
+        for fut in as_completed(futs):
+            name = futs[fut]
+            res = fut.result()
+            with lock:
+                if res[0] == "err":
+                    mf.write(json.dumps({"file": name, "error": res[2], "error_kind": res[1]}) + "\n")
+                    failed += 1
+                else:
+                    _tag, out_name, nbytes, src_bytes = res
+                    bytes_in += src_bytes
+                    bytes_out += nbytes
+                    mf.write(json.dumps({
+                        "file": name, "tdc": out_name, "bytes": nbytes, "src_bytes": src_bytes,
+                        "transcode": True, "cfg": sig,
+                    }) + "\n")
+                    coded += 1
+                mf.flush()
+    rep = {"transcoded": coded, "skipped": len(files) - len(todo), "failed": failed,
+           "total": len(files), "manifest": str(manifest)}
+    if bytes_in:
+        rep["bytes_in"] = bytes_in
+        rep["bytes_out"] = bytes_out
+        rep["saved_pct"] = round(100.0 * (1 - bytes_out / bytes_in), 2)
+    print(json.dumps(rep))
+    return 0
+
+
 def cmd_batch(args) -> int:
     """Bulk encode of a directory of images to .tdc/.tdcc files, resumably:
     a manifest (JSONL, one record per finished file) makes a rerun skip
@@ -1244,7 +1377,7 @@ def cmd_batch(args) -> int:
             elif rec.get("cfg", sig) == sig:
                 done.add(name)
     if args.transcode:
-        raise ValueError(f"batch --transcode {_WAITS_FOR_COEF_IO}")
+        return _batch_transcode(args, src, dst, manifest, sig, done)
 
     p = get_pipeline(args.pipeline)
     dev = _dev(args)
@@ -1459,12 +1592,169 @@ def cmd_selftest(args) -> int:
     return 0
 
 
+_RECODE_NEEDS_JPG = ("--optimize/--progressive/--arithmetic select the output "
+                     "JPEG's entropy coding; they need a .jpg destination")
+
+
 def cmd_transcode(args) -> int:
-    raise ValueError(f"transcode {_WAITS_FOR_COEF_IO}")
+    """Lossless coefficient-domain transcode, its direction from the
+    extensions: ``in.jpg out.tdc[c]`` imports the JPEG's quantized
+    coefficients without any IDCT (transform "dct", the file's tables
+    embedded); ``in.tdc[c] out.jpg`` entropy-encodes a transform "dct" map
+    straight into a JPEG; ``in.tdc out.tdc`` re-codes the entropy stage
+    alone (a banded source under ``--entropy banded[::inner]`` one segment
+    at a time).  jpg -> tdc -> jpg is bit-exact at the coefficient level.
+    Host work only: no device."""
+    from tpudct_torch.utils import jpegcoef, serialize
+
+    def _need_native():
+        # only the jpg <-> tdc directions touch libjpeg; the restage is host
+        # Python and runs everywhere
+        if not jpegcoef.coef_io_available():
+            raise ValueError(
+                f"transcode to/from .jpg needs {jpegcoef.NATIVE_HINT}; coefficient-level "
+                "libjpeg access has no pure-Python fallback"
+            )
+
+    dst = args.dst.lower()
+    if (args.optimize or args.progressive or args.arithmetic) and not _is_jpg(dst):
+        raise ValueError(_RECODE_NEEDS_JPG)
+    if dst.endswith((".tdc", ".tdcc")) and args.src.lower().endswith((".tdc", ".tdcc")):
+        # entropy restage: no decode, no loss; every header field, the
+        # embedded q tables and the TDCM chunk carry over
+        with open(args.src, "rb") as f:
+            data = f.read()
+        color = serialize.is_color_stream(data)
+        if color != dst.endswith(".tdcc"):
+            raise ValueError(
+                f"{args.src} is a {'.tdcc' if color else '.tdc'} stream; "
+                "the restage destination must keep the container type"
+            )
+        out = None
+        if args.entropy == "banded" or args.entropy.startswith("banded:"):
+            n_spec, inner_spec = serialize._parse_banded_spec(args.entropy)
+            if n_spec == 0:
+                # banded -> banded on the source's own row splits, one
+                # segment at a time: the map never materializes whole.  A
+                # source that is not banded (or an explicit :N) takes the
+                # whole-map path, which re-parses and raises any real error
+                try:
+                    out = (serialize.restage_banded_color(data, inner_spec) if color
+                           else serialize.restage_banded_plane(data, inner_spec))
+                except ValueError:
+                    out = None
+        if out is None and color:
+            planes, meta = serialize.bytes_to_color(data)
+            out = serialize.color_to_bytes(planes, meta, meta["q_scale"], meta["retain_k"],
+                                           meta["transform"], codec=args.entropy)
+        elif out is None:
+            coeffs, q_scale, rk, oshape, transform, q_table = serialize.bytes_to_coefficients(
+                data, with_orig_shape=True, with_transform=True, with_q_table=True,
+            )
+            out = serialize.coefficients_to_bytes(coeffs, q_scale, rk, orig_shape=oshape, transform=transform,
+                                                  q_table=q_table, codec=args.entropy)
+        out = jpegcoef._attach_metadata(out, jpegcoef._extract_metadata(data))
+        with open(args.dst, "wb") as f:
+            f.write(out)
+        print(json.dumps({
+            "direction": "restage", "src": args.src, "dst": args.dst,
+            "entropy": args.entropy, "bytes": len(out), "src_bytes": len(data),
+        }))
+        return 0
+    if dst.endswith((".tdc", ".tdcc")):
+        _need_native()
+        data = jpegcoef.import_jpeg(args.src, codec=args.entropy)
+        color = serialize.is_color_stream(data)
+        if color != dst.endswith(".tdcc"):
+            raise ValueError(
+                f"{args.src} is a {'color' if color else 'grayscale'} JPEG; "
+                f"write it to a {'.tdcc' if color else '.tdc'} destination"
+            )
+        with open(args.dst, "wb") as f:
+            f.write(data)
+        rep = serialize.inspect_stream(data)
+        plane0 = rep["planes"][0] if color else rep
+        print(json.dumps({
+            "direction": "jpg->tdcc" if color else "jpg->tdc",
+            "src": args.src, "dst": args.dst,
+            "bytes": len(data), "src_bytes": os.path.getsize(args.src),
+            "codec": plane0["codec"], "shape": plane0["orig_shape"],
+        }))
+        return 0
+    if _is_jpg(dst):
+        _need_native()
+        with open(args.src, "rb") as f:
+            data = f.read()
+        jpegcoef.export_jpeg(data, args.dst, optimize=args.optimize, progressive=args.progressive,
+                             arithmetic=args.arithmetic)
+        print(json.dumps({
+            "direction": "tdc->jpg", "src": args.src, "dst": args.dst,
+            "bytes": os.path.getsize(args.dst), "src_bytes": len(data),
+        }))
+        return 0
+    raise ValueError(f"transcode needs a .tdc or .jpg destination, got {args.dst!r}")
 
 
 def cmd_edit(args) -> int:
-    raise ValueError(f"edit {_WAITS_FOR_COEF_IO}")
+    """Lossless geometric edits on .tdc/.tdcc streams, the jpegtran set
+    (flip, rotate, transpose, crop, grayscale) on the quantized coefficients
+    (``utils/coefops.py``): ops apply left to right after --grayscale and
+    the block-aligned --crop; an edit that would move a partial edge block
+    refuses (``jpegtran -perfect``); the TDCM metadata carries over.  A .jpg
+    source is imported at the coefficient level first and a .jpg
+    destination exported the same way, so ``edit in.jpg out.jpg --op
+    rot90`` never touches pixels.  Host work only: no device."""
+    from tpudct_torch.utils import jpegcoef
+    from tpudct_torch.utils.coefops import edit_stream
+    from tpudct_torch.utils.serialize import is_color_stream
+
+    ops = args.op or []
+    recode = args.optimize or args.progressive or args.arithmetic
+    if recode and not _is_jpg(args.dst):
+        raise ValueError(_RECODE_NEEDS_JPG)
+    if not ops and args.crop is None and not args.grayscale and not recode:
+        raise ValueError(
+            "nothing to do: pass --op, --crop, --grayscale and/or "
+            "--optimize/--progressive/--arithmetic"
+        )
+    if (_is_jpg(args.src) or _is_jpg(args.dst)) and not jpegcoef.coef_io_available():
+        raise ValueError(
+            f"edit to/from .jpg needs {jpegcoef.NATIVE_HINT}; coefficient-level libjpeg "
+            "access has no pure-Python fallback"
+        )
+    # a .jpg destination re-encodes through libjpeg's entropy coder, so the
+    # intermediates carry raw payloads instead of 'auto''s trials
+    stage = "raw" if _is_jpg(args.dst) else args.entropy
+    if _is_jpg(args.src):
+        src_bytes = os.path.getsize(args.src)
+        data = jpegcoef.import_jpeg(args.src, codec=stage)
+    else:
+        with open(args.src, "rb") as f:
+            data = f.read()
+        src_bytes = len(data)
+    color_out = is_color_stream(data) and not args.grayscale
+    if not _is_jpg(args.dst) and color_out != args.dst.lower().endswith(".tdcc"):
+        raise ValueError(
+            f"the edited stream is {'.tdcc' if color_out else '.tdc'}; "
+            f"write it to a matching destination (or .jpg), got {args.dst!r}"
+        )
+    crop = tuple(args.crop) if args.crop is not None else None
+    out = edit_stream(data, ops, crop=crop, codec=stage, grayscale=args.grayscale)
+    if _is_jpg(args.dst):
+        jpegcoef.export_jpeg(out, args.dst, optimize=args.optimize, progressive=args.progressive,
+                             arithmetic=args.arithmetic)
+        nbytes = os.path.getsize(args.dst)
+    else:
+        with open(args.dst, "wb") as f:
+            f.write(out)
+        nbytes = len(out)
+    print(json.dumps({
+        "src": args.src, "dst": args.dst, "ops": ops,
+        "crop": list(crop) if crop else None,
+        "grayscale": bool(args.grayscale), "entropy": args.entropy,
+        "bytes": nbytes, "src_bytes": src_bytes,
+    }))
+    return 0
 
 
 def cmd_compare(args) -> int:
@@ -1656,7 +1946,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--decode-threads", type=int, default=8,
                     help="JPEG decode and entropy thread pool size (0 = one per CPU)")
     sp.add_argument("--transcode", action="store_true",
-                    help="lossless archival mode (the JPEG coefficient import): not ported yet, ROADMAP A.4a(ii)")
+                    help="lossless archival mode: coefficient-level import of every .jpg (no IDCT, no device; bit-exact recoverable via `unbatch --transcode`, typically smaller than the source); needs the native JPEG library")
     sp.set_defaults(fn=cmd_batch)
 
     sp = sub.add_parser("curve", help="rate-distortion sweep: .tdc vs libjpeg bytes+PSNR per quality (needs libjpeg or PIL)")
@@ -1676,10 +1966,13 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--scale", default=None, metavar="M/8",
                     help="bulk thumbnailer: decode every stream at M/8 scale (M in 1..16; integer 8/M rides the fused scaled kernel — see decode --scale)")
     sp.add_argument("--transcode", action="store_true",
-                    help="lossless export back to .jpg (the JPEG coefficient export): not ported yet, ROADMAP A.4a(ii)")
-    sp.add_argument("--optimize", action="store_true", help="with --transcode: two-pass optimal Huffman tables")
-    sp.add_argument("--progressive", action="store_true", help="with --transcode: progressive scan script")
-    sp.add_argument("--arithmetic", action="store_true", help="with --transcode: T.81 arithmetic entropy coding")
+                    help="lossless export: entropy-encode transform=dct streams straight back to .jpg (inverse of `batch --transcode`; no device); needs the native JPEG library")
+    sp.add_argument("--optimize", action="store_true",
+                    help="with --transcode: two-pass optimal Huffman tables (jpegtran -optimize)")
+    sp.add_argument("--progressive", action="store_true",
+                    help="with --transcode: progressive scan script (jpegtran -progressive; implies --optimize)")
+    sp.add_argument("--arithmetic", action="store_true",
+                    help="with --transcode: T.81 arithmetic entropy coding (jpegtran -arithmetic; smaller, less widely decodable)")
     _add_device_flag(sp)
     sp.add_argument("input_dir")
     sp.add_argument("output_dir")
@@ -1708,7 +2001,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--size", type=int, default=512)
     sp.add_argument("--families", action="store_true",
                     help="also sweep one small case per kernel family (color 4:2:0 u8, f32, scaled decode, "
-                         "streamed gray and color; the reference's jpg import waits for ROADMAP A.4a(ii))")
+                         "streamed gray and color, jpg import)")
     _add_device_flag(sp)
     sp.set_defaults(fn=cmd_selftest)
 
@@ -1716,27 +2009,38 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("files", nargs="+")
     sp.set_defaults(fn=cmd_inspect)
 
-    sp = sub.add_parser("transcode", help="lossless coefficient-domain jpg <-> .tdc/.tdcc: not ported yet (ROADMAP A.4a(ii))")
+    sp = sub.add_parser("transcode", help="lossless coefficient-domain jpg <-> .tdc/.tdcc (no IDCT/FDCT, no device; direction by extensions); tdc -> tdc re-codes the entropy stage in place")
     sp.add_argument("src")
     sp.add_argument("dst")
-    sp.add_argument("--entropy", default="auto", type=_entropy_spec)
-    sp.add_argument("--optimize", action="store_true")
-    sp.add_argument("--progressive", action="store_true")
-    sp.add_argument("--arithmetic", action="store_true")
+    sp.add_argument("--entropy", default="auto", type=_entropy_spec,
+                    help=".tdc entropy stage for jpg->tdc imports and tdc->tdc restages; banded[::inner] on a banded source restages one segment at a time (bounded memory)")
+    sp.add_argument("--optimize", action="store_true",
+                    help="with a .jpg destination: two-pass optimal Huffman tables (jpegtran -optimize)")
+    sp.add_argument("--progressive", action="store_true",
+                    help="with a .jpg destination: progressive scan script (jpegtran -progressive; implies --optimize)")
+    sp.add_argument("--arithmetic", action="store_true",
+                    help="with a .jpg destination: T.81 arithmetic entropy coding (jpegtran -arithmetic; smaller, less widely decodable)")
     sp.set_defaults(fn=cmd_transcode)
 
-    sp = sub.add_parser("edit", help="lossless coefficient-domain flip/rotate/crop/grayscale: not ported yet (ROADMAP A.4a(ii))")
+    sp = sub.add_parser("edit", help="lossless coefficient-domain flip/rotate/transpose/crop/grayscale on .tdc/.tdcc, or directly jpg->jpg (a jpegtran replacement; no device)")
     sp.add_argument("src")
     sp.add_argument("dst")
     sp.add_argument("--op", action="append",
-                    choices=("hflip", "vflip", "rot90", "rot180", "rot270", "transpose"))
-    sp.add_argument("--crop", nargs=4, type=int, metavar=("Y0", "X0", "H", "W"))
-    sp.add_argument("--grayscale", action="store_true")
+                    choices=("hflip", "vflip", "rot90", "rot180", "rot270", "transpose"),
+                    help="geometric op; repeatable, applied left-to-right (rot90 is clockwise)")
+    sp.add_argument("--crop", nargs=4, type=int, metavar=("Y0", "X0", "H", "W"),
+                    help="block-aligned lossless crop, applied before ops")
+    sp.add_argument("--grayscale", action="store_true",
+                    help="drop the chroma planes (jpegtran -grayscale), before crop/ops")
     sp.add_argument("--entropy", default="auto",
-                    choices=("auto", "auto-exact", "spectral", "huffman", "rans", "xz", "raw", "banded"))
-    sp.add_argument("--optimize", action="store_true")
-    sp.add_argument("--progressive", action="store_true")
-    sp.add_argument("--arithmetic", action="store_true")
+                    choices=("auto", "auto-exact", "spectral", "huffman", "rans", "xz", "raw", "banded"),
+                    help="entropy stage for the re-serialized output")
+    sp.add_argument("--optimize", action="store_true",
+                    help="with a .jpg destination: two-pass optimal Huffman tables (jpegtran -optimize)")
+    sp.add_argument("--progressive", action="store_true",
+                    help="with a .jpg destination: progressive scan script (jpegtran -progressive; implies --optimize)")
+    sp.add_argument("--arithmetic", action="store_true",
+                    help="with a .jpg destination: T.81 arithmetic entropy coding (jpegtran -arithmetic; smaller, less widely decodable)")
     sp.set_defaults(fn=cmd_edit)
 
     sp = sub.add_parser("compare", help="tolerance-compare two images + metric suite; two .tdc/.tdcc inputs diff at the coefficient level")

@@ -11,11 +11,26 @@ coefficient map saves to a .tdc or .tdcc without a gather
 (``save_sharded``/``save_color_sharded``: one banded segment per rank).
 ``scaling_table`` times the band-local codec pair per rank count.
 
-Left out, as the module docstrings say: ``distributed_init`` (multi-process
-bring-up) and ``band_spec``/``grid_spec`` (JAX partition specs).
+After ``distributed_init`` (multi-process bring-up over a gloo process
+group) a mesh spans the ranks of every process: each process places its own
+slab and drives its own ranks, metrics and ``gather`` all-gather host data,
+and the sharded saves exchange compressed segments (process 0 writes).  The
+rings stay within one process.
+
+Left out, as the module docstrings say: ``band_spec``/``grid_spec`` (JAX
+partition specs).
 """
 
-from tpudct_torch.parallel.mesh import BAND_AXIS, COL_AXIS, Mesh, band_mesh, grid_mesh
+from tpudct_torch.parallel.mesh import (
+    BAND_AXIS,
+    COL_AXIS,
+    Mesh,
+    band_mesh,
+    distributed_init,
+    grid_mesh,
+    process_count,
+    process_index,
+)
 from tpudct_torch.parallel.ring import (
     chroma_band_pack,
     ring_all_gather,
@@ -52,9 +67,12 @@ __all__ = [
     "Sharded",
     "band_mesh",
     "chroma_band_pack",
+    "distributed_init",
     "gather",
     "gather_recon",
     "grid_mesh",
+    "process_count",
+    "process_index",
     "ring_all_gather",
     "ring_decode_color_gather",
     "ring_decode_gather",

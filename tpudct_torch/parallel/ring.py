@@ -21,7 +21,8 @@ and each card's caller stream ends after every rank that wrote to it.
 Ranks on two cards write through peer pointers, enabled once per pair
 (``ring_enable_peer``); where ``torch.cuda.can_device_access_peer`` says
 no, the ring raises: it never stages a hop through the host.  On a CPU mesh
-the same schedule runs in order on the plain twins.
+the same schedule runs in order on the plain twins.  A ring runs within
+one process: on a mesh across processes (``distributed_init``) it raises.
 
 Gates: the reference's interpret-mode gates (gray bands of 8-row multiples
 and w % 128; color bands of 16-row multiples and w % 256).  Its VMEM budget,
@@ -37,7 +38,7 @@ import torch
 
 from tpudct_torch.kernels import ring as rk
 from tpudct_torch.parallel.mesh import Mesh, rank_streams
-from tpudct_torch.parallel.sharding import Sharded, _expect
+from tpudct_torch.parallel.sharding import Sharded, _expect, _require_local
 
 
 @functools.lru_cache(maxsize=None)
@@ -129,6 +130,7 @@ def _record_inputs(x: Sharded) -> None:
 
 def _band_rows(x: Sharded, mesh: Mesh) -> int:
     _expect(x, mesh, "band")
+    _require_local(mesh, "a ring")
     rows = {s.shape[0] for s in x.shards}
     if len(rows) != 1:
         raise ValueError(f"ring needs equal bands, got band heights {sorted(rows)}")

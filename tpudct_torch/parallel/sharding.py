@@ -18,6 +18,17 @@ Each step factory returns a plain function of ``Sharded`` values.
 :func:`save_sharded` and :func:`save_color_sharded` serialize band-sharded
 coefficient maps without gathering them: each rank's slab entropy-codes into
 its own banded segment.
+
+After :func:`~tpudct_torch.parallel.mesh.distributed_init` a mesh may span
+several processes.  Then, as in the reference's multi-host branches, each
+process passes its own slab of the global input to the ``shard_*``
+functions (a contiguous block of rows: its ranks' bands), a ``Sharded``
+holds that process's shards alone (``is_fully_addressable`` is False), and
+three things cross processes, all host data over the gloo group: the
+metrics' per-rank partial sums (all-gathered, then added in rank order on
+every process, so the sums are the single process's), :func:`gather`'s host
+slabs, and the sharded saves' compressed segments (every process assembles
+the file, process 0 writes it).  The rings stay within one process.
 """
 
 from __future__ import annotations
@@ -29,7 +40,7 @@ import torch
 
 from tpudct_torch.config import CodecConfig
 from tpudct_torch.models.base import Pipeline
-from tpudct_torch.parallel.mesh import Mesh, rank_streams
+from tpudct_torch.parallel.mesh import Mesh, process_count, process_index, rank_streams
 from tpudct_torch.utils import color as _color
 
 #: layout -> (row axis, column axis or None) of the global array
@@ -44,21 +55,34 @@ _AXES = {
 
 @dataclasses.dataclass(frozen=True)
 class Sharded:
-    """A global array as one tensor per rank (``shards[r]`` on
-    ``mesh.devices[r]``), laid out by ``spec``: a key of ``_AXES``, or
-    "replicated" (every rank holds the whole array)."""
+    """A global array as one tensor per rank this process drives
+    (``shards[i]`` on ``mesh.devices[mesh.local_ranks[i]]``; every rank in
+    one process), laid out by ``spec``: a key of ``_AXES``, or "replicated"
+    (every rank holds the whole array)."""
 
     mesh: Mesh
     spec: str
     shards: tuple
 
     @property
+    def is_fully_addressable(self) -> bool:
+        """This process holds every shard."""
+        return self.mesh.is_fully_addressable
+
+    @property
     def shape(self) -> tuple:
+        """The global shape (across processes: every rank's shard has the
+        shape of this process's first)."""
         if self.spec == "replicated":
             return tuple(self.shards[0].shape)
         row_ax, col_ax = _AXES[self.spec]
-        nc = 1 if col_ax is None else self.mesh.shape[1]
+        nb, nc = _mesh_shape(self.mesh, self.spec)
         shape = list(self.shards[0].shape)
+        if not self.is_fully_addressable:
+            shape[row_ax] *= nb
+            if col_ax is not None:
+                shape[col_ax] *= nc
+            return tuple(shape)
         shape[row_ax] = sum(s.shape[row_ax] for s in self.shards[::nc])
         if col_ax is not None:
             shape[col_ax] = sum(s.shape[col_ax] for s in self.shards[:nc])
@@ -78,36 +102,67 @@ def _mesh_shape(mesh: Mesh, spec: str) -> tuple:
     return mesh.shape[0], (mesh.shape[1] if grid else 1)
 
 
+def _local_bands(mesh: Mesh, spec: str) -> tuple:
+    """(first band, band count) of this process's ranks under ``spec``;
+    raises unless they are whole bands in a row."""
+    nb, nc = _mesh_shape(mesh, spec)
+    local = mesh.local_ranks
+    b0, n = local[0] // nc, len(local) // nc
+    if local[0] % nc or len(local) % nc or local != tuple(range(b0 * nc, (b0 + n) * nc)):
+        raise ValueError(f"process {process_index()}'s ranks {local} are not whole bands of the "
+                         f"{nb}x{nc} mesh")
+    return b0, n
+
+
+def _global_shape(x, mesh: Mesh, spec: str) -> tuple:
+    """The global shape of which ``x`` is this process's slab (``x`` itself
+    where this process drives every rank)."""
+    shape = list(x.shape)
+    if not mesh.is_fully_addressable:
+        row_ax = _AXES[spec][0]
+        _b0, n = _local_bands(mesh, spec)
+        if shape[row_ax] % n:
+            raise ValueError(f"a process slab of {shape[row_ax]} rows does not split into its {n} bands")
+        shape[row_ax] = shape[row_ax] // n * _mesh_shape(mesh, spec)[0]
+    return tuple(shape)
+
+
 def _place(x, mesh: Mesh, spec: str) -> Sharded:
-    """Cut ``x`` (a tensor or an array) by ``spec`` and put each piece on its
-    rank's device (a view where it is there already)."""
+    """Cut ``x`` (a tensor or an array: the global array, or this process's
+    slab of it on a mesh across processes) by ``spec`` and put each piece
+    on its rank's device (a view where it is there already)."""
     row_ax, col_ax = _AXES[spec]
     nb, nc = _mesh_shape(mesh, spec)
+    b0, n_bands = _local_bands(mesh, spec)
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.require(x, requirements="W"))
-    rows = t.shape[row_ax] // nb
+    rows = t.shape[row_ax] // n_bands
     shards = []
-    for r, dev in enumerate(mesh.devices):
+    for r in mesh.local_ranks:
         b, c = divmod(r, nc)
-        piece = t.narrow(row_ax, b * rows, rows)
+        piece = t.narrow(row_ax, (b - b0) * rows, rows)
         if col_ax is not None:
             cols = t.shape[col_ax] // nc
             piece = piece.narrow(col_ax, c * cols, cols)
-        shards.append(piece.to(dev).contiguous())
+        shards.append(piece.to(mesh.devices[r]).contiguous())
     return Sharded(mesh, spec, tuple(shards))
 
 
 def shard_image(x, mesh: Mesh) -> Sharded:
-    """Place an (H, W) image as row bands across the mesh."""
-    n, h = _mesh_shape(mesh, "band")[0], x.shape[0]
+    """Place an (H, W) image as row bands across the mesh.  On a mesh across
+    processes ``x`` is this process's slab, and the global height is
+    checked."""
+    n, h = _mesh_shape(mesh, "band")[0], _global_shape(x, mesh, "band")[0]
     if (h // n) % 8 or h % n:
         raise ValueError(f"height {h} must split into {n} bands of 8-row multiples")
     return _place(x, mesh, "band")
 
 
 def shard_image_grid(x, mesh: Mesh) -> Sharded:
-    """Place an (H, W) image as a 2-D tile grid across a (band, col) mesh."""
+    """Place an (H, W) image as a 2-D tile grid across a (band, col) mesh
+    (across processes: this process's block of rows, as
+    :func:`shard_image`)."""
     nb, nc = _mesh_shape(mesh, "grid")
-    h, w = x.shape
+    h, w = _global_shape(x, mesh, "grid")
     if h % nb or (h // nb) % 8:
         raise ValueError(f"height {h} must split into {nb} bands of 8-row multiples")
     if w % nc or (w // nc) % 8:
@@ -116,11 +171,12 @@ def shard_image_grid(x, mesh: Mesh) -> Sharded:
 
 
 def shard_rgb(x, mesh: Mesh) -> Sharded:
-    """Place a (3, H, W) planar u8 RGB image as row bands.  Per-band heights
-    must be multiples of 16 so the 4:2:0 chroma planes land on whole 8-row
-    blocks (band-local pooling halves the rows)."""
+    """Place a (3, H, W) planar u8 RGB image as row bands (across
+    processes: this process's slab, as :func:`shard_image`).  Per-band
+    heights must be multiples of 16 so the 4:2:0 chroma planes land on
+    whole 8-row blocks (band-local pooling halves the rows)."""
     n = _mesh_shape(mesh, "rgb-band")[0]
-    _c, h, w = x.shape
+    _c, h, w = _global_shape(x, mesh, "rgb-band")
     if h % n or (h // n) % 16:
         raise ValueError(
             f"height {h} must split into {n} bands of 16-row multiples "
@@ -133,9 +189,10 @@ def shard_rgb(x, mesh: Mesh) -> Sharded:
 
 def shard_rgb_grid(x, mesh: Mesh) -> Sharded:
     """Place a (3, H, W) planar u8 RGB image as a 2-D tile grid: 4:2:0
-    pooling is 2x2-local, so tiles need 16-row AND 16-col alignment."""
+    pooling is 2x2-local, so tiles need 16-row AND 16-col alignment (across
+    processes: this process's block of rows)."""
     nb, nc = _mesh_shape(mesh, "rgb-grid")
-    _c, h, w = x.shape
+    _c, h, w = _global_shape(x, mesh, "rgb-grid")
     if h % nb or (h // nb) % 16:
         raise ValueError(f"height {h} must split into {nb} bands of 16-row multiples")
     if w % nc or (w // nc) % 16:
@@ -144,8 +201,9 @@ def shard_rgb_grid(x, mesh: Mesh) -> Sharded:
 
 
 def shard_batch(x, mesh: Mesh) -> Sharded:
-    """Place a (B, H, W) batch with B/n images per rank."""
-    n, b = _mesh_shape(mesh, "batch")[0], x.shape[0]
+    """Place a (B, H, W) batch with B/n images per rank (across processes:
+    this process's slab of the batch; the global batch is checked)."""
+    n, b = _mesh_shape(mesh, "batch")[0], _global_shape(x, mesh, "batch")[0]
     if b % n:
         raise ValueError(f"batch of {b} images must split across {n} devices")
     return _place(x, mesh, "batch")
@@ -153,15 +211,50 @@ def shard_batch(x, mesh: Mesh) -> Sharded:
 
 def gather(x: Sharded) -> np.ndarray:
     """Reassemble a sharded value on the host (output path only); a
-    replicated one is its first rank's copy."""
+    replicated one is its first rank's copy.  Across processes every
+    process's host slab is all-gathered (a collective: every process calls
+    it) and every process returns the whole array."""
     if x.spec == "replicated":
         return x.shards[0].cpu().numpy()
     row_ax, col_ax = _AXES[x.spec]
     host = [s.cpu() for s in x.shards]
     if col_ax is not None:
         nc = x.mesh.shape[1]
-        host = [torch.cat(host[b * nc : (b + 1) * nc], col_ax) for b in range(x.mesh.shape[0])]
-    return torch.cat(host, row_ax).numpy()
+        host = [torch.cat(host[b * nc : (b + 1) * nc], col_ax) for b in range(len(host) // nc)]
+    local = torch.cat(host, row_ax).numpy()
+    if x.is_fully_addressable:
+        return local
+    nc = _mesh_shape(x.mesh, x.spec)[1]
+    band_rows = x.shards[0].shape[row_ax]
+    slabs = []
+    for p, blob in enumerate(_allgather_bytes(np.ascontiguousarray(local).tobytes())):
+        shape = list(local.shape)
+        shape[row_ax] = x.mesh.processes.count(p) // nc * band_rows
+        slabs.append(np.frombuffer(blob, local.dtype).reshape(shape))
+    return np.concatenate(slabs, row_ax)
+
+
+def _allgather_bytes(local: bytes) -> list:
+    """Every process's ``local`` bytes, in process order, over the gloo
+    group: the lengths first, then the buffers padded to the longest (the
+    reference's two ``process_allgather`` calls).  A collective."""
+    import torch.distributed as dist
+
+    n = process_count()
+    lens = [torch.zeros(1, dtype=torch.int64) for _ in range(n)]
+    dist.all_gather(lens, torch.tensor([len(local)], dtype=torch.int64))
+    lens = [int(t) for t in lens]
+    buf = torch.zeros(max(lens), dtype=torch.uint8)
+    buf[: len(local)] = torch.frombuffer(bytearray(local), dtype=torch.uint8) if local else buf[:0]
+    bufs = [torch.empty_like(buf) for _ in range(n)]
+    dist.all_gather(bufs, buf)
+    return [b[:k].numpy().tobytes() for b, k in zip(bufs, lens)]
+
+
+def _require_local(mesh: Mesh, what: str) -> None:
+    if not mesh.is_fully_addressable:
+        raise ValueError(f"{what} runs within one process; this mesh spans "
+                         f"{len(set(mesh.processes))} processes")
 
 
 # ---- running a function on every rank -----------------------------------------
@@ -173,24 +266,24 @@ def _tensors(res):
 
 
 def _run(mesh: Mesh, fn, *inputs: Sharded) -> list:
-    """``fn(*rank_shards)`` for every rank, on its device and, on a card,
-    its own stream: each rank stream first waits for the caller's stream,
-    and the caller's stream then waits for every rank stream, so the
-    results are ready where the caller reads them.  Tensors that cross
-    streams are recorded on the stream that reads them (the caching
-    allocator reuses their memory only after it).  Returns fn's results
-    (tuples of tensors and dicts of tensors), one per rank."""
-    args = [tuple(x.shards[r] for x in inputs) for r in range(mesh.size)]
+    """``fn(*rank_shards)`` for every rank this process drives, on its
+    device and, on a card, its own stream: each rank stream first waits for
+    the caller's stream, and the caller's stream then waits for every rank
+    stream, so the results are ready where the caller reads them.  Tensors
+    that cross streams are recorded on the stream that reads them (the
+    caching allocator reuses their memory only after it).  Returns fn's
+    results (tuples of tensors and dicts of tensors), one per rank."""
+    args = [tuple(x.shards[i] for x in inputs) for i in range(len(mesh.local_ranks))]
     if not mesh.is_cuda:
         return [fn(*a) for a in args]
     out = []
-    for dev, s, a in zip(mesh.devices, rank_streams(mesh), args):
+    for dev, s, a in zip(mesh.local_devices, rank_streams(mesh), args):
         s.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.device(dev), torch.cuda.stream(s):
             for t in a:
                 t.record_stream(s)
             out.append(fn(*a))
-    for dev, s, res in zip(mesh.devices, rank_streams(mesh), out):
+    for dev, s, res in zip(mesh.local_devices, rank_streams(mesh), out):
         caller = torch.cuda.current_stream(dev)
         caller.wait_stream(s)
         for t in _tensors(res):
@@ -223,11 +316,16 @@ def _partials(xf, rf, coeffs=None, images=None) -> dict:
     return p
 
 
-def _psum_metrics(parts: list, device) -> dict:
-    """Distributed quality metrics from the ranks' partial sums, added on
-    ``device`` (the first rank's): mse and psnr_db; peen_pct and
-    nonzero_frac where the partials hold coefficients; images where they
-    hold a batch."""
+def _psum_metrics(parts: list, mesh: Mesh) -> dict:
+    """Distributed quality metrics from the ranks' partial sums, added in
+    rank order on this process's first device: mse and psnr_db; peen_pct
+    and nonzero_frac where the partials hold coefficients; images where
+    they hold a batch.  Across processes the partials are all-gathered
+    first, so every process adds the same values in the same order as one
+    process would."""
+    device = mesh.local_devices[0]
+    if not mesh.is_fully_addressable:
+        parts = _allgather_partials(parts, mesh)
     tot = {k: parts[0][k].to(device) for k in parts[0]}
     for p in parts[1:]:
         for k in tot:
@@ -242,6 +340,25 @@ def _psum_metrics(parts: list, device) -> dict:
     if "images" in tot:
         m["images"] = tot["images"]
     return m
+
+
+def _allgather_partials(parts: list, mesh: Mesh) -> list:
+    """Every rank's partials, in rank order, on the host: each process sends
+    its ranks' f32 values as one (ranks, keys) tensor, padded to the most
+    ranks any process holds."""
+    import torch.distributed as dist
+
+    keys = list(parts[0])
+    local = torch.stack([torch.stack([p[k].to(torch.float32).reshape(()).cpu() for k in keys]) for p in parts])
+    most = max(mesh.processes.count(p) for p in set(mesh.processes))
+    pad = torch.zeros(most, len(keys), dtype=torch.float32)
+    pad[: len(parts)] = local
+    bufs = [torch.empty_like(pad) for _ in range(process_count())]
+    dist.all_gather(bufs, pad)
+    out = []
+    for p, buf in enumerate(bufs):
+        out.extend(dict(zip(keys, row)) for row in buf[: mesh.processes.count(p)])
+    return out
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -271,7 +388,7 @@ def _codec_step(pipeline: Pipeline, cfg: CodecConfig, mesh: Mesh, spec: str):
     def fn(xs: Sharded):
         _expect(xs, mesh, spec)
         out = _run(mesh, rank, xs)
-        metrics = _psum_metrics([res[2] for res in out], mesh.devices[0])
+        metrics = _psum_metrics([res[2] for res in out], mesh)
         return (_collect(mesh, spec, out, 0), _collect(mesh, spec, out, 1)), metrics
 
     return fn
@@ -355,7 +472,7 @@ def _color_step(pipeline: Pipeline, cfg: CodecConfig, mesh: Mesh, spec: str):
     def fn(xs: Sharded):
         _expect(xs, mesh, spec)
         out = _run(mesh, rank, xs)
-        return _collect(mesh, spec, out, 0), _psum_metrics([res[1] for res in out], mesh.devices[0])
+        return _collect(mesh, spec, out, 0), _psum_metrics([res[1] for res in out], mesh)
 
     return fn
 
@@ -419,7 +536,7 @@ def sharded_serving_step(pipeline: Pipeline, cfg: CodecConfig, mesh: Mesh):
     def fn(xs: Sharded):
         _expect(xs, mesh, "batch")
         out = _run(mesh, rank, xs)
-        metrics = _psum_metrics([res[2] for res in out], mesh.devices[0])
+        metrics = _psum_metrics([res[2] for res in out], mesh)
         return (_collect(mesh, "batch", out, 0), _collect(mesh, "batch", out, 1)), metrics
 
     return fn
@@ -439,10 +556,10 @@ def _banded_payload_sharded(coeffs, inner: str, level: int) -> bytes:
     ``sampled_auto=True``: the single-host banded writer's segment branch,
     so the bytes are its bytes); the segments are reassembled in row order,
     with the gap, coverage and 1..255 checks.  A replicated value (or a
-    plain array) is one slab.  The port's ranks live in one process, so
-    every slab is addressable here; the reference's multi-process leg
-    (``process_allgather`` of the compressed segments) waits for the port's
-    ``distributed_init`` (ROADMAP A.10)."""
+    plain array) is one slab.  Across processes each process codes its own
+    ranks' slabs, and only the compressed segments cross processes (two
+    all-gathers: lengths, then padded bytes); every process assembles the
+    same payload."""
     import os
     import struct
     from concurrent.futures import ThreadPoolExecutor
@@ -465,9 +582,12 @@ def _banded_payload_sharded(coeffs, inner: str, level: int) -> bytes:
     else:
         shards = (coeffs,)
     slabs = {}  # row_start -> validated int16 slab
+    across = isinstance(coeffs, Sharded) and not coeffs.is_fully_addressable
     r0 = 0
-    for shard in shards:
+    for i, shard in enumerate(shards):
         host = shard.cpu().numpy() if isinstance(shard, torch.Tensor) else np.asarray(shard)
+        if across:  # equal bands: rank r's starts at r * rows
+            r0 = coeffs.mesh.local_ranks[i] * host.shape[0]
         slabs[r0] = _validate_map(host)
         r0 += host.shape[0]
     keys = sorted(slabs)
@@ -477,6 +597,16 @@ def _banded_payload_sharded(coeffs, inner: str, level: int) -> bytes:
             keys,
         ))
     segs = {r: (slabs[r].shape[0], code, payload) for r, (code, payload) in zip(keys, encoded)}
+    if across:
+        local = b"".join(struct.pack("<IIBI", r, rows, code, len(payload)) + payload
+                         for r, (rows, code, payload) in sorted(segs.items()))
+        segs = {}
+        for blob in _allgather_bytes(local):
+            off = 0
+            while off < len(blob):
+                r, rows, code, plen = struct.unpack("<IIBI", blob[off : off + 13])
+                segs[r] = (rows, code, blob[off + 13 : off + 13 + plen])
+                off += 13 + plen
     if not 1 <= len(segs) <= 255:
         raise ValueError(
             f"sharded save: {len(segs)} bands cannot serialize "
@@ -508,20 +638,22 @@ def save_sharded(
     it: one banded segment per rank (:func:`_banded_payload_sharded`).  The
     file is byte-identical to the single-host ``save_coefficients(...,
     codec=f"banded:{n_ranks}:{inner}")`` of the gathered map, so every
-    ordinary loader decodes it bit for bit.  Returns the byte count.
-
-    The ranks of the port's mesh live in one process, which writes the
-    file; the reference's multi-process form (every process assembles the
-    bytes, process 0 writes) waits for ``distributed_init`` (ROADMAP
-    A.10)."""
+    ordinary loader decodes it bit for bit.  Across processes it is a
+    collective: every process assembles the same bytes, process 0 writes
+    the file, and every process returns the byte count."""
     from tpudct_torch.utils.serialize import _CODEC_BANDED, _wrap_v4
 
     h, w = coeffs.shape
     payload = _banded_payload_sharded(coeffs, inner, level)
     data = _wrap_v4(h, w, _CODEC_BANDED, payload, q_scale, retain_k, orig_shape, transform, q_table)
-    with open(path, "wb") as f:
-        f.write(data)
+    _write_on_process_0(path, data)
     return len(data)
+
+
+def _write_on_process_0(path, data: bytes) -> None:
+    if process_index() == 0:
+        with open(path, "wb") as f:
+            f.write(data)
 
 
 def save_color_sharded(
@@ -535,8 +667,8 @@ def save_color_sharded(
     file is byte-identical to the single-host ``save_color(...,
     codec=f"banded:{n}:{inner}")`` of the gathered planes.  `meta` is the
     color encoders' meta (orig_shape, chroma_shape, subsample, optional
-    per-plane q tables).  Returns the byte count; the multi-process form
-    waits as :func:`save_sharded`'s does."""
+    per-plane q tables).  Returns the byte count; across processes only
+    process 0 writes, as in :func:`save_sharded`."""
     from tpudct_torch.utils.serialize import _CODEC_BANDED, _wrap_v4, color_container_from_blobs
 
     def plane_blob(name, q_table, oshape):
@@ -546,6 +678,5 @@ def save_color_sharded(
         return _wrap_v4(ph, pw, _CODEC_BANDED, payload, q_scale, retain_k, oshape, transform, q_table)
 
     data = color_container_from_blobs(meta, plane_blob)
-    with open(path, "wb") as f:
-        f.write(data)
+    _write_on_process_0(path, data)
     return len(data)

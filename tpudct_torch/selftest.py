@@ -215,9 +215,13 @@ def family_gates(p, cfg, device=None) -> list:
       (``banded:3``, ``banded:1``) and the pixels to ``decode_gray_auto`` /
       ``decode_color_auto``.
 
-    The reference's last family, jpg_import, waits for the JPEG
-    coefficient import (ROADMAP A.4a(ii)).  ``device`` None is the first
-    CUDA card."""
+    - jpg_import: a 64^2 synthetic image saved as a quality-90 JPEG,
+      imported at the coefficient level (``utils.jpegcoef.import_jpeg``)
+      and decoded by ``decode_gray_auto``, within 1 of libjpeg's pixels;
+      "skip" where the native JPEG library is unavailable, as the
+      reference's gate does.
+
+    ``device`` None is the first CUDA card."""
     from tpudct_torch.models.dispatch import default_device
     from tpudct_torch.ops.scaled import box_pool_u8, scaled_decode, scaled_decode_u8
     from tpudct_torch.ops.transform import to_uint8
@@ -244,7 +248,37 @@ def family_gates(p, cfg, device=None) -> list:
         rep["fast_path"] = "pass"
     reports.append(rep)
     reports.extend(_streamed_gates(p, cfg, device))
+    reports.append(_jpg_import_gate(p, device))
     return reports
+
+
+def _jpg_import_gate(p, device) -> dict:
+    """The jpg_import family of :func:`family_gates`."""
+    import os
+    import tempfile
+
+    from tpudct_torch.config import CodecConfig
+    from tpudct_torch.models.dispatch import decode_gray_auto
+    from tpudct_torch.utils import imageio, jpegcoef, serialize
+
+    if not jpegcoef.coef_io_available():
+        return {"gate": "skip", "family": "jpg_import", "reason": "native library unavailable"}
+    fd, jpath = tempfile.mkstemp(suffix=".jpg")
+    os.close(fd)
+    try:
+        imageio.save_jpeg(jpath, synthetic_image(64).astype(np.uint8), quality=90)
+        data = jpegcoef.import_jpeg(jpath, codec="raw")
+        coeffs, q_scale, _k, (h, w), transform, q_table = serialize.bytes_to_coefficients(
+            data, with_orig_shape=True, with_transform=True, with_q_table=True,
+        )
+        dcfg = CodecConfig(q_scale=q_scale, transform=transform, q_table=q_table)
+        dec = _np(decode_gray_auto(p, coeffs, dcfg, (h, w), device=device))
+        ref = imageio.load_image(jpath)
+        jerr = np.abs(dec.astype(np.int32) - ref.astype(np.int32)).max()
+        _check(jerr <= 1.0, f"jpg-import decode deviates from libjpeg pixels by {jerr}")
+        return {"gate": "pass", "family": "jpg_import", "max_dev": int(jerr)}
+    finally:
+        os.remove(jpath)
 
 
 def _streamed_gates(p, cfg, device) -> list:

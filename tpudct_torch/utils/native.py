@@ -7,7 +7,8 @@ in ``csrc/`` at the root of the checkout (read there, never written there):
 - the entropy library, ``csrc/entropy.c`` alone (libc, ``math.h`` and
   pthreads only): the Huffman and rANS coders of the ``.tdc`` stages;
 - the JPEG library, ``csrc/jpeg_codec.c`` linked against libjpeg: the
-  ``.jpg`` reader and writers of :mod:`tpudct_torch.utils.imageio`.
+  ``.jpg`` reader and writers of :mod:`tpudct_torch.utils.imageio` and the
+  coefficient reader and writer of :mod:`tpudct_torch.utils.jpegcoef`.
 
 The flags are ``csrc/Makefile``'s (``-O3 -march=native -Wall -fPIC -pthread
 -shared``, libraries ``-lpthread -lm``, plus ``-ljpeg`` for the JPEG
@@ -19,8 +20,9 @@ flags, written to a temporary file and moved into place, so concurrent
 processes may build at once.
 
 A failed entropy build raises with the compiler's stderr.  A failed JPEG
-build (no libjpeg headers) leaves the JPEG entry points unavailable, and
-the callers fall back to PIL, as the reference does.  Setting
+build (no libjpeg headers) leaves the JPEG entry points unavailable: the
+pixel callers fall back to PIL, as the reference does, and the coefficient
+I/O, which has no fallback, raises.  Setting
 ``TPUDCT_NO_NATIVE_JPEG`` turns both libraries off, as it turns off the
 reference's one library: the entropy decoders then run their pure-Python
 forms and the encoders that need the library raise.
@@ -49,6 +51,8 @@ LIBRARIES = {
 _I, _L, _P = ctypes.c_int, ctypes.c_long, ctypes.c_void_p
 _U8P = ctypes.POINTER(ctypes.c_ubyte)
 _IP = ctypes.POINTER(ctypes.c_int)
+_I16PP = ctypes.POINTER(ctypes.POINTER(ctypes.c_short))
+_U16P = ctypes.POINTER(ctypes.c_ushort)
 # library -> name -> (result type, argument types)
 _SIGNATURES = {
     "entropy": {
@@ -65,6 +69,12 @@ _SIGNATURES = {
             _I, (_U8P, _I, _I, _I, _I, ctypes.POINTER(_U8P), ctypes.POINTER(ctypes.c_ulong))),
         "tpudct_jpeg_decode_batch": (
             _I, (ctypes.POINTER(ctypes.c_char_p), _I, _I, ctypes.POINTER(_U8P), _IP, _IP, _IP, _IP, _I)),
+        # the coefficient-level entry points (utils/jpegcoef.py): path, maps,
+        # map widths and heights, tables, sampling factors, then the counts
+        "tpudct_jpeg_read_coefs": (
+            _I, (ctypes.c_char_p, _I16PP, _IP, _IP, _U16P, _IP, _IP, _IP, _IP, _IP)),
+        "tpudct_jpeg_write_coefs_ex": (
+            _I, (ctypes.c_char_p, _I16PP, _IP, _IP, _U16P, _IP, _IP, _I, _I, _I, _I)),
         "tpudct_free": (None, (_U8P,)),
     },
 }

@@ -400,7 +400,9 @@ def roundtrip_u8_streamed_sharded(
     math never crosses band edges — the same zero-halo property both
     streaming and the mesh exploit."""
     from tpudct_torch.kernels import hp
-    from tpudct_torch.parallel.sharding import _collect, _mesh_shape, _run, gather, shard_image
+    from tpudct_torch.parallel.sharding import _collect, _mesh_shape, _require_local, _run, gather, shard_image
+
+    _require_local(mesh, "roundtrip_u8_streamed_sharded")
 
     cfg = cfg or CodecConfig()
     img = np.asarray(image_u8)
