@@ -218,6 +218,16 @@ variants) from ``tpudct_torch/csrc`` and, in order:
      output -- every hash, file, byte count and metric equal to the same
      steps in this process on 4 virtual ranks, the workers' launches adding
      up to that run's, and per step the host wall and its gloo seconds;
+     then the headline bench path, its counters set to 0 just before it:
+     ``python3 -m tpudct_torch.bench`` as a subprocess from the root of the
+     checkout (TPUDCT_BENCH_TIMEOUT set) and tpudct_torch.bench.main() in
+     process (the gates' launches and 1 + 5 B1), each exiting 0 with one
+     stdout line of the reference's four keys and metric string,
+     vs_baseline = round(29.4 / value, 2), after the gate and every
+     family passed on stderr (jpg_import may skip); the subprocess's value
+     within 10% of torch.profiler's device time of the same call (L2
+     flushed), and main() with a pipeline whose coefficients are one step
+     off exiting 1 with one ``correctness gate failed`` line;
   7. times each kernel against its twin with
      tpudct_torch.utils.timing.device_time_ms (CUDA events, the median of
      each batch of calls, L2 flushed before every call; order plain,
@@ -232,7 +242,8 @@ variants) from ``tpudct_torch/csrc`` and, in order:
      launch (B14 in turns with Tensor.copy_ of the same slot, B16 with its
      composed counterpart, with the slot's bound) and per whole ring at
      n = 1, 2, 4, 8; the u8 study variants B27-B36 with their twins on
-     their own 8192^2 noise map; B7 also at f = 8 and with f32 out.
+     their own 8192^2 noise map; B7 also at f = 8 and with f32 out; then
+     prints the headline bench's value against B1's time.
 
 Each phase prints its seconds.  Any failure ends the run with a non-zero
 exit.  The second-to-last line is a JSON summary of the kernels (launches
@@ -2748,6 +2759,156 @@ def phase_multi_process_path(dev, card: str) -> dict:
     return dict(worker_launches)
 
 
+# `python3 -m tpudct_torch.bench`: its one stdout line's keys and metric, its
+# families (every one passes; jpg_import may skip: the card's machine has no
+# libjpeg headers), the most the printed value may move from the profiler's
+# device time of the same call, and its watchdog in the subprocess
+HEADLINE_KEYS = {"metric", "value", "unit", "vs_baseline"}
+HEADLINE_FAMILIES = ["color420_u8", "f32", "scaled", "streamed_gray", "streamed_color", "jpg_import"]
+HEADLINE_PROFILER_RTOL = 0.10
+HEADLINE_TIMEOUT_S = 600
+
+
+def _headline_line(label: str, lines: list) -> dict:
+    """The bench's stdout, checked: one line, the four keys, the reference's
+    metric string at SQUARE, value > 0, vs_baseline = round(29.4 / value, 2)."""
+    if len(lines) != 1:
+        _fail(f"{label}: {len(lines)} stdout lines, expected 1: {lines}")
+    rec = json.loads(lines[0])
+    if (set(rec) != HEADLINE_KEYS or rec["unit"] != "ms"
+            or rec["metric"] != f"{SQUARE}x{SQUARE} DCT+quant+IDCT ms/image per chip"
+            or not rec["value"] > 0 or rec["vs_baseline"] != round(29.4 / rec["value"], 2)):
+        _fail(f"{label}: {rec}")
+    return rec
+
+
+def _headline_reports(label: str, lines: list, dev) -> list:
+    """The bench's stderr records, checked: the gate and every family pass
+    (jpg_import may skip), then the line naming the device and the card."""
+    recs = [json.loads(line) for line in lines if line.startswith("{")]
+    gates, tail = recs[:-1], recs[-1] if recs else {}
+    fams = [r.get("family") for r in gates]
+    if fams != [None, *HEADLINE_FAMILIES] or tail.get("device") != str(dev) or not tail.get("card"):
+        _fail(f"{label}: stderr records {recs}")
+    for r in gates:
+        if r["gate"] != "pass" and not (r.get("family") == "jpg_import" and r["gate"] == "skip"):
+            _fail(f"{label}: {r}")
+    return recs
+
+
+def _profiled_rt_u8_ms(p, cfg, x, reps: int = 10) -> tuple:
+    """(ms, events): the mean device time of the k_rt_u8 events that
+    torch.profiler records over `reps` p.roundtrip_u8(x, cfg) calls, the L2
+    flushed before each call as device_time_ms does, and how many it
+    recorded (the card's profiler has recorded fewer kernels than calls)."""
+    from torch.autograd import DeviceType
+
+    from tpudct_torch.utils import profiling
+    from tpudct_torch.utils.timing import FLUSH_BYTES
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=x.device)
+    p.roundtrip_u8(x, cfg)
+    torch.cuda.synchronize()
+    with profiling.trace() as prof:
+        for _ in range(reps):
+            flush.zero_()
+            p.roundtrip_u8(x, cfg)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "k_rt_u8" in e.key]
+    n = sum(e.count for e in ev)
+    if not n:
+        _fail(f"profiler: no k_rt_u8 event over {reps} calls")
+    return sum(e.self_device_time_total for e in ev) / n / 1e3, n
+
+
+def phase_headline_bench(dev, card: str) -> tuple:
+    """The headline bench path, the counters set to 0 just before it and
+    read just after: ``python3 -m tpudct_torch.bench`` as a subprocess from
+    the root of the checkout (TPUDCT_BENCH_TIMEOUT set), then
+    tpudct_torch.bench.main() in process (exactly the gates' launches and
+    1 + 5 B1), each printing one line of the four keys after the gate and
+    every family passed; the printed value within HEADLINE_PROFILER_RTOL of
+    the profiler's device time of the same call; then main() with a
+    pipeline whose coefficients are one step off: exit 1 and one
+    ``correctness gate failed`` line.  Returns (launches, the subprocess's
+    value in ms)."""
+    import sys
+
+    from tpudct_torch import bench
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.kernels import hp
+    from tpudct_torch.models import get_pipeline
+
+    _phase(6, "headline bench")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "TPUDCT_GATE"}
+    env["TPUDCT_BENCH_TIMEOUT"] = str(HEADLINE_TIMEOUT_S)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "tpudct_torch.bench"], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=HEADLINE_TIMEOUT_S + 60)
+    wall = time.perf_counter() - t0
+    for line in run.stderr.splitlines():
+        print(f"    [stderr] {line}")
+    if run.returncode:
+        _fail(f"python3 -m tpudct_torch.bench exited with {run.returncode}: {run.stdout}")
+    rec = _headline_line("python3 -m tpudct_torch.bench", run.stdout.splitlines())
+    secs = _headline_reports("python3 -m tpudct_torch.bench", run.stderr.splitlines(), dev)[-1]
+    print(f"  python3 -m tpudct_torch.bench: {run.stdout.strip()}; wall {wall:.1f} s (gates {secs['gates_s']} s, "
+          f"main {secs['main_s']} s) [{card}]")
+
+    counts, step = _stepper(hp.LAUNCHES, ck.LAUNCHES)
+    hp.reset_launches()
+    ck.reset_launches()
+    out, err = io.StringIO(), io.StringIO()
+
+    def main_captured():
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            return bench.main()
+
+    rc = step("tpudct_torch.bench.main()",
+              {**SELFTEST_LAUNCHES, "hp_roundtrip_u8": SELFTEST_LAUNCHES["hp_roundtrip_u8"] + 1 + 5}, main_captured)
+    launches = counts()
+    if rc:
+        _fail(f"tpudct_torch.bench.main() returned {rc}: {out.getvalue()}")
+    rec2 = _headline_line("tpudct_torch.bench.main()", out.getvalue().splitlines())
+    _headline_reports("tpudct_torch.bench.main()", err.getvalue().splitlines(), dev)
+    print(f"  tpudct_torch.bench.main() in process: {json.dumps(rec2)} [{card}]")
+    print("  launches:", json.dumps(launches))
+
+    p, cfg = get_pipeline("hp"), bench.CodecConfig()
+    x = torch.as_tensor(bench.selftest.synthetic_image(SQUARE).astype(np.uint8), device=dev)
+    prof_ms, n_ev = _profiled_rt_u8_ms(p, cfg, x)
+    dev_ratio = rec["value"] / prof_ms
+    print(f"  value {rec['value']} ms against the profiler's device time of the same call (k_rt_u8, L2 flushed; "
+          f"the mean of {n_ev} events over 10 calls) {prof_ms:.4f} ms: {dev_ratio:.3f}x [{card}]")
+    if abs(dev_ratio - 1) > HEADLINE_PROFILER_RTOL:
+        _fail(f"the bench's value {rec['value']} ms is off the profiler's device time {prof_ms:.4f} ms "
+              f"by more than {HEADLINE_PROFILER_RTOL:.0%}")
+
+    class OffByOne(type(p)):
+        """Coefficients one quantizer step off everywhere."""
+
+        def roundtrip_u8(self, image_u8, cfg):
+            c, r = super().roundtrip_u8(image_u8, cfg)
+            return c + 1, r
+
+        def encode_u8(self, image_u8, cfg):
+            return super().encode_u8(image_u8, cfg) + 1
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        bench.get_pipeline = lambda name: OffByOne()
+        try:
+            rc = bench.main()
+        finally:
+            bench.get_pipeline = get_pipeline
+    lines = out.getvalue().splitlines()
+    if rc != 1 or len(lines) != 1 or not json.loads(lines[0])["error"].startswith("correctness gate failed: "):
+        _fail(f"a pipeline one step off: exit {rc}, stdout {lines}")
+    print(f"  a pipeline one step off: exit 1, {lines[0]}")
+    return launches, rec["value"]
+
+
 def _memory_peak(fn) -> tuple:
     """(fn(), host wall s, peak of fn's own device allocations, peak of the
     bytes the caching allocator reserved during it): the allocated bytes
@@ -3352,7 +3513,12 @@ def main() -> int:
     runs.append(timed(phase_bulk_path, dev, card))
     runs.append(timed(phase_coefficient_path, dev, card))
     runs.append(timed(phase_multi_process_path, dev, card))
+    launches, headline_ms = timed(phase_headline_bench, dev, card)
+    runs.append(launches)
     times = timed(phase_timing, dev, card)
+    b1_ms = times[("hp_roundtrip_u8", f"{SQUARE}^2")][0]
+    print(f"headline bench value {headline_ms} ms against phase 7's B1 (hp_roundtrip_u8, {SQUARE}^2) {b1_ms:.4f} "
+          f"ms: {headline_ms / b1_ms:.3f}x [{card}]")
     kernels = []
     for name, (src, replaces, _bpp, _ops) in KERNELS.items():
         bound_ms, bound_by = _bound(name, SQUARE, SQUARE)

@@ -33,6 +33,27 @@ def test_tables_and_cores_equal_reference():
         assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
+def test_derive_T_is_the_reference():
+    """T's literals are the Haweel construction (within 5e-9 in float64),
+    and the derivation is the reference's in both dtypes."""
+    np.testing.assert_allclose(P.T, P.derive_T(np.float64), atol=5e-9)
+    for dtype in (np.float64, np.float32):
+        a, b = P.derive_T(dtype), R.derive_T(dtype)
+        assert a.dtype == b.dtype == dtype and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.5, 2.5])
+def test_tiled_Q_is_the_reference(scale):
+    a, b = P.tiled_Q(128, 256, scale), R.tiled_Q(128, 256, scale)
+    assert a.shape == (128, 256) and a.dtype == b.dtype and np.array_equal(a, b)
+    assert np.array_equal(P.tiled_Q(16, 8, scale, np.float64), R.tiled_Q(16, 8, scale, np.float64))
+    # a tile that is not whole blocks: both refuse (the reference by assert)
+    with pytest.raises(ValueError, match="not a grid"):
+        P.tiled_Q(12, 16)
+    with pytest.raises(AssertionError):
+        R.tiled_Q(12, 16)
+
+
 @pytest.mark.parametrize("name", sorted(R.TRANSFORMS) + sorted(R.TRANSFORM_ALIASES))
 def test_transform_registry_equals_reference(name):
     a, b = P.get_transform(name), R.get_transform(name)

@@ -47,6 +47,19 @@ def test_round_half_away_matches_reference():
     _same(PR.round_half_away(torch.as_tensor(x)), RR.round_half_away(jnp.asarray(x)))
 
 
+def test_round_free_matches_reference():
+    """C truncation, the reference's ``jnp.trunc``: +-0.5 ties and their
+    neighbours, signed zeros, large values (beyond 2^23 every f32 is whole)
+    and infinities."""
+    special = np.array([0.5, -0.5, 1.5, -1.5, 254.5, 255.5, -0.49999997, 0.99999994, -0.0, 0.0,
+                        2.0**23 + 1, -(2.0**24) - 2, 3.4e38, -3.4e38, np.inf, -np.inf], np.float32)
+    rnd = np.random.default_rng(2).normal(0, 300, 2048).astype(np.float32)
+    x = np.concatenate([special, rnd])
+    got = PT.round_free(torch.as_tensor(x))
+    _same(got, RT.round_free(jnp.asarray(x)))
+    assert np.array_equal(np.signbit(got.numpy()), np.signbit(np.asarray(RT.round_free(jnp.asarray(x)))))
+
+
 @pytest.mark.parametrize("shape", [(8, 8), (16, 24), (64, 128)])
 def test_block_layouts_match_reference(shape):
     x = np.random.default_rng(2).normal(size=shape).astype(np.float32)

@@ -138,6 +138,23 @@ def haweel_integer_core() -> np.ndarray:
     return HAWEEL_TS.copy()
 
 
+def derive_T(dtype=np.float32) -> np.ndarray:
+    """T from first principles (the Haweel construction): Ts with each row
+    divided by its Euclidean norm, so the literal ``T`` above is provably
+    the Haweel matrix and not an arbitrary constant."""
+    ts = HAWEEL_TS.astype(np.float64)
+    return (ts / haweel_row_norms()[:, None]).astype(dtype)
+
+
+def tiled_Q(rows: int, cols: int, scale: float = 1.0, dtype=np.float32) -> np.ndarray:
+    """Q times ``scale`` (in f32) repeated over a rows x cols tile of whole
+    blocks: the per-block-position divisor of the original's
+    divide_matrices (utils_kernels.cu:34-44)."""
+    if rows % BLOCK_SIZE or cols % BLOCK_SIZE:
+        raise ValueError(f"tiled_Q: {rows}x{cols} is not a grid of {BLOCK_SIZE}x{BLOCK_SIZE} blocks")
+    return np.tile(Q * np.float32(scale), (rows // BLOCK_SIZE, cols // BLOCK_SIZE)).astype(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Transform registry
 # ---------------------------------------------------------------------------

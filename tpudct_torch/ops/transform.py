@@ -53,7 +53,13 @@ def level_unshift(x: torch.Tensor) -> torch.Tensor:
 
 def to_uint8(x: torch.Tensor) -> torch.Tensor:
     """C truncation, clamp to [0, 255], cast."""
-    return x.trunc().clamp(0.0, 255.0).to(torch.uint8)
+    return round_free(x).clamp(0.0, 255.0).to(torch.uint8)
+
+
+def round_free(x: torch.Tensor) -> torch.Tensor:
+    """C truncation toward zero, as the original's ``(unsigned char)value``
+    cast after the clamp (utils.cu:22): no rounding."""
+    return x.trunc()
 
 
 def einsum64(equation: str, *operands: torch.Tensor) -> torch.Tensor:
