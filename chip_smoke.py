@@ -129,7 +129,14 @@ variants) from ``tpudct_torch/csrc`` and, in order:
      drivers (u8_variants in modes int, bf, abbf, cs; enc_variants in modes
      a, b, d, e; rt_split_ab with 3 trials; scaled_ab), each moving exactly
      its counters and every difference count they report 0 (each of the ten
-     u8 variant counters must move); then the
+     u8 variant counters must move), and five more drivers
+     (timing_xval: B1 at 8192^2 by device_time_ms, by the amortized wall of
+     a 1024-launch chain and by a line through chains of 8..648 launches;
+     bulk_ab: 64 x 512^2 frames per image and stacked, its spot-check;
+     onchip_recheck: the gate, the one-rank decode ring at 512^2 and 8192^2
+     equal to hp_decode_u8, the f32 color path timed; deadzone_study and
+     rans_interleave_ab on the host, no launch), each moving exactly its
+     counters; then the
      measurement path, its counters set to 0 just before it:
      tpudct_torch.benchmark's bench_pipeline for hp, batched, fast
      (1024^2) and cublas (256^2, its per-block loop, and 1024^2, above the
@@ -177,7 +184,22 @@ variants) from ``tpudct_torch/csrc`` and, in order:
      (streaming.SECONDS, CUDA events), the device busy share, and its own
      peak of device memory beside one band's bytes (the 8-band gray calls
      fail at half of the image's bytes); and the in-memory calls that
-     return numpy, with their walls and peaks; then the bulk and measuring
+     return numpy, with their walls and peaks; then the archive path: the
+     nine phases of tpudct_torch.studies.partial_at_scale, each a process
+     of its own, in a temporary directory deleted afterwards -- a 65536^2
+     gray raster (2^32 pixels) written, streamed into a banded .tdc in 32
+     bands of 2048 rows (32 B2), thumbnailed (no launch), ROI-decoded at
+     rows 32000:32100 (B3, and the covering band in memory: B2, B3) and
+     decoded at 1/8 scale (32 B7, and band 15 in memory: B2, B7); a
+     32768^2 RGB raster streamed into a .tdcc (16 B8, 32 B2), thumbnailed
+     and ROI-decoded at rows 16000:16100 (two B6, and the covering band in
+     memory: B8, two B2, two B6) -- each phase reporting exactly its
+     launches, every validation flag true (the ROIs and the scaled band
+     bit-identical to their bands in memory, the ROI's segment to the
+     in-memory coefficients), each phase's seconds, peak host memory and
+     streamed split printed (this path runs right after phase 2: a
+     child's ru_maxrss starts from its parent's resident set, so its
+     processes start from the smallest parent); then the bulk and measuring
      path, its counters set to 0 just before it: tpudct_torch.cli.main in
      process -- ``batch`` over 32 photo-like 1024^2 .npy frames, the
      4000x2992 frame and a corrupt .npy (one B2 per width), a rerun (none),
@@ -233,6 +255,8 @@ variants) from ``tpudct_torch/csrc`` and, in order:
      each batch of calls, L2 flushed before every call; order plain,
      kernel, kernel, plain); B17 in turns with Tensor.copy_ of the same
      bytes into a distinct tensor (kernel, copy_, copy_, kernel), B18
+     in turns with x.view(torch.int8).clone() (its library call) and with
+     the pair copy_ into a distinct u8 tensor, then its int8 clone, and
      beside B1 as B1's byte floor, V1 beside B9 (the compare-form round
      against the add form), B20 in turns with its composed counterpart
      (hp_decode_u8 on the luma and the stacked chroma, color_merge_420_u8);
@@ -249,7 +273,7 @@ Each phase prints its seconds.  Any failure ends the run with a non-zero
 exit.  The second-to-last line is a JSON summary of the kernels (launches
 on the main paths, max abs error against the twin, kernel and twin ms at
 8192^2, the bound from the bytes and operations of that call, what bounds
-it, Tensor.copy_'s ms beside B14 and B17); the last line is
+it, the library call's ms beside B14, B17 and B18); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device the script raises before printing any result.
 """
@@ -356,6 +380,8 @@ SQUARE, FRAME, BATCH = 8192, (4000, 2992), (32, 1024)
 COMPARE_SIZES = (512, SQUARE)
 # the color path's camera frame (H x W, a 12-Mpix sensor on its side)
 COLOR_FRAME = (4032, 3024)
+# bulk_ab's frames (images x side)
+BULK_AB = (64, 512)
 # the file path: every --entropy stage is held at this side (auto-exact
 # trial-encodes every stage, seconds per stage at 8192^2 on the host)
 ENTROPY_SIDE = 2048
@@ -369,6 +395,11 @@ SELFTEST_LAUNCHES = {"hp_roundtrip_u8": 1, "hp_encode_u8": 12, "hp_decode_u8": 1
 # the streamed path: a 268-Mpx gray scan in 2048-row bands (the roundtrip
 # in 4096-row bands) and an 8192^2 RGB frame
 STREAM_SIDE, STREAM_BAND, STREAM_RT_BAND, STREAM_COLOR = 16384, 2048, 4096, 8192
+# the archive path: tpudct_torch.studies.partial_at_scale's sizes (a 65536^2
+# gray archive and a 32768^2 RGB one in 2048-row bands), each phase a
+# subprocess of at most ARCHIVE_TIMEOUT_S
+ARCHIVE_SIDE, ARCHIVE_BAND, ARCHIVE_COLOR = 65536, 2048, 32768
+ARCHIVE_TIMEOUT_S = 600
 # the rings: (side, virtual rank counts on the card)
 RING_CASES = ((512, (8,)), (SQUARE, (1, 2, 4, 8)))
 # B14's edge cases (copy.cuh): byte counts below one 16-byte vector, around
@@ -1785,12 +1816,15 @@ def phase_study_path(dev) -> dict:
     from tpudct_torch.kernels import variants as V
     from tpudct_torch.studies import color_fused_ab, color_variants, color_variants2, inv_formulations, u8_perf
 
+    from tpudct_torch.kernels import ring as rk
+
     _phase(6, "study path")
-    counts, step = _stepper(hp.LAUNCHES, ck.LAUNCHES, study.LAUNCHES, V.LAUNCHES)
+    counts, step = _stepper(hp.LAUNCHES, ck.LAUNCHES, study.LAUNCHES, V.LAUNCHES, rk.LAUNCHES)
     hp.reset_launches()
     ck.reset_launches()
     study.reset_launches()
     V.reset_launches()
+    rk.reset_launches()
     k = 1 + u8_perf.REPS
     floors = step(f"{SQUARE}^2 studies.u8_perf.main",
                   {"u8_copy": k, "u8_copy2": k, "hp_encode_u8": k + 1, "hp_decode_u8": k, "hp_roundtrip_u8": k},
@@ -1818,6 +1852,7 @@ def phase_study_path(dev) -> dict:
                {"hp_dct": 2, "idct_x_b": 1 + k, "idct_x_c": 1 + k, "hp_idct": 3 * k},
                lambda: inv_formulations.main(SQUARE, dev))
     _u8_variant_studies(step, dev)
+    _other_studies(step, dev)
     launches = counts()
     n_m, n_l, n_c = (cv["entries"][k] for k in ("merge", "y", "chroma"))
     for out, key, total in ((cv, "v1", n_m), (cv, "v3_y", n_l), (cv, "v3_cb", n_c), (cv, "v3_cr", n_c),
@@ -1885,6 +1920,42 @@ def _u8_variant_studies(step, dev) -> None:
     if any(counts.values()):
         _fail(f"the u8 variant studies report differences: {counts}")
     print(f"  u8 variant studies' checks: {json.dumps(counts)}")
+
+
+def _other_studies(step, dev) -> None:
+    """The other five drivers through ``step``: timing_xval at SQUARE^2 (B1
+    in device_time_ms, one K_BIG chain and a chain per K, WALL_REPS times
+    each), bulk_ab at BULK_AB (both arms' warm-ups, REPS walls each, the
+    spot-check), onchip_recheck (the 512^2 gate, the one-rank decode ring
+    at 512^2 and 8192^2, the f32 color roundtrip timed), and the host-only
+    deadzone_study and rans_interleave_ab (no launch); each moves exactly
+    its counters."""
+    from tpudct_torch.studies import bulk_ab, deadzone_study, onchip_recheck, rans_interleave_ab, timing_xval
+
+    t = timing_xval
+    xval = step(f"{SQUARE}^2 studies.timing_xval.main",
+                {"hp_roundtrip_u8": 1 + t.REPS + t.WALL_REPS * (t.K_BIG + sum(t.KS))},
+                lambda: timing_xval.main(SQUARE, dev))
+    print(f"  B1 at {SQUARE}^2: device_time_ms {xval['device_time_ms']:.4f} ms, amortized K={t.K_BIG} "
+          f"{xval['amortized_ms']:.4f} ms ({xval['amortized_over_timer']:.3f}x), fit {xval['fit_ms']:.4f} ms "
+          f"({xval['fit_over_timer']:.3f}x, intercept {xval['intercept_ms']:.3f} ms, R^2 {xval['r2']:.6f})")
+    n, side = BULK_AB
+    k = bulk_ab.REPS * (n + 1)
+    bulk = step(f"studies.bulk_ab.main {n}x{side}^2",
+                {"hp_encode_u8": 2 + k + 1 + bulk_ab.CHECKED, "hp_decode_u8": 2 + k},
+                lambda: bulk_ab.main(n, side, dev))
+    rc = step("studies.onchip_recheck.main",
+              {"hp_roundtrip_u8": 1, "hp_encode_u8": 1 + len(onchip_recheck.RING_SIDES),
+               "hp_decode_u8": 1 + len(onchip_recheck.RING_SIDES), "ring_forward": len(onchip_recheck.RING_SIDES),
+               "ring_forward_decode": len(onchip_recheck.RING_SIDES), "hp_dct": 2 * (1 + onchip_recheck.REPS),
+               "hp_idct": 2 * (1 + onchip_recheck.REPS)},
+              lambda: onchip_recheck.main(dev))
+    if rc:
+        _fail(f"studies.onchip_recheck.main returned {rc}")
+    step("studies.deadzone_study.main (host only)", {}, deadzone_study.main)
+    step("studies.rans_interleave_ab.main (host only)", {}, rans_interleave_ab.main)
+    print(f"  bulk_ab: encode per-image {bulk['encode_per_image_s']:.4f} s, stacked {bulk['encode_stacked_s']:.4f} s; "
+          f"decode per-image {bulk['decode_per_image_s']:.4f} s, stacked {bulk['decode_stacked_s']:.4f} s")
 
 
 def phase_measurement_path(dev, card: str) -> dict:
@@ -2909,6 +2980,83 @@ def phase_headline_bench(dev, card: str) -> tuple:
     return launches, rec["value"]
 
 
+def _archive_launches(n: int, nc: int) -> dict:
+    """Each partial_at_scale phase's launches with n gray and nc color bands:
+    B2 per gray band; the ROI's covering band streamed (B3) and in memory
+    (B2, B3); B7 per band and the in-memory band (B2, B7); B8 and two B2 per
+    color band; the color ROI's f32 decode (two B6) and its in-memory band
+    (B8, two B2, two B6)."""
+    return {"gen": {}, "enc": {"hp_encode_u8": n}, "preview": {},
+            "roi": {"hp_decode_u8": 2, "hp_encode_u8": 1},
+            "scale": {"hp_scaled_decode_u8": n + 1, "hp_encode_u8": 1}, "genc": {},
+            "encc": {"color_split_420_u8": nc, "hp_encode_u8": 2 * nc}, "previewc": {},
+            "roic": {"hp_idct": 4, "color_split_420_u8": 1, "hp_encode_u8": 2}}
+
+
+def _archive_phase(phase: str, directory: str) -> dict:
+    """One phase of ``python3 -m tpudct_torch.studies.partial_at_scale`` at
+    the archive sizes, in its own process; its JSON line."""
+    import sys
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    run = subprocess.run([sys.executable, "-m", "tpudct_torch.studies.partial_at_scale", phase, "--dir", directory,
+                          "--size", str(ARCHIVE_SIDE), "--band", str(ARCHIVE_BAND), "--size-c", str(ARCHIVE_COLOR)],
+                         cwd=root, capture_output=True, text=True, timeout=ARCHIVE_TIMEOUT_S)
+    if run.returncode:
+        _fail(f"partial_at_scale {phase} exited with {run.returncode}: {run.stdout[-2000:]} {run.stderr[-4000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def phase_archive_path(card: str) -> dict:
+    """The archive path: the nine phases of tpudct_torch.studies.
+    partial_at_scale at its sizes, each a subprocess (its counters start at
+    0 there and it reports its launches), in a temporary directory deleted
+    afterwards (each raster once its encode has read it).  Every phase must
+    report exactly its launches, every validation flag must hold, the
+    thumbnails and the scaled raster must have their shapes; each phase's
+    seconds, peak host memory, launches and streamed split are printed."""
+    import shutil
+
+    from tpudct_torch.studies import partial_at_scale as pas
+
+    _phase(6, "archive path")
+    n, nc = ARCHIVE_SIDE // ARCHIVE_BAND, ARCHIVE_COLOR // ARCHIVE_BAND
+    expected = _archive_launches(n, nc)
+    d = tempfile.mkdtemp(prefix="tpudct-archive-")
+    recs, launches = {}, collections.Counter()
+    try:
+        print(f"  {d}: {shutil.disk_usage(d).free / 2**30:.1f} GiB free")
+        for phase in pas.PHASES:
+            rec = recs[phase] = _archive_phase(phase, d)
+            if rec["phase"] != phase or rec["launches"] != expected[phase]:
+                _fail(f"partial_at_scale {phase}: {rec}; expected launches {expected[phase]}")
+            launches.update(rec["launches"])
+            print(f"  {phase}: {json.dumps(rec)} [{card}]", flush=True)
+            if phase in ("enc", "encc"):
+                os.remove(os.path.join(d, pas.PIX if phase == "enc" else pas.RGB))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    s8, c8 = ARCHIVE_SIDE // 8, ARCHIVE_COLOR // 8
+    checks = {
+        "roi": recs["roi"]["bit_identical_vs_in_memory_band"] and recs["roi"]["of"] == n
+        and recs["roi"]["rows"] == list(pas.roi_rows(ARCHIVE_SIDE, ARCHIVE_BAND)),
+        "scale": recs["scale"]["band_bit_identical"] and recs["scale"]["shape"] == [s8, s8],
+        "roic": recs["roic"]["bit_identical_vs_in_memory_band"],
+        "preview": recs["preview"]["shape"] == [s8, s8],
+        "previewc": recs["previewc"]["shape"] == [c8, c8, 3],
+    }
+    if not all(checks.values()):
+        _fail(f"archive path checks: {checks}")
+    tdc, tdcc = recs["enc"]["bytes"], recs["encc"]["bytes"]
+    print(f"  {ARCHIVE_SIDE}^2 gray ({ARCHIVE_SIDE**2} pixels) -> {tdc} bytes (factor {recs['enc']['factor']}); "
+          f"{ARCHIVE_COLOR}^2 RGB -> {tdcc} bytes (factor {recs['encc']['factor']}); the ROIs and band "
+          f"{recs['scale']['band']}'s 1/8-scale rows bit-identical to their bands in memory")
+    print("  phase s / maxrss MiB (at its start): " + ", ".join(
+        f"{p} {r['s']} / {r['maxrss_mb']} ({r['start_maxrss_mb']})" for p, r in recs.items()) + f" [{card}]")
+    print("  launches:", json.dumps(dict(launches)))
+    return dict(launches)
+
+
 def _memory_peak(fn) -> tuple:
     """(fn(), host wall s, peak of fn's own device allocations, peak of the
     bytes the caching allocator reserved during it): the allocated bytes
@@ -3343,18 +3491,22 @@ def phase_timing(dev, card: str) -> dict:
             "hp_scaled_decode_u8[8x8 f32]": (1 + 4 / 64, lambda: hp.hp_scaled_decode_u8(ci8, 8, 8),
                                              lambda: hp.scaled_decode_u8_plain(ci8, 8, 8)),
         }
-        # u8_copy's library call: Tensor.copy_ of the same bytes into a
-        # distinct tensor (torch skips an in-place one), timed in turns with it
+        # the library calls, timed in turns with their kernels: u8_copy's,
+        # Tensor.copy_ of the same bytes into a distinct tensor (torch skips
+        # an in-place one); u8_copy2's, the one call with its int8 output's
+        # values, x.view(torch.int8).clone() (2 B/px: it leaves out the
+        # kernel's in-place u8 write)
         library, composed = {}, {}
         if label == f"{SQUARE}^2":
             dst = torch.empty_like(xs)
-            library["u8_copy"] = lambda: dst.copy_(xs)
+            library["u8_copy"] = ("Tensor.copy_ into a distinct tensor", lambda: dst.copy_(xs))
+            library["u8_copy2"] = ("x.view(torch.int8).clone()", lambda: xs.view(torch.int8).clone())
             composed["color_decode_420_u8"] = lambda: _composed_420(planes_s[0], cc_s, h // 2)
         rows = [(name, KERNELS[name][2], kern, plain) for name, (kern, plain) in fns.items()]
         rows += [(name, *v) for name, v in variants.items()]
         for name, bpp, kern, plain in rows:
             p1 = _time(plain, dev, 3)
-            k1, k2, lib = _in_turns(kern, library.get(name) or composed.get(name), dev)
+            k1, k2, lib = _in_turns(kern, library[name][1] if name in library else composed.get(name), dev)
             p2 = _time(plain, dev, 3)
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
             gbps = bpp * h * w / (ms * 1e-3) / 1e9
@@ -3365,9 +3517,9 @@ def phase_timing(dev, card: str) -> dict:
                   f"[{card}]")
             if lib and name in library:
                 times["library"][name] = (lib[0] + lib[1]) / 2
-                print(f"  {label} {name} in turns with Tensor.copy_ into a distinct tensor (its library call): "
-                      f"kernel {k1:.4f}, copy_ {lib[0]:.4f}, copy_ {lib[1]:.4f}, kernel {k2:.4f} ms; kernel / "
-                      f"copy_ {ms / times['library'][name]:.3f} [{card}]")
+                print(f"  {label} {name} in turns with {library[name][0]} (its library call): kernel {k1:.4f}, "
+                      f"library {lib[0]:.4f}, library {lib[1]:.4f}, kernel {k2:.4f} ms; kernel / library "
+                      f"{ms / times['library'][name]:.3f} [{card}]")
             if lib and name in composed:
                 c_ms = (lib[0] + lib[1]) / 2
                 bound = _bound(name, h, w)[0]
@@ -3376,6 +3528,7 @@ def phase_timing(dev, card: str) -> dict:
                       f"composed {lib[1]:.4f}, kernel {k2:.4f} ms; kernel at {bound / ms:.1%} of its bound "
                       f"{bound:.4f} ms, composed at {bound / c_ms:.1%}; kernel / composed {ms / c_ms:.3f} [{card}]")
         if label == f"{SQUARE}^2":
+            _time_copy2_pair(fns["u8_copy2"][0], xs, dev, card)
             rt, floor = times[("hp_roundtrip_u8", label)][0], times[("u8_copy2", label)][0]
             print(f"  {label} hp_roundtrip_u8 (B1) {rt:.4f} ms against B1's byte floor u8_copy2 (B18) "
                   f"{floor:.4f} ms: {rt / floor:.2f}x [{card}]")
@@ -3386,6 +3539,24 @@ def phase_timing(dev, card: str) -> dict:
     times.update(ring_times)
     times["library"]["ring_forward"] = copy_ms
     return times
+
+
+def _time_copy2_pair(kern, xs, dev, card: str) -> None:
+    """u8_copy2 (B18) in turns with the torch pair that writes what it
+    writes: Tensor.copy_ of the u8 map into a distinct tensor, then the int8
+    clone of that copy (each call reads the map once, 4 B/px in all)."""
+    u = torch.empty_like(xs)
+
+    def pair():
+        u.copy_(xs)
+        return u.view(torch.int8).clone()
+
+    k1, k2, (a1, a2) = _in_turns(kern, pair, dev)
+    n = xs.numel()
+    print(f"  {SQUARE}^2 u8_copy2 in turns with copy_ into a distinct u8 tensor, then its int8 clone: kernel "
+          f"{k1:.4f}, pair {a1:.4f}, pair {a2:.4f}, kernel {k2:.4f} ms; kernel / pair "
+          f"{(k1 + k2) / (a1 + a2):.3f}; kernel {3 * n / ((k1 + k2) / 2 * 1e-3) / 1e9:.1f} GB/s at 3 B/px, pair "
+          f"{4 * n / ((a1 + a2) / 2 * 1e-3) / 1e9:.1f} GB/s at 4 B/px [{card}]")
 
 
 def _print_composed_ring(label: str, k1: float, k2: float, comp: tuple, bound: float, card: str) -> None:
@@ -3502,10 +3673,13 @@ def main() -> int:
 
     card = timed(phase_card)
     timed(phase_build)
+    # first, while this process is small: a child's ru_maxrss starts from
+    # its parent's resident set (carried over fork and exec)
+    runs = [timed(phase_archive_path, card)]
     timed(phase_tf32)
     errs = timed(phase_compare, dev)
     timed(phase_gate, dev)
-    runs = [timed(phase, dev) for phase in (phase_main_path, phase_color_main_path, phase_multi_main_path,
+    runs += [timed(phase, dev) for phase in (phase_main_path, phase_color_main_path, phase_multi_main_path,
                                              phase_study_path)]
     runs.append(timed(phase_measurement_path, dev, card))
     runs.append(timed(phase_file_path, dev, card))

@@ -40,7 +40,8 @@ def main(size: int = 8192, device=None) -> dict:
     "f<f>_fused_ms", "f<f>_composed_ms"} for each factor."""
     dev = default_device(device)
     label = device_label(dev)
-    img = torch.as_tensor(np.random.default_rng(7).integers(0, 256, (size, size), dtype=np.uint8), device=dev)
+    rng = np.random.default_rng(7)
+    img = torch.as_tensor(rng.integers(0, 256, (size, size), dtype=np.uint8), device=dev)
     p, cfg = get_pipeline("hp"), CodecConfig()
     c = p.encode_u8(img, cfg)
     out = {"size": size, "card": label}
