@@ -181,9 +181,10 @@ variants) from ``tpudct_torch/csrc`` and, in order:
      decode_color_auto, the sharded calls against roundtrip_u8 and the
      single-host banded writer; per call its host wall split into staging
      copies, H2D, kernels, D2H, waits, finishing and entropy
-     (streaming.SECONDS, CUDA events), the device busy share, and its own
-     peak of device memory beside one band's bytes (the 8-band gray calls
-     fail at half of the image's bytes); and the in-memory calls that
+     (streaming.seconds of the profiling registry, CUDA events), the
+     device busy share, and its own peak of device memory beside one
+     band's bytes (the 8-band gray calls fail at half of the image's
+     bytes); and the in-memory calls that
      return numpy, with their walls and peaks; then the archive path: the
      nine phases of tpudct_torch.studies.partial_at_scale, each a process
      of its own, in a temporary directory deleted afterwards -- a 65536^2
@@ -3076,9 +3077,9 @@ def phase_streamed_path(dev, card: str) -> dict:
     --band-rows), its counters set to 0 just before it and read just after;
     each call moves exactly its counters.  Per call: its host wall split
     into staging copies, H2D, kernels, D2H, entropy and waits
-    (streaming.SECONDS), the device busy share, and its own peak of device
-    memory beside one band's bytes; the 8-band gray calls fail at half of
-    the image's bytes.  Then every output against the in-memory path, and
+    (streaming.seconds of the profiling registry), the device busy share,
+    and its own peak of device memory beside one band's bytes; the 8-band
+    gray calls fail at half of the image's bytes.  Then every output against the in-memory path, and
     the in-memory calls that return numpy (the pageable-copy baseline) with
     their walls and peaks."""
     from tpudct_torch import CodecConfig, cli, get_pipeline
@@ -3087,7 +3088,7 @@ def phase_streamed_path(dev, card: str) -> dict:
     from tpudct_torch.kernels import hp
     from tpudct_torch.models import color as mc
     from tpudct_torch.models.dispatch import encode_gray_auto
-    from tpudct_torch.utils import serialize
+    from tpudct_torch.utils import profiling, serialize
     from tpudct_torch.utils import streaming as st
 
     _phase(6, "streamed path")
@@ -3110,12 +3111,16 @@ def phase_streamed_path(dev, card: str) -> dict:
     cplanes, cmeta = mc.encode_color_u8(p, rgb, cfg, device=dev)
     mesh = P.band_mesh(devices=[dev] * 4)
     torch.cuda.synchronize()
-    stats = []  # (label, wall s, peak, reserved peak, band bytes, SECONDS)
+    stats = []  # (label, wall s, peak, reserved peak, band bytes, seconds per part)
 
     def run(label, expected, fn, band_bytes, bound=None):
-        st.reset_seconds()
-        out, wall, peak, resv = _memory_peak(lambda: step(label, expected, fn))
-        stats.append((label, wall, peak, resv, band_bytes, dict(st.SECONDS)))
+        profiling.reset()
+        profiling.enable()
+        try:
+            out, wall, peak, resv = _memory_peak(lambda: step(label, expected, fn))
+        finally:
+            profiling.disable()
+        stats.append((label, wall, peak, resv, band_bytes, st.seconds(profiling.snapshot())))
         if bound is not None and peak >= bound:
             _fail(f"{label}: peak device memory {peak} B reaches half of the image's bytes ({bound} B)")
         return out

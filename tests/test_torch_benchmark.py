@@ -156,12 +156,12 @@ def test_phase_timer_records_and_measures():
 
 def test_profiling_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(tmp_path / "tr") as prof:
-        with profiling.annotate("tpudct-step"):
+        with profiling.span("tpudct-step"):
             torch.ones(64).cumsum(0)
     names = {e.key for e in prof.key_averages()}
-    assert "tpudct-step" in names
+    assert "tpudct_torch.tpudct-step" in names
     trace = json.loads((tmp_path / "tr" / "trace.json").read_text())
-    assert any(e.get("name") == "tpudct-step" for e in trace["traceEvents"])
+    assert any(e.get("name") == "tpudct_torch.tpudct-step" for e in trace["traceEvents"])
     with profiling.trace() as prof2:
         torch.ones(4).sum()
     assert len(prof2.key_averages()) > 0

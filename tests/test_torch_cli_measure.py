@@ -284,7 +284,7 @@ def test_profile_writes_a_chrome_trace(tmp_path, capsys):
     got = _records(capsys)
     assert got[0].keys() == want[0].keys() and got[0]["trace_dir"] == str(tmp_path / "mine")
     trace = json.loads((tmp_path / "mine" / "trace.json").read_text())
-    assert any(e.get("name") == "batched-roundtrip-64" for e in trace["traceEvents"])
+    assert any(e.get("name") == "tpudct_torch.batched-roundtrip-64" for e in trace["traceEvents"])
 
 
 def test_selftest_is_the_reference(capsys, registries):

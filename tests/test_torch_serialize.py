@@ -230,10 +230,10 @@ def test_int16_overflow_refused_like_reference():
 
 
 def test_abs_bound_is_one_function_for_arrays_and_tensors():
-    """One copy, shared by models.dispatch and models.color, equal to the
-    reference's on numpy input (the int16 minimum, empty, NaN) and reading
-    tensors in place."""
-    assert dispatch._abs_bound is S._abs_bound is mcolor._abs_bound
+    """One copy, shared by models.dispatch and models.color (through
+    dispatch's ``_bound``), equal to the reference's on numpy input (the
+    int16 minimum, empty, NaN) and reading tensors in place."""
+    assert dispatch._abs_bound is S._abs_bound and mcolor._bound is dispatch._bound
     for a in (np.array([-32768, 7], np.int16), np.zeros((0, 8), np.int8),
               np.array([1.5, -2.25], np.float32), np.array([3, -127], np.int8)):
         assert S._abs_bound(a) == RS._abs_bound(a)

@@ -1560,7 +1560,7 @@ def cmd_profile(args) -> int:
     p.roundtrip(x, cfg)  # builds the kernels outside the window
     sync()
     with profiling.trace(args.out):
-        with profiling.annotate(f"{p.name}-roundtrip-{args.size}"):
+        with profiling.span(f"{p.name}-roundtrip-{args.size}"):
             for _ in range(args.reps):
                 p.roundtrip(x, cfg)
             sync()

@@ -40,11 +40,14 @@ from tpudct_torch.kernels import hp
 from tpudct_torch.models.base import Pipeline
 from tpudct_torch.models.dispatch import (
     _STACK_MAX_PIXELS,
-    _abs_bound,
+    _bound,
+    _cast,
     _chunk,
     _is_u8,
     _stack_groups,
     _tensor,
+    _to_device,
+    _to_host,
     default_device,
 )
 from tpudct_torch.ops.padding import (
@@ -56,6 +59,7 @@ from tpudct_torch.ops.padding import (
     padded_shape,
 )
 from tpudct_torch.ops.rounding import round_half_away
+from tpudct_torch.utils import profiling
 from tpudct_torch.utils.color import (
     downsample_420,
     downsample_422,
@@ -81,7 +85,7 @@ def _fits_i8(v) -> bool:
         v = np.asarray(v)
         if v.dtype in (np.dtype(np.int8), np.dtype(np.uint8)):
             return True
-    return bool(_abs_bound(v) <= 127)
+    return bool(_bound(v) <= 127)
 
 
 def normalize_subsample(subsample) -> "str | bool":
@@ -115,7 +119,14 @@ def _to_rgb_u8(y, cb, cr) -> torch.Tensor:
 
 
 def _f32_planes(planes: dict, device) -> dict:
-    return {k: _tensor(planes[k], device).to(torch.float32) for k in PLANES}
+    return {k: _cast(_tensor(planes[k], device), torch.float32) for k in PLANES}
+
+
+def _stack(top: torch.Tensor, bottom: torch.Tensor) -> torch.Tensor:
+    """Two planes stacked vertically (the chroma pair: one copy, a
+    ``layout`` span)."""
+    with profiling.span("layout"):
+        return torch.cat([top, bottom], dim=0)
 
 
 def encode_color(p: Pipeline, rgb, cfg: CodecConfig, subsample=True,
@@ -134,7 +145,7 @@ def encode_color(p: Pipeline, rgb, cfg: CodecConfig, subsample=True,
     cy = p.encode(yp, _luma_cfg(cfg))
     cbp, _ = pad_to_blocks(cb)
     crp, _ = pad_to_blocks(cr)
-    cc = p.encode(torch.cat([cbp, crp], dim=0), _chroma_cfg(cfg))
+    cc = p.encode(_stack(cbp, crp), _chroma_cfg(cfg))
     ph = cbp.shape[0]
     meta = {"orig_shape": (h, w), "chroma_shape": (ch, cw), "subsample": mode}
     return {"y": cy, "cb": cc[:ph], "cr": cc[ph:]}, meta
@@ -146,8 +157,7 @@ def decode_color(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig, device
     ch, cw = meta["chroma_shape"]
     pl = _f32_planes(planes, device)
     y = crop(p.idct(pl["y"], _luma_cfg(cfg, meta.get("y_q_table", "luma"))), h, w)
-    cc = p.idct(torch.cat([pl["cb"], pl["cr"]], dim=0),
-                _chroma_cfg(cfg, meta.get("c_q_table", "chroma")))
+    cc = p.idct(_stack(pl["cb"], pl["cr"]), _chroma_cfg(cfg, meta.get("c_q_table", "chroma")))
     ph = pl["cb"].shape[0]
     cb, cr = crop(cc[:ph], ch, cw), crop(cc[ph:], ch, cw)
     mode = normalize_subsample(meta["subsample"])
@@ -198,7 +208,7 @@ def decode_color_scaled(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig,
         pl = _f32_planes(planes, device)
         hs, ws = scaled_shape_m8(h, m), scaled_shape_m8(w, m)
         y = scaled_decode_m8(pl["y"], lcfg, m)[:hs, :ws]
-        cc = scaled_decode_m8(torch.cat([pl["cb"], pl["cr"]], dim=0), ccfg, m_r, m_cols=m_c)
+        cc = scaled_decode_m8(_stack(pl["cb"], pl["cr"]), ccfg, m_r, m_cols=m_c)
         phs = pl["cb"].shape[0] * m_r // 8
         return _to_rgb_u8(y, cc[:phs][:hs, :ws], cc[phs:][:hs, :ws])
     if factor == 1:
@@ -218,16 +228,16 @@ def decode_color_scaled(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig,
         )
 
     if u8_ok(pl["y"], lcfg, y_al) and all(u8_ok(pl[k], ccfg, c_al) for k in ("cb", "cr")):
-        ypad, _ = pad_coeffs_to_kernel(pl["y"].to(torch.int8), *y_al)
+        ypad, _ = pad_coeffs_to_kernel(_cast(pl["y"], torch.int8), *y_al)
         y = scaled_decode_u8(p, ypad, lcfg, factor)[:hs, :ws]
-        cbpad, _ = pad_coeffs_to_kernel(pl["cb"].to(torch.int8), *c_al)
-        crpad, _ = pad_coeffs_to_kernel(pl["cr"].to(torch.int8), *c_al)
-        cc = scaled_decode_u8(p, torch.cat([cbpad, crpad], dim=0), ccfg, f_r, f_c)
+        cbpad, _ = pad_coeffs_to_kernel(_cast(pl["cb"], torch.int8), *c_al)
+        crpad, _ = pad_coeffs_to_kernel(_cast(pl["cr"], torch.int8), *c_al)
+        cc = scaled_decode_u8(p, _stack(cbpad, crpad), ccfg, f_r, f_c)
         phs = cbpad.shape[0] // f_r
     else:
-        f32 = {k: v.to(torch.float32) for k, v in pl.items()}
+        f32 = {k: _cast(v, torch.float32) for k, v in pl.items()}
         y = scaled_decode(f32["y"], lcfg, factor)[:hs, :ws]
-        cc = scaled_decode(torch.cat([f32["cb"], f32["cr"]], dim=0), ccfg, f_r, f_cols=f_c)
+        cc = scaled_decode(_stack(f32["cb"], f32["cr"]), ccfg, f_r, f_cols=f_c)
         phs = pl["cb"].shape[0] // f_r
     return _to_rgb_u8(y, cc[:phs][:hs, :ws], cc[phs:][:hs, :ws])
 
@@ -262,13 +272,18 @@ def _planar_u8(rgb, device=None) -> torch.Tensor:
         dt = str(rgb.dtype).removeprefix("torch.")
         raise ValueError(f"u8 color path needs uint8 input, got {dt}")
     x = _tensor(rgb, device)
-    return (x if layout == "planar" else x.movedim(-1, 0)).contiguous()
+    if layout == "interleaved":
+        x = x.movedim(-1, 0)
+    if x.is_contiguous():
+        return x
+    with profiling.span("layout"):
+        return x.contiguous()
 
 
 def _interleaved_f32(rgb, device=None) -> torch.Tensor:
     """Either layout -> (H, W, 3) f32 for the general path."""
     layout, _h, _w = _layout(rgb)
-    x = _tensor(rgb, device).to(torch.float32)
+    x = _cast(_tensor(rgb, device), torch.float32)
     return x if layout == "interleaved" else x.movedim(0, -1)
 
 
@@ -320,7 +335,10 @@ def color_kernel_shape(h: int, w: int):
 
 def _zero_pad(c: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
     h, w = c.shape
-    return c if (h, w) == (ph, pw) else F.pad(c, (0, pw - w, 0, ph - h))
+    if (h, w) == (ph, pw):
+        return c
+    with profiling.span("pad"):
+        return F.pad(c, (0, pw - w, 0, ph - h))
 
 
 def encode_color_u8(p: Pipeline, rgb_u8, cfg: CodecConfig, subsample=True, device=None):
@@ -343,7 +361,7 @@ def encode_color_u8(p: Pipeline, rgb_u8, cfg: CodecConfig, subsample=True, devic
     split, _merge = _u8_kernels(mode)
     y, cb, cr = split(x)
     cy = p.encode_u8(y, _luma_cfg(cfg))
-    cc = p.encode_u8(torch.cat([cb, cr], dim=0), _chroma_cfg(cfg))
+    cc = p.encode_u8(_stack(cb, cr), _chroma_cfg(cfg))
     ph = cb.shape[0]
     ch, cw = _chroma_plane_shape(mode, h, w)
     y8, c8 = padded_shape(h, w), padded_shape(ch, cw)
@@ -375,8 +393,8 @@ def decode_color_u8(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig, dev
         )
     hk, wk = color_kernel_shape(h, w)
     chk, cwk = _chroma_plane_shape(mode, hk, wk)  # exact: hk, wk are aligned
-    pl = {k: _tensor(planes[k], device).to(torch.int8) for k in PLANES}
-    cc = torch.cat([_zero_pad(pl["cb"], chk, cwk), _zero_pad(pl["cr"], chk, cwk)], dim=0)
+    pl = {k: _cast(_tensor(planes[k], device), torch.int8) for k in PLANES}
+    cc = _stack(_zero_pad(pl["cb"], chk, cwk), _zero_pad(pl["cr"], chk, cwk))
     return _decode_u8_padded(p, _zero_pad(pl["y"], hk, wk), cc, cfg, mode).movedim(0, -1)[:h, :w]
 
 
@@ -414,6 +432,7 @@ def _u8_eligible(p: Pipeline, rgb, cfg: CodecConfig, subsample) -> bool:
     return supports_color_u8(p, cfg, *color_kernel_shape(h, w), normalize_subsample(subsample))
 
 
+@profiling.entry
 def encode_color_auto(p: Pipeline, rgb, cfg: CodecConfig, subsample=True, device=None):
     """Encode through the u8 path where the input and geometry allow it,
     else the f32 path; either layout."""
@@ -440,6 +459,7 @@ def _u8_decodable(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig) -> bo
     )
 
 
+@profiling.entry
 def decode_color_auto(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig, device=None):
     """Decode through the u8 path where the stream allows it (see
     :func:`_u8_decodable`), else the f32 path."""
@@ -448,6 +468,7 @@ def decode_color_auto(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig, d
     return decode_color(p, planes, meta, cfg, device)
 
 
+@profiling.entry
 def roundtrip_color_auto(p: Pipeline, rgb, cfg: CodecConfig, subsample=True, device=None):
     """Roundtrip whose decode takes the path the encode took.  Returns
     (planes, meta, rgb u8 interleaved)."""
@@ -466,11 +487,11 @@ def roundtrip_color_auto(p: Pipeline, rgb, cfg: CodecConfig, subsample=True, dev
 
 
 def _host(x) -> torch.Tensor:
-    return x.cpu() if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    return _to_host(x) if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
 
 
 def _np_planes(planes: dict) -> dict:
-    return {k: v.cpu().numpy() for k, v in planes.items()}
+    return {k: _to_host(v).numpy() for k, v in planes.items()}
 
 
 def encode_color_batch_auto(p: Pipeline, rgbs, cfg: CodecConfig, subsample=True,
@@ -501,11 +522,11 @@ def encode_color_batch_auto(p: Pipeline, rgbs, cfg: CodecConfig, subsample=True,
         for chunk in _chunk(indices, sizes, max_pixels):
             frames = [metas[j][1] for j in chunk]
             stacked = frames[0] if len(frames) == 1 else torch.cat(frames, dim=1)
-            y, cb, cr = split(stacked.to(default_device(device)))
+            y, cb, cr = split(_to_device(stacked, default_device(device)))
             del stacked
-            cy = p.encode_u8(y, _luma_cfg(cfg)).cpu().numpy()
+            cy = _to_host(p.encode_u8(y, _luma_cfg(cfg))).numpy()
             ph = cb.shape[0]
-            cc = p.encode_u8(torch.cat([cb, cr], dim=0), _chroma_cfg(cfg)).cpu().numpy()
+            cc = _to_host(p.encode_u8(_stack(cb, cr), _chroma_cfg(cfg))).numpy()
             ccb, ccr = cc[:ph], cc[ph:]
             y0 = c0 = 0
             for j in chunk:
@@ -537,7 +558,7 @@ def decode_color_batch_auto(p: Pipeline, items, max_pixels: int = _STACK_MAX_PIX
     metas = []  # (idx, ypad, cbpad, crpad, mode, cfg, h, w), host tensors
     for i, (planes, meta, cfg) in enumerate(items):
         if not _u8_decodable(p, planes, meta, cfg):
-            results[i] = decode_color_auto(p, planes, meta, cfg, device).cpu().numpy()
+            results[i] = _to_host(decode_color_auto(p, planes, meta, cfg, device)).numpy()
             continue
         h, w = meta["orig_shape"]
         mode = normalize_subsample(meta["subsample"])
@@ -554,13 +575,16 @@ def decode_color_batch_auto(p: Pipeline, items, max_pixels: int = _STACK_MAX_PIX
     for (_wk, mode, cfg), indices in _stack_groups(keys).items():
         _split, merge = _u8_kernels(mode)
         for chunk in _chunk(indices, sizes, max_pixels):
-            ys = torch.cat([metas[j][1] for j in chunk], dim=0).to(dev)
+            ys = _to_device(torch.cat([metas[j][1] for j in chunk], dim=0), dev)
             cc = torch.cat([metas[j][2] for j in chunk] + [metas[j][3] for j in chunk], dim=0)
             y = p.decode_u8(ys, _luma_cfg(cfg))
-            cc = p.decode_u8(cc.to(dev), _chroma_cfg(cfg))
+            cc = p.decode_u8(_to_device(cc, dev), _chroma_cfg(cfg))
             ph = cc.shape[0] // 2
+            rgb = merge(y, cc[:ph], cc[ph:])
             # interleave on the device: a strided host copy per frame costs more
-            rgb = merge(y, cc[:ph], cc[ph:]).movedim(0, -1).contiguous().cpu().numpy()
+            with profiling.span("layout"):
+                rgb = rgb.movedim(0, -1).contiguous()
+            rgb = _to_host(rgb).numpy()
             y0 = 0
             for j in chunk:
                 i, yp, _, _, _, _, h, w = metas[j]

@@ -37,6 +37,7 @@ from tpudct_torch.ops.padding import (
     padded_shape,
 )
 from tpudct_torch.ops.transform import to_uint8
+from tpudct_torch.utils import profiling
 from tpudct_torch.utils.serialize import _abs_bound
 
 # Row alignment per kernel family (kernels.hp.supports/supports_u8).
@@ -62,7 +63,42 @@ def _tensor(a, device=None) -> torch.Tensor:
     """A tensor as it is; anything else on :func:`default_device`."""
     if isinstance(a, torch.Tensor):
         return a
-    return torch.as_tensor(np.asarray(a), device=default_device(device))
+    return _to_device(torch.as_tensor(np.asarray(a)), default_device(device))
+
+
+def _is_card(dev: torch.device) -> bool:
+    """Whether ``dev`` is a card: a tensor's copy between it and the host
+    crosses the bus."""
+    return dev.type != "cpu"
+
+
+def _to_device(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A host tensor on ``dev`` (to a card: one pageable copy, a
+    ``to_device`` span)."""
+    if not _is_card(dev):
+        return x.to(dev)
+    with profiling.span("to_device"):
+        profiling.count("bytes.pageable", x.numel() * x.element_size())
+        return x.to(dev)
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A tensor on the host (from a card: one pageable copy, a ``to_host``
+    span)."""
+    if not _is_card(t.device):
+        return t
+    with profiling.span("to_host"):
+        profiling.count("bytes.pageable", t.numel() * t.element_size())
+        return t.cpu()
+
+
+def _bound(a) -> float:
+    """:func:`_abs_bound`, in a ``wait`` span where it reads a device tensor
+    back (the host waits for the device)."""
+    if isinstance(a, torch.Tensor) and _is_card(a.device):
+        with profiling.span("wait"):
+            return _abs_bound(a)
+    return _abs_bound(a)
 
 
 def choose_gray_path(p: Pipeline, h: int, w: int, cfg: CodecConfig) -> str:
@@ -101,15 +137,24 @@ def _resolve_path(p: Pipeline, img, cfg: CodecConfig) -> str:
     return path
 
 
+def _cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in ``dtype`` (a conversion pass, a ``layout`` span, where the
+    dtype differs)."""
+    if x.dtype == dtype:
+        return x
+    with profiling.span("layout"):
+        return x.to(dtype)
+
+
 def _pad_for(path: str, img: torch.Tensor):
     """Edge-replicate pad an image to the grid of `path`, in its dtype."""
     if path == "u8":
-        return pad_to_kernel(torch.as_tensor(img, dtype=torch.uint8), _U8_ROWS, _LANE)
+        return pad_to_kernel(_cast(img, torch.uint8), _U8_ROWS, _LANE)
     if path == "f32":
-        return pad_to_kernel(torch.as_tensor(img, dtype=torch.float32), _F32_ROWS, _LANE)
+        return pad_to_kernel(_cast(img, torch.float32), _F32_ROWS, _LANE)
     x = torch.as_tensor(img)
     if not x.dtype.is_floating_point:
-        x = x.to(torch.float32)
+        x = _cast(x, torch.float32)
     return pad_to_blocks(x)
 
 
@@ -118,6 +163,7 @@ def _crop8(c: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return crop(c, *padded_shape(h, w))
 
 
+@profiling.entry
 def encode_gray_auto(p: Pipeline, img, cfg: CodecConfig, device=None):
     """Gray encode through the fastest eligible path.  Returns (coeffs,
     (h, w)) with `coeffs` at the 8-aligned padded shape (int8 when the u8
@@ -130,6 +176,7 @@ def encode_gray_auto(p: Pipeline, img, cfg: CodecConfig, device=None):
     return _crop8(c, h, w), (h, w)
 
 
+@profiling.entry
 def decode_gray_auto(p: Pipeline, coeffs, cfg: CodecConfig, orig_shape,
                      device=None) -> np.ndarray:
     """Decode a quantized-coefficient map to a cropped uint8 numpy plane,
@@ -138,16 +185,16 @@ def decode_gray_auto(p: Pipeline, coeffs, cfg: CodecConfig, orig_shape,
     h, w = orig_shape
     coeffs = _tensor(coeffs, device)
     path = _decode_path(p, coeffs, cfg)
-    return _decode_padded(p, path, _pad_coeffs_for(path, coeffs), cfg)[:h, :w].cpu().numpy()
+    return _to_host(_decode_padded(p, path, _pad_coeffs_for(path, coeffs), cfg)[:h, :w]).numpy()
 
 
 def _pad_coeffs_for(path: str, coeffs: torch.Tensor) -> torch.Tensor:
     """Zero-pad a quantized map to the grid of its decode `path`, in that
     path's dtype (the general path takes the map as it is)."""
     if path == "u8":
-        return pad_coeffs_to_kernel(coeffs.to(torch.int8), _U8_ROWS, _LANE)[0]
+        return pad_coeffs_to_kernel(_cast(coeffs, torch.int8), _U8_ROWS, _LANE)[0]
     if path == "f32":
-        return pad_coeffs_to_kernel(coeffs.to(torch.float32), _F32_ROWS, _LANE)[0]
+        return pad_coeffs_to_kernel(_cast(coeffs, torch.float32), _F32_ROWS, _LANE)[0]
     return coeffs
 
 
@@ -170,7 +217,7 @@ def _decode_path(p: Pipeline, coeffs, cfg: CodecConfig) -> str:
             *kernel_padded_shape(hc, wc, _U8_ROWS, _LANE),
             cfg.q_scale, cfg.transform, cfg.q_table,
         )
-        and _abs_bound(coeffs) <= 127
+        and _bound(coeffs) <= 127
     ):
         return "u8"
     return "f32" if hp.supports(*kernel_padded_shape(hc, wc, _F32_ROWS, _LANE)) else "general"
@@ -189,7 +236,7 @@ def _scaled_u8_align(p: Pipeline, coeffs, cfg: CodecConfig, fac: int):
             *kernel_padded_shape(*tuple(coeffs.shape), ra, la),
             cfg.q_scale, cfg.transform, cfg.q_table,
         )
-        and _abs_bound(coeffs) <= 127
+        and _bound(coeffs) <= 127
     ):
         return ra, la
     return None
@@ -217,7 +264,7 @@ def _decode_scaled(p: Pipeline, plan: tuple, coeffs: torch.Tensor, cfg: CodecCon
     if kind == "m8":
         return to_uint8(scaled_decode_m8(coeffs, cfg, m))
     if kind == "u8":
-        cpad, _ = pad_coeffs_to_kernel(coeffs.to(torch.int8), *align)
+        cpad, _ = pad_coeffs_to_kernel(_cast(coeffs, torch.int8), *align)
         # out_u8: the truncation rides the kernel's epilogue
         return scaled_decode_u8(p, cpad, cfg, 8 // m, out_u8=True)
     return to_uint8(scaled_decode(coeffs, cfg, 8 // m))
@@ -238,9 +285,10 @@ def decode_gray_scaled_auto(p: Pipeline, coeffs, cfg: CodecConfig, orig_shape,
         return decode_gray_auto(p, coeffs, cfg, orig_shape)
     hs, ws = scaled_shape_m8(h, m), scaled_shape_m8(w, m)
     rec = _decode_scaled(p, _scaled_plan(p, coeffs, cfg, m), coeffs, cfg, m)
-    return rec[:hs, :ws].cpu().numpy()
+    return _to_host(rec[:hs, :ws]).numpy()
 
 
+@profiling.entry
 def roundtrip_gray(p: Pipeline, img, cfg: CodecConfig, device=None):
     """Core of :func:`roundtrip_gray_auto`: returns tensors (coeffs at the
     8-aligned shape, uint8 reconstruction cropped to (h, w))."""
@@ -257,7 +305,7 @@ def roundtrip_gray_auto(p: Pipeline, img, cfg: CodecConfig, device=None):
     tensor at the 8-aligned shape, uint8 reconstruction cropped to (h, w)
     as a numpy array)."""
     c, r = roundtrip_gray(p, img, cfg, device)
-    return c, r.cpu().numpy()
+    return c, _to_host(r).numpy()
 
 
 # ---- stacked bulk dispatch -------------------------------------------------
@@ -297,7 +345,7 @@ def _chunk(indices, sizes, max_pixels: int) -> list:
 def _stacked(padded, device=None) -> torch.Tensor:
     """One tall map of same-width host tensors, on :func:`default_device`."""
     x = padded[0] if len(padded) == 1 else torch.cat(padded, dim=0)
-    return x.to(default_device(device))
+    return _to_device(x, default_device(device))
 
 
 def encode_gray_batch_auto(p: Pipeline, imgs, cfg: CodecConfig,
@@ -322,7 +370,7 @@ def encode_gray_batch_auto(p: Pipeline, imgs, cfg: CodecConfig,
             rows = [metas[i][1].shape[0] for i in chunk]
             c = p.encode_u8(stacked, cfg) if path == "u8" else p.encode(stacked, cfg)
             del stacked
-            c = c.cpu().numpy()  # one transfer for the whole chunk
+            c = _to_host(c).numpy()  # one transfer for the whole chunk
             r0 = 0
             for i, nrows in zip(chunk, rows):
                 _, _, h, w = metas[i]
@@ -353,7 +401,7 @@ def decode_gray_batch_auto(p: Pipeline, items, max_pixels: int = _STACK_MAX_PIXE
             shapes = [tuple(metas[i][1].shape) for i in chunk]
             r = _decode_padded(p, path, stacked, cfg)
             del stacked
-            r = r.cpu().numpy()
+            r = _to_host(r).numpy()
             r0 = 0
             for i, (ph, pw) in zip(chunk, shapes):
                 _, _, _, h, w = metas[i]
@@ -391,9 +439,9 @@ def decode_gray_scaled_batch_auto(p: Pipeline, items, m: int,
             continue
         align = _scaled_u8_align(p, c, cfg, fac)
         if align is not None:
-            metas.append((i, pad_coeffs_to_kernel(c.to(torch.int8), *align)[0], cfg, h, w, "u8"))
+            metas.append((i, pad_coeffs_to_kernel(_cast(c, torch.int8), *align)[0], cfg, h, w, "u8"))
         else:
-            results[i] = decode_gray_scaled_auto(p, c.to(default_device(device)), cfg, (h, w), m)
+            results[i] = decode_gray_scaled_auto(p, _to_device(c, default_device(device)), cfg, (h, w), m)
     keys = [(kind, x.shape[1], x.dtype, cfg) for _, x, cfg, _, _, kind in metas]
     sizes = [x.numel() for _, x, _, _, _, _ in metas]
     for (kind, _, _, cfg), indices in _stack_groups(keys).items():
@@ -405,7 +453,7 @@ def decode_gray_scaled_batch_auto(p: Pipeline, items, m: int,
             else:
                 rec = to_uint8(scaled_decode_m8(stacked, cfg, m))
             del stacked
-            r = rec.cpu().numpy()
+            r = _to_host(rec).numpy()
             r0 = 0
             for j, (xh, xw) in zip(chunk, shapes):
                 i, _, _, h, w, _ = metas[j]

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from tpudct_torch.constants import BLOCK_SIZE
+from tpudct_torch.utils import profiling
 
 
 def padded_shape(h: int, w: int, bs: int = BLOCK_SIZE):
@@ -22,9 +23,10 @@ def _edge_pad(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
     """Edge-replicate pad the last two dims (..., H, W) -> (..., ph, pw) for
     any dtype (F.pad's replicate mode takes floating tensors only)."""
     h, w = x.shape[-2:]
-    rows = torch.arange(ph, device=x.device).clamp_(max=h - 1)
-    cols = torch.arange(pw, device=x.device).clamp_(max=w - 1)
-    return x[..., rows[:, None], cols[None, :]]
+    with profiling.span("pad"):
+        rows = torch.arange(ph, device=x.device).clamp_(max=h - 1)
+        cols = torch.arange(pw, device=x.device).clamp_(max=w - 1)
+        return x[..., rows[:, None], cols[None, :]]
 
 
 def pad_to_blocks(x: torch.Tensor, bs: int = BLOCK_SIZE):
@@ -66,8 +68,9 @@ def pad_coeffs_to_kernel(c: torch.Tensor, row_align: int, lane: int = 128):
     ph, pw = kernel_padded_shape(h, w, row_align, lane)
     if (ph, pw) == (h, w):
         return c, (h, w)
-    out = torch.zeros((ph, pw), dtype=c.dtype, device=c.device)
-    out[:h, :w] = c
+    with profiling.span("pad"):
+        out = torch.zeros((ph, pw), dtype=c.dtype, device=c.device)
+        out[:h, :w] = c
     return out, (h, w)
 
 

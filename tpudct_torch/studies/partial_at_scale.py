@@ -30,8 +30,9 @@ Each phase is meant to run in a process of its own, so that ``maxrss_mb``
 (``ru_maxrss``) is that phase's peak host residency; each prints one JSON
 line with its wall seconds ``s`` (host clock), its kernel launches by
 counter (``launches``) and, for the streamed calls, ``split``:
-``utils.streaming.SECONDS`` (the host wall by part, the CUDA-event spans and
-the device's busy seconds); ``start_maxrss_mb`` is the peak before the
+``utils.streaming.seconds`` of the registry of ``utils.profiling``, on for
+the phase (the host wall by part, the CUDA-event spans and the device's
+busy seconds); ``start_maxrss_mb`` is the peak before the
 phase, once torch is imported (what the process costs before any work);
 ``roi``, ``scale`` and ``roic`` also give ``decode_maxrss_mb``, the peak
 just after the timed decode, before the check's in-memory band.  The validations are the
@@ -155,9 +156,9 @@ def _write_raster(path: str, shape: tuple, band: int, make) -> None:
 
 
 def _split() -> dict:
-    from tpudct_torch.utils import streaming
+    from tpudct_torch.utils import profiling, streaming
 
-    return {k: round(v, 3) for k, v in sorted(streaming.SECONDS.items())}
+    return {k: round(v, 3) for k, v in sorted(streaming.seconds(profiling.snapshot()).items())}
 
 
 class Archive:
@@ -328,15 +329,19 @@ def run_phase(phase: str, ar: Archive) -> tuple:
     "s", the phase's own keys, "launches": the kernel launches it made by
     counter, "start_maxrss_mb": the process's peak before the phase, its
     imports done, "maxrss_mb"); the output its bytes or pixels (None for
-    gen and genc)."""
-    from tpudct_torch.utils import streaming
+    gen and genc); the registry of ``utils.profiling`` is on for the phase."""
+    from tpudct_torch.utils import profiling
 
     if phase not in _RUN:
         raise ValueError(f"unknown phase {phase!r}; phases: {' '.join(PHASES)}")
-    streaming.reset_seconds()
+    profiling.reset()
+    profiling.enable()
     before, start_rss = _launches(), round(rss_mb())
     t0 = time.perf_counter()
-    rec, out = _RUN[phase](ar)
+    try:
+        rec, out = _RUN[phase](ar)
+    finally:
+        profiling.disable()
     s = rec.pop("s", time.perf_counter() - t0)
     moved = {k: v - before[k] for k, v in _launches().items() if v != before[k]}
     rec = {"phase": phase, "s": round(s, 3), **rec, "launches": moved, "start_maxrss_mb": start_rss,

@@ -80,6 +80,8 @@ except ImportError:  # CPython built without liblzma (no _lzma module):
 
 import numpy as np
 
+from tpudct_torch.utils import profiling
+
 # exception tuples that must not reference lzma when it's absent
 _TRIAL_ERRORS = (
     (ValueError, RuntimeError) if lzma is None
@@ -125,6 +127,7 @@ _CODECS = {
     "raw": _CODEC_RAW, "spectral": _CODEC_SPECTRAL, "huffman": _CODEC_HUFF,
     "rans": _CODEC_RANS, "xz": _CODEC_XZ,
 }
+_CODEC_NAMES = {**{v: k for k, v in _CODECS.items()}, _CODEC_BANDED: "banded"}
 
 
 def _xz_preset(n_elems: int) -> int:
@@ -331,25 +334,35 @@ def _exact_auto(c: np.ndarray, level: int, rans_bands: int) -> tuple:
     with ThreadPoolExecutor(max_workers=3) as ex:
         futs = []
         if entropy.native_entropy_available():
-            futs.append((_CODEC_HUFF, ex.submit(entropy.huff_encode, c)))
+            futs.append(_trial(ex, _CODEC_HUFF, entropy.huff_encode, c))
         if entropy.rans_available():
-            futs.append((_CODEC_RANS, ex.submit(
-                entropy.rans_encode, c, rans_bands
-            )))
-        spec = _spectral_pack(c)
+            futs.append(_trial(ex, _CODEC_RANS, entropy.rans_encode, c, rans_bands))
+        with profiling.span("entropy.pack") as pack:
+            spec = _spectral_pack(c)
         if lzma is not None:
-            futs.append((_CODEC_XZ, ex.submit(
-                lzma.compress, spec, lzma.FORMAT_XZ, -1, _xz_preset(c.size)
-            )))
-        best = (_CODEC_SPECTRAL, zlib.compress(spec, level))
-        for code_id, fut in futs:
+            futs.append(_trial(
+                ex, _CODEC_XZ, lzma.compress, spec, lzma.FORMAT_XZ, -1, _xz_preset(c.size)
+            ))
+        with profiling.span("entropy.trial.spectral") as sp:
+            best = (_CODEC_SPECTRAL, zlib.compress(spec, level), sp)
+        for code_id, trial, fut in futs:
             try:
                 payload = fut.result()
             except _TRIAL_ERRORS:
                 continue
             if len(payload) < len(best[1]):
-                best = (code_id, payload)
-    return best
+                best = (code_id, payload, trial)
+    profiling.keep(best[2])
+    if best[0] in (_CODEC_SPECTRAL, _CODEC_XZ):
+        profiling.keep(pack)
+    return best[:2]
+
+
+def _trial(ex, code: int, fn, *args) -> tuple:
+    """(code, span, future): ``fn(*args)`` on the pool ``ex``, in a span
+    ``entropy.trial.<codec>`` whose parent is the caller's open span."""
+    sp = profiling.span("entropy.trial." + _CODEC_NAMES[code])
+    return code, sp, ex.submit(sp.run, fn, *args)
 
 
 # "auto" runs the exact trial loop up to this many coefficients (4M =
@@ -395,39 +408,51 @@ def _predictive_auto(c: np.ndarray, level: int, rans_bands: int) -> tuple:
 
     from tpudct_torch.utils import entropy
 
-    s = _auto_sample(c)
+    with profiling.span("entropy.sample"):
+        s = _auto_sample(c)
     scale = c.size / s.size
-    full_preset = _xz_preset(c.size)
     with ThreadPoolExecutor(max_workers=3) as ex:
         futs = []
         if entropy.native_entropy_available():
-            futs.append((_CODEC_HUFF, ex.submit(entropy.huff_encode, s)))
+            futs.append(_trial(ex, _CODEC_HUFF, entropy.huff_encode, s))
         if entropy.rans_available():
-            futs.append((_CODEC_RANS, ex.submit(entropy.rans_encode, s, 1)))
-        spec = _spectral_pack(s)
+            futs.append(_trial(ex, _CODEC_RANS, entropy.rans_encode, s, 1))
+        with profiling.span("entropy.pack"):
+            spec = _spectral_pack(s)
         if lzma is not None:
-            futs.append((_CODEC_XZ, ex.submit(
-                lzma.compress, spec, lzma.FORMAT_XZ, -1, full_preset
-            )))
-        best_code, best_est = _CODEC_SPECTRAL, len(zlib.compress(spec, level)) * scale
-        for code_id, fut in futs:
+            futs.append(_trial(
+                ex, _CODEC_XZ, lzma.compress, spec, lzma.FORMAT_XZ, -1, _xz_preset(c.size)
+            ))
+        with profiling.span("entropy.trial.spectral"):
+            best_code, best_est = _CODEC_SPECTRAL, len(zlib.compress(spec, level)) * scale
+        for code_id, _sp, fut in futs:
             try:
                 est = len(fut.result()) * scale
             except _TRIAL_ERRORS:
                 continue
             if est < best_est:
                 best_code, best_est = code_id, est
-    # the real encode of the predicted winner
-    if best_code == _CODEC_HUFF:
-        return best_code, entropy.huff_encode(c)
-    if best_code == _CODEC_RANS:
-        return best_code, entropy.rans_encode(c, rans_bands)
-    full_spec = _spectral_pack(c)
-    if best_code == _CODEC_XZ:
-        return best_code, lzma.compress(
-            full_spec, lzma.FORMAT_XZ, -1, full_preset
-        )
-    return _CODEC_SPECTRAL, zlib.compress(full_spec, level)
+    return best_code, _encode_as(best_code, c, level, rans_bands)
+
+
+def _encode_as(code: int, c: np.ndarray, level: int, rans_bands: int) -> bytes:
+    """The payload of the full map ``c`` under one codec (not banded): the
+    encode whose bytes go into the stream, a kept span
+    ``entropy.encode.<codec>``."""
+    from tpudct_torch.utils import entropy
+
+    with profiling.span("entropy.encode." + _CODEC_NAMES[code]) as sp:
+        if code == _CODEC_HUFF:
+            payload = entropy.huff_encode(c)
+        elif code == _CODEC_RANS:
+            payload = entropy.rans_encode(c, rans_bands)
+        elif code == _CODEC_XZ:
+            payload = lzma.compress(_spectral_pack(c), lzma.FORMAT_XZ, -1, _xz_preset(c.size))
+        else:
+            raw = _spectral_pack(c) if code == _CODEC_SPECTRAL else c.tobytes()
+            payload = zlib.compress(raw, level)
+    profiling.keep(sp)
+    return payload
 
 
 def _encode_payload(
@@ -460,25 +485,12 @@ def _encode_payload(
             f"unknown codec {codec!r}; available: "
             f"{sorted(_CODECS) + ['auto', 'auto-exact', 'banded[:N[:inner]]']}"
         ) from None
-    if code == _CODEC_HUFF:
-        from tpudct_torch.utils.entropy import huff_encode
-
-        return code, huff_encode(c)
-    if code == _CODEC_RANS:
-        from tpudct_torch.utils.entropy import rans_encode
-
-        return code, rans_encode(c, rans_bands)
-    if code == _CODEC_XZ:
-        if lzma is None:
-            raise ValueError(
-                "the xz codec needs the stdlib lzma module (this CPython "
-                "was built without liblzma); use another --entropy stage"
-            )
-        return code, lzma.compress(
-            _spectral_pack(c), lzma.FORMAT_XZ, -1, _xz_preset(c.size)
+    if code == _CODEC_XZ and lzma is None:
+        raise ValueError(
+            "the xz codec needs the stdlib lzma module (this CPython "
+            "was built without liblzma); use another --entropy stage"
         )
-    raw = _spectral_pack(c) if code == _CODEC_SPECTRAL else c.tobytes()
-    return code, zlib.compress(raw, level)
+    return code, _encode_as(code, c, level, rans_bands)
 
 
 def _decode_payload(raw: bytes, code: int, h: int, w: int) -> np.ndarray:
@@ -685,12 +697,13 @@ def _parse_plane(data: bytes) -> tuple:
     (h, w, oh, ow, q_scale, retain_k, transform, q_table, code, psize,
      hsize, custom_q, _version) = _parse_plane_header(data)
     raw = data[hsize : hsize + psize]
-    if code not in (_CODEC_HUFF, _CODEC_RANS, _CODEC_XZ, _CODEC_BANDED):  # only codecs 0-1 are zlib-wrapped
-        try:
-            raw = zlib.decompress(raw)
-        except zlib.error as e:
-            raise ValueError(f"corrupt .tdc payload: {e}") from None
-    coeffs = _decode_payload(raw, code, h, w)
+    with profiling.span("entropy.decode." + _CODEC_NAMES.get(code, "unknown")):
+        if code not in (_CODEC_HUFF, _CODEC_RANS, _CODEC_XZ, _CODEC_BANDED):  # only codecs 0-1 are zlib-wrapped
+            try:
+                raw = zlib.decompress(raw)
+            except zlib.error as e:
+                raise ValueError(f"corrupt .tdc payload: {e}") from None
+        coeffs = _decode_payload(raw, code, h, w)
     if (oh and oh > h) or (ow and ow > w):
         # The stored map must cover the original image (it is written at
         # the 8-aligned shape or larger); a header claiming more pixels
@@ -1032,10 +1045,6 @@ def _parse_header_v4(data: bytes) -> tuple:
     if qname.rstrip(b"\x00").decode("ascii").startswith("q:"):
         custom_q, hsize = _read_custom_q_table(data, hsize)
     return h, w, oh, ow, q_scale, retain_k, tname, qname, code, psize, hsize, custom_q
-
-
-_CODEC_NAMES = {v: k for k, v in _CODECS.items()}
-_CODEC_NAMES[_CODEC_BANDED] = "banded"
 
 
 def _inspect_plane(data: bytes) -> tuple:

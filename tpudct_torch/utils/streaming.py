@@ -20,45 +20,38 @@ plain twins on plain host arrays (no pinned memory, no streams), and only
 where the caller names the CPU: every entry point takes ``device=None`` and
 resolves it through ``models.dispatch.default_device`` (the first card).
 
-``SECONDS`` adds up where the streamed calls spend their time (reset it with
-:func:`reset_seconds`): ``"stage"``, the host copies of bands into the
-staging buffers (with their edge or zero padding); ``"wait"``, the host
-waiting for a band's results; ``"finish"``, the host taking them out of the
-staging buffers (into the output raster, or the int16 slab an encoder
-hands to its entropy threads, with the encoders' wait on those threads);
-``"entropy"``, entropy coding and decoding on the host (summed over the
-coding threads); and from CUDA events, on a card, ``"h2d"``, ``"kernels"``
-and ``"d2h"``, each stream's span per band (the copies' spans start once
-their buffers exist; the kernels' span also holds the gaps in which the
-compute stream waits for the host to launch), and ``"device_busy"``, the
-union of those spans.
+While the registry of ``utils.profiling`` is on, the streamed calls record
+where they spend their time under ``streaming.<part>``: spans ``stage``, the
+host copies of bands into the staging buffers (with their edge or zero
+padding); ``wait``, the host waiting for a band's results; ``finish``, the
+host taking them out of the staging buffers (into the output raster, or the
+int16 slab an encoder hands to its entropy threads, with the encoders' wait
+on those threads); ``entropy``, entropy coding and decoding on the host (on
+the coding threads); and counters of seconds from CUDA events, on a card,
+``h2d``, ``kernels`` and ``d2h``, each stream's span per band (the copies'
+spans start once their buffers exist; the kernels' span also holds the gaps
+in which the compute stream waits for the host to launch), and
+``device_busy``, the union of those spans.
 """
 
 from __future__ import annotations
 
-import collections
 import math
-import threading
-import time
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from tpudct_torch.config import CodecConfig
+from tpudct_torch.utils import profiling
 
-#: Seconds spent per part of the streamed calls (see the module docstring).
-SECONDS: collections.Counter = collections.Counter()
-_SECONDS_LOCK = threading.Lock()
-
-
-def reset_seconds() -> None:
-    SECONDS.clear()
-
-
-def _add(key: str, seconds: float) -> None:
-    with _SECONDS_LOCK:  # the entropy threads add too
-        SECONDS[key] += seconds
+def seconds(snap: dict) -> dict:
+    """Seconds per part of the streamed calls (the module docstring's
+    parts, without their prefix) in a ``profiling.snapshot()``."""
+    pre = profiling.PREFIX + "streaming."
+    out = {n[len(pre):]: v["total_s"] for n, v in snap["spans"].items() if n.startswith(pre)}
+    out.update({n[len(pre):]: v for n, v in snap["counters"].items() if n.startswith(pre)})
+    return out
 
 
 def _pinned_bytes(n: int) -> torch.Tensor:
@@ -148,16 +141,14 @@ class _Staging:
     def band(self, inputs, fn, finish) -> None:
         if not self.cuda:
             hosts = []
-            t0 = time.perf_counter()
-            for shape, dtype, fill in inputs:
-                a = torch.empty(shape, dtype=_torch_dtype(dtype))
-                fill(a.numpy())
-                hosts.append(a)
-            _add("stage", time.perf_counter() - t0)
+            with profiling.span("streaming.stage"):
+                for shape, dtype, fill in inputs:
+                    a = torch.empty(shape, dtype=_torch_dtype(dtype))
+                    fill(a.numpy())
+                    hosts.append(a)
             outs = fn(*hosts)
-            t0 = time.perf_counter()
-            finish(*[o.numpy() for o in outs])
-            _add("finish", time.perf_counter() - t0)
+            with profiling.span("streaming.finish"):
+                finish(*[o.numpy() for o in outs])
             return
         slot, self._slot = self._slot, self._slot ^ 1
         if self._read[slot] is not None:
@@ -165,13 +156,12 @@ class _Staging:
             # waited for its kernels and so for them, implies it; the wait
             # keeps the refill safe on its own)
             self._read[slot].synchronize()
-        t0 = time.perf_counter()
         staged = []
-        for i, (shape, dtype, fill) in enumerate(inputs):
-            v = self._pinned(("in", slot, i), tuple(shape), _torch_dtype(dtype))
-            fill(v.numpy())
-            staged.append(v)
-        _add("stage", time.perf_counter() - t0)
+        with profiling.span("streaming.stage"):
+            for i, (shape, dtype, fill) in enumerate(inputs):
+                v = self._pinned(("in", slot, i), tuple(shape), _torch_dtype(dtype))
+                fill(v.numpy())
+                staged.append(v)
         with torch.cuda.stream(self.h2d):
             dev_in = [torch.empty(v.shape, dtype=v.dtype, device=self.device) for v in staged]
             h0 = self._event(self.h2d)
@@ -207,26 +197,24 @@ class _Staging:
         ev, host_out, finish = self._pending
         self._pending = None
         if self.cuda:
-            t0 = time.perf_counter()
-            ev.synchronize()
-            _add("wait", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        finish(*[h.numpy() for h in host_out])
-        _add("finish", time.perf_counter() - t0)
+            with profiling.span("streaming.wait"):
+                ev.synchronize()
+        with profiling.span("streaming.finish"):
+            finish(*[h.numpy() for h in host_out])
 
     def _account(self) -> None:
-        """Add each stream's device time and their union to SECONDS."""
+        """Count each stream's device seconds and their union."""
         ivs = []
         for kind, a, b in self._spans:
             s, e = self._t0.elapsed_time(a), self._t0.elapsed_time(b)
-            _add(kind, (e - s) / 1e3)
+            profiling.count("streaming." + kind, (e - s) / 1e3)
             ivs.append((s, e))
         busy, end = 0.0, -math.inf
         for s, e in sorted(ivs):
             if e > end:
                 busy += e - max(s, end)
                 end = e
-        _add("device_busy", busy / 1e3)
+        profiling.count("streaming.device_busy", busy / 1e3)
 
 
 def _fill_edge(dst: np.ndarray, src: np.ndarray) -> None:
@@ -453,13 +441,11 @@ STREAM_PIXELS = 1 << 32
 def _coded(slab: np.ndarray, inner: str, level: int) -> tuple:
     """One banded segment's payload: ``serialize._encode_payload`` with
     deterministic output and the sampled auto estimator (the in-memory
-    banded writer's segment branch), timed into SECONDS["entropy"]."""
+    banded writer's segment branch), in a span ``streaming.entropy``."""
     from tpudct_torch.utils.serialize import _encode_payload
 
-    t0 = time.perf_counter()
-    out = _encode_payload(slab, inner, level, True, True)
-    _add("entropy", time.perf_counter() - t0)
-    return out
+    with profiling.span("streaming.entropy"):
+        return _encode_payload(slab, inner, level, True, True)
 
 
 def _refuse_banded_inner(inner: str) -> None:
@@ -671,42 +657,40 @@ class _PlaneRows:
         """Next min(nrows, remaining) container coefficient rows as one
         (r, w) int16 array; empty (0, w) at exhaustion.  `nrows` must be
         8-aligned so pulls always land on segment-compatible rows.  Its
-        time counts into SECONDS["entropy"]."""
-        t0 = time.perf_counter()
-        while self._buf_rows < nrows and self._gen is not None:
-            try:
-                r0, rows, cmap = next(self._gen)
-            except StopIteration:
-                self._gen = None
-                break
-            if self.row_range is not None:
-                # segments overlapping the range edge: keep the in-range part
-                s0 = max(r0, self.row_range[0])
-                s1 = min(r0 + rows, self.row_range[1])
-                cmap = cmap[s0 - r0 : s1 - r0]
-            self._buf.append(cmap)
-            self._buf_rows += cmap.shape[0]
-        take = min(nrows, self._buf_rows)
-        if take == 0:
-            _add("entropy", time.perf_counter() - t0)
-            return np.empty((0, self.w), np.int16)
-        parts, got = [], 0
-        while got < take:
-            head = self._buf[0]
-            need = take - got
-            if head.shape[0] <= need:
-                parts.append(head)
-                got += head.shape[0]
-                self._buf.pop(0)
-            else:
-                parts.append(head[:need])
-                self._buf[0] = head[need:]
-                got += need
-        self._buf_rows -= take
-        self._cursor += take
-        out = parts[0] if len(parts) == 1 else np.vstack(parts)
-        _add("entropy", time.perf_counter() - t0)
-        return out
+        time is a span ``streaming.entropy``."""
+        with profiling.span("streaming.entropy"):
+            while self._buf_rows < nrows and self._gen is not None:
+                try:
+                    r0, rows, cmap = next(self._gen)
+                except StopIteration:
+                    self._gen = None
+                    break
+                if self.row_range is not None:
+                    # segments overlapping the range edge: keep the in-range part
+                    s0 = max(r0, self.row_range[0])
+                    s1 = min(r0 + rows, self.row_range[1])
+                    cmap = cmap[s0 - r0 : s1 - r0]
+                self._buf.append(cmap)
+                self._buf_rows += cmap.shape[0]
+            take = min(nrows, self._buf_rows)
+            if take == 0:
+                return np.empty((0, self.w), np.int16)
+            parts, got = [], 0
+            while got < take:
+                head = self._buf[0]
+                need = take - got
+                if head.shape[0] <= need:
+                    parts.append(head)
+                    got += head.shape[0]
+                    self._buf.pop(0)
+                else:
+                    parts.append(head[:need])
+                    self._buf[0] = head[need:]
+                    got += need
+            self._buf_rows -= take
+            self._cursor += take
+            out = parts[0] if len(parts) == 1 else np.vstack(parts)
+            return out
 
 
 def _out_raster(out, out_npy, out_shape) -> np.ndarray:
