@@ -17,7 +17,7 @@ variants) from ``tpudct_torch/csrc`` and, in order:
      ``cuobjdump -sass`` of the library each B1, B2, B3 (B15), B7, B16, B19,
      B20 instance's and B22's count of instructions, of conversion
      instructions (I2F, I2FP, F2I, F2IP, FRND, F2F) and MUFU, beside
-     its registers and spills, and B8's (k_color_split<2, 2>) and
+     its registers and spills, and B8's (k_color_split<2, 2, kCHW, whole>) and
      B30/B31's (k_enc_half); a B1/B2/B3/B7/B19 instance with an FRND, a
      spill, or more I2F or F2I than B6's block index fails, and so does
      B22 with a spill;
@@ -42,7 +42,13 @@ variants) from ``tpudct_torch/csrc`` and, in order:
      and at 8192^2 4:2:0 the scaled decode of that stack at (1, 1) and
      (2, 2), as the color path runs them; and the 4:4:4 merge over all
      256^3 (y, cb, cr) triples against the compare-form round (0
-     mismatches); then the three ring kernels at 512^2 (n = 8) and 8192^2
+     mismatches); then the direct colour instances (k_color_split<RH, RW,
+     false, kCHW/kHWC>, k_color_merge<RH, RW, kTrunc, kHWC>) bit for bit
+     against their twins at the 4032x3024 camera frame, a ragged 3001x4003
+     frame and 8192^2, interleaved and planar, every mode, and
+     roundtrip_color_u8's planes and RGB bit for bit against the grid's
+     chain (edge pad, B8-B13, the codec on the grid planes, crops, zero
+     pads); then the three ring kernels at 512^2 (n = 8) and 8192^2
      (n = 1, 2, 4, 8 virtual ranks on the card): one slot of each against
      its twin, and every rank's outputs of ring_all_gather,
      ring_decode_gather and ring_decode_color_gather bit-identical to the
@@ -103,7 +109,8 @@ variants) from ``tpudct_torch/csrc`` and, in order:
      golden model (under the step's config) on a band of whole blocks;
      then the color main path, its counters set to 0 just before it:
      8192^2 RGB through roundtrip_color_auto at 4:2:0, 4:2:2 and 4:4:4, a
-     4032x3024 camera frame, 32 x 1024^2 frames through the bulk helpers,
+     4032x3024 camera frame (the direct instances), 32 x 1024^2 frames
+     through the bulk helpers at every mode (B8-B13),
      the f32 path at q_scale 0.5 and decode_color_scaled at m = 4, 2, 6 --
      each step moving exactly its own counters, its output held against the
      same step on the CPU twins on its first 256 rows; then the
@@ -261,7 +268,10 @@ variants) from ``tpudct_torch/csrc`` and, in order:
      beside B1 as B1's byte floor, V1 beside B9 (the compare-form round
      against the add form), B20 in turns with its composed counterpart
      (hp_decode_u8 on the luma and the stacked chroma, color_merge_420_u8);
-     the ring kernels once over a whole 8192^2 slot with its forward (B14
+     the direct colour instances at 8192^2 and, beside their bound, at the
+     4032x3024 camera frame in turns with the grid's passes they replace,
+     and the camera frame's 4:2:0 roundtrip_color_u8 in turns with the
+     grid's chain; the ring kernels once over a whole 8192^2 slot with its forward (B14
      in turns with Tensor.copy_, B16 with its composed counterpart: B15 on
      the luma and the chroma pack slots, then color_merge_420_u8), then per
      launch (B14 in turns with Tensor.copy_ of the same slot, B16 with its
@@ -337,6 +347,14 @@ KERNELS = {
     "color_merge_422_u8": (_CSRC, f"{_CREF}:417", 5, 19),
     "color_split_444_u8": (_CSRC, f"{_CREF}:453", 6, 38),
     "color_merge_444_u8": (_CSRC, f"{_CREF}:477", 6, 19),
+    # the u8 colour path's direct instances (no TPU kernel: they replace the
+    # grid's edge pad, layout copy, zero pads and stacks around B8-B13)
+    "color_split_direct_420": (_CSRC, "none", 4.5, 19),
+    "color_merge_direct_420": (_CSRC, "none", 4.5, 19),
+    "color_split_direct_422": (_CSRC, "none", 5, 26),
+    "color_merge_direct_422": (_CSRC, "none", 5, 19),
+    "color_split_direct_444": (_CSRC, "none", 6, 38),
+    "color_merge_direct_444": (_CSRC, "none", 6, 19),
     "ring_forward": (_RSRC, f"{_RREF}:124", 2, 0),
     "ring_forward_decode": (_SRC, f"{_RREF}:303", 3, 19),  # B3's k_decode_u8 with a forward pointer
     "ring_forward_decode_color": (_RSRC, f"{_RREF}:568", 6, 48),
@@ -388,11 +406,13 @@ BULK_AB = (64, 512)
 ENTROPY_SIDE = 2048
 ENTROPY_STAGES = ("raw", "spectral", "huffman", "rans", "xz", "banded", "banded:4:rans", "auto-exact")
 # `selftest --families` on the card: the golden gate's u8 pass (B1, then B2
-# and B3 against it), color420_u8 (split, two encodes, two decodes, merge),
-# f32 (B5, B6), scaled (B7 beside B2 and B3), streamed gray (3 bands) and
-# color (1 band), each beside its in-memory call
+# and B3 against it), color420_u8 (direct split, two encodes, two decodes,
+# direct merge), f32 (B5, B6), scaled (B7 beside B2 and B3), streamed gray
+# (3 bands) and color (1 band: B8, B9), each beside its in-memory call (the
+# color one direct)
 SELFTEST_LAUNCHES = {"hp_roundtrip_u8": 1, "hp_encode_u8": 12, "hp_decode_u8": 12, "hp_dct": 1, "hp_idct": 1,
-                     "hp_scaled_decode_u8": 1, "color_split_420_u8": 3, "color_merge_420_u8": 3}
+                     "hp_scaled_decode_u8": 1, "color_split_420_u8": 1, "color_merge_420_u8": 1,
+                     "color_split_direct_420": 2, "color_merge_direct_420": 2}
 # the streamed path: a 268-Mpx gray scan in 2048-row bands (the roundtrip
 # in 4096-row bands) and an 8192^2 RGB frame
 STREAM_SIDE, STREAM_BAND, STREAM_RT_BAND, STREAM_COLOR = 16384, 2048, 4096, 8192
@@ -458,11 +478,16 @@ def _instance(fn: str):
     B1 (k_rt_u8<core, inv>), B2 (k_encode_u8<core>), B3/B15
     (k_decode_u8<core>), B19 (k_color_encode_420<core>), B16
     (k_ring_forward_decode_color<core>), B20 (k_color_decode_420<core>), B8
-    (k_color_split<2, 2>), B6 (k_idct, the block index's conversions
-    alone), B30/B31 (k_enc_half<dir>), B7 (k_scaled_decode_u8<core>) or
-    B22 (k_idct_split3), else None; kind is "u8" for B1/B2/B3, "encode420"
-    for B19, "strip" for B16/B20, "split" for B8, "idct" for B6, "enchalf"
-    for B30/B31, "scaled" for B7, "split3" for B22."""
+    (k_color_split<2, 2, false, kCHW, whole>, also the direct split of a
+    planar 4:2:0 frame whose planes end where it does), the other direct
+    colour instances (k_color_split<RH, RW, false, kCHW/kHWC, whole or
+    not>, k_color_merge<RH, RW, kTrunc, kHWC>), B6
+    (k_idct, the block index's conversions alone), B30/B31
+    (k_enc_half<dir>), B7 (k_scaled_decode_u8<core>) or B22
+    (k_idct_split3), else None; kind is "u8" for B1/B2/B3, "encode420" for
+    B19, "strip" for B16/B20, "split" for B8, "direct" for the direct
+    instances, "idct" for B6, "enchalf" for B30/B31, "scaled" for B7,
+    "split3" for B22."""
     from tpudct_torch.kernels.cores import CORES
 
     if m := re.search(r"k_rt_u8ILi(\d)ELi(n1|\d)E", fn):  # n1: kDense, -1
@@ -475,8 +500,10 @@ def _instance(fn: str):
         return f"k_color_encode_420<{CORES[int(m.group(1))]}>", "encode420"
     if m := re.search(r"(k_ring_forward_decode_color|k_color_decode_420)ILi(\d)E", fn):
         return f"{m.group(1)}<{CORES[int(m.group(2))]}>", "strip"
-    if re.search(r"k_color_splitILi2ELi2ELb0E", fn):
-        return "k_color_split<2, 2>", "split"
+    if re.search(r"k_color_splitILi2ELi2ELb0EL[^E]*AddrE1ELb1E", fn):
+        return "k_color_split<2, 2, kCHW, whole>", "split"
+    if m := re.search(r"k_color_(split|merge)ILi(\d)ELi(\d)E(?!Lb1E).*?AddrE([12])E(Lb1E)?", fn):
+        return f"k_color_{m[1]}<{m[2]}, {m[3]}, {('kCHW', 'kHWC')[int(m[4]) - 1]}{', whole' * bool(m[5])}>", "direct"
     if re.search(r"\d+k_idctE", fn):
         return "k_idct", "idct"
     if m := re.search(r"k_scaled_decode_u8ILi(\d)E", fn):
@@ -507,14 +534,15 @@ def _sass_conversions(lib, log: str) -> None:
     """Static counts of conversion instructions (and MUFU) in each instance
     of B1, B2, B3 (B15), B7, B16, B19 and B20 (one per integer core; B1 and
     B3 also on the dense inverse), in B22 (whose bf16 rounding is one F2F
-    per value and digit), in B8 (k_color_split<2, 2>) and in B30/B31
-    (k_enc_half, whose round keeps the reference's trunc: printed only), from
-    cuobjdump -sass of the built library, beside ptxas's registers and
-    spills; for B7 also the instructions before its epilogue switch (the
-    decode to the floors, shared by its 16 epilogues).  Fails where a
-    B1/B2/B3/B7/B19 instance has an FRND, more I2F/I2FP or F2I/F2IP than B6
-    (k_idct: the block index's division, no conversion per pixel), or
-    spills, and where B22 spills."""
+    per value and digit), in B8 (k_color_split<2, 2, kCHW, whole>), in the
+    14 other direct colour instances and in B30/B31 (k_enc_half, whose round keeps the
+    reference's trunc: printed only), from cuobjdump -sass of the built
+    library, beside ptxas's registers and spills; for B7 also the
+    instructions before its epilogue switch (the decode to the floors,
+    shared by its 16 epilogues).  Fails where a B1/B2/B3/B7/B19 instance has
+    an FRND, more I2F/I2FP or F2I/F2IP than B6 (k_idct: the block index's
+    division, no conversion per pixel), or spills, and where B22 or a
+    direct instance spills."""
     from tpudct_torch.kernels._build import nvcc_path
     from tpudct_torch.kernels.cores import CORES
 
@@ -536,12 +564,12 @@ def _sass_conversions(lib, log: str) -> None:
               + f"; ptxas {r} registers, {st} + {ld} bytes spilled")
     kinds = collections.Counter(kind for _, kind in counts)
     want = {"strip": 2 * len(CORES), "u8": 4 * len(CORES) + 1, "encode420": len(CORES), "split": 1, "idct": 1,
-            "enchalf": 2, "scaled": len(CORES), "split3": 1}
+            "enchalf": 2, "scaled": len(CORES), "split3": 1, "direct": 14}
     if kinds != want:
         _fail(f"cuobjdump -sass shows instances {dict(kinds)}, not {want}")
     base = next(ops for (_, kind), ops in counts.items() if kind == "idct")
     for (label, kind), ops in counts.items():
-        if kind == "split3" and (label not in regs or regs[label][1] or regs[label][2]):
+        if kind in ("split3", "direct") and (label not in regs or regs[label][1] or regs[label][2]):
             _fail(f"{label}: ptxas reports spills (or no entry): {regs.get(label)}")
         if kind not in ("u8", "encode420", "scaled"):
             continue
@@ -642,6 +670,7 @@ def phase_compare(dev) -> dict:
     _compare_main_shapes(hp, dev, errs)
     _check_pinned_precision(dev)
     _compare_color(dev, errs)
+    _compare_color_direct(dev, errs)
     _compare_ring(dev, errs)
     _compare_copy_edges(dev, errs)
     _compare_study(dev, errs)
@@ -1122,6 +1151,74 @@ def _compare_color(dev, errs: dict) -> None:
     _merge_sweep(ck, dev, errs)
 
 
+def _parent_color_chain(p, cfg, rgb, mode: str) -> tuple:
+    """(planes, RGB) of the u8 colour roundtrip as it ran on the reference's
+    (64, 256) grid: the frame to planes (one copy where interleaved), the
+    edge pad to the grid, B8/B10/B12, hp_encode_u8 on the grid planes and
+    the crops; the zero pads back to the grid, the chroma stack, hp_decode_u8,
+    B9/B11/B13 and the crop."""
+    import torch.nn.functional as F
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.models import color as mc
+    from tpudct_torch.ops.padding import pad_to_kernel, padded_shape
+
+    planar = rgb.movedim(-1, 0).contiguous() if rgb.shape[-1] == 3 else rgb
+    h, w = planar.shape[1:]
+    x, _ = pad_to_kernel(planar, 64, 256)
+    y, cb, cr = getattr(ck, f"color_split_{mode}_u8")(x)
+    cy = p.encode_u8(y, mc._luma_cfg(cfg))
+    cc = p.encode_u8(torch.cat([cb, cr]), mc._chroma_cfg(cfg))
+    ph = cb.shape[0]
+    y8 = padded_shape(h, w)
+    c8 = padded_shape(*mc._chroma_plane_shape(False if mode == "444" else mode, h, w))
+    planes = {"y": cy[: y8[0], : y8[1]], "cb": cc[:ph][: c8[0], : c8[1]], "cr": cc[ph:][: c8[0], : c8[1]]}
+
+    def zpad(c, a, b):
+        return F.pad(c, (0, b - c.shape[1], 0, a - c.shape[0]))
+
+    yd = p.decode_u8(zpad(planes["y"], *x.shape[1:]), mc._luma_cfg(cfg))
+    cd = p.decode_u8(torch.cat([zpad(planes[k], *cb.shape) for k in ("cb", "cr")]), mc._chroma_cfg(cfg))
+    return planes, getattr(ck, f"color_merge_{mode}_u8")(yd, cd[:ph], cd[ph:]).movedim(0, -1)[:h, :w]
+
+
+def _compare_color_direct(dev, errs: dict) -> None:
+    """The direct instances against their twins, and the u8 colour
+    roundtrip (roundtrip_color_u8: the direct split, hp_encode_u8 and
+    hp_decode_u8 at the planes' shapes, the direct merge) against the
+    reference grid's chain, planes and RGB bit for bit: the camera frame, a
+    ragged 3001x4003 frame and SQUARE^2, interleaved and planar, every
+    mode."""
+    from tpudct_torch import CodecConfig, get_pipeline
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.models import color as mc
+
+    p, cfg = get_pipeline("hp"), CodecConfig()
+    cam = torch.as_tensor(_camera_rgb(*COLOR_FRAME), device=dev)
+    frames = [("x".join(map(str, COLOR_FRAME)) + " camera frame", cam),
+              ("3001x4003 ragged frame", _rgb_noise(3001, 4003, seed=61, dev=dev).movedim(0, -1).contiguous()),
+              (f"{SQUARE}^2", _rgb_noise(SQUARE, SQUARE, seed=62, dev=dev).movedim(0, -1).contiguous())]
+    for label, hwc in frames:
+        h, w = hwc.shape[:2]
+        for layout, x in (("interleaved", hwc), ("planar", hwc.movedim(-1, 0).contiguous())):
+            for mode in COLOR_MODES:
+                split, merge = f"color_split_direct_{mode}", f"color_merge_direct_{mode}"
+                tag = f"{label} {layout} {mode}"
+                y, cc = ck.color_split_direct_u8(x, mode, layout)
+                ty, tcc = ck.split_direct_plain(x, mode, layout)
+                errs[split] = max(errs[split], _same(f"{split} {tag} y", y, ty), _same(f"{split} {tag} cc", cc, tcc))
+                half = cc.shape[0] // 2
+                out = ck.color_merge_direct_u8(y, cc[:half], cc[half:], h, w, mode)
+                e = _same(f"{merge} {tag}", out, ck.merge_direct_plain(y, cc[:half], cc[half:], h, w, mode))
+                errs[merge] = max(errs[merge], e)
+                planes, _meta, rec = mc.roundtrip_color_u8(p, x, cfg, subsample=False if mode == "444" else mode)
+                want, want_rec = _parent_color_chain(p, cfg, x, mode)
+                for k in ("y", "cb", "cr"):
+                    _equal(f"roundtrip_color_u8 {tag} plane {k} vs the grid's chain", planes[k], want[k])
+                _equal(f"roundtrip_color_u8 {tag} RGB vs the grid's chain", rec, want_rec.contiguous())
+        print(f"  {label}: the direct split and merge bit-identical to their twins, and roundtrip_color_u8's "
+              f"planes and RGB to the grid's chain, interleaved and planar, 4:2:0, 4:2:2 and 4:4:4")
+
+
 def _compare_color_codec(label: str, mode: str, planes, errs: dict, scaled: bool) -> None:
     """hp_encode_u8 and hp_decode_u8 on the planes the color path hands
     them: the luma plane (luma table, once per input) and the stacked chroma
@@ -1555,7 +1652,8 @@ def phase_color_main_path(dev) -> dict:
     counts, step = _stepper(hp.LAUNCHES, ck.LAUNCHES)
 
     def codec(mode):
-        return {f"color_split_{mode}_u8": 1, "hp_encode_u8": 2, "hp_decode_u8": 2, f"color_merge_{mode}_u8": 1}
+        return {f"color_split_direct_{mode}": 1, "hp_encode_u8": 2, "hp_decode_u8": 2,
+                f"color_merge_direct_{mode}": 1}
 
     sq, (n_img, side) = f"{SQUARE}^2", BATCH
     rng = np.random.default_rng(44)
@@ -1580,15 +1678,18 @@ def phase_color_main_path(dev) -> dict:
     if tuple(rec.shape) != (*COLOR_FRAME, 3) or tuple(planes["y"].shape) != padded_shape(*COLOR_FRAME):
         _fail(f"{label}: shapes {tuple(planes['y'].shape)}, {tuple(rec.shape)}")
     _color_band_check(label, cam_np, planes, rec, "420", cfg)
-    label = f"{n_img}x{side}^2 encode_color_batch_auto"
-    enc = step(label, {"color_split_420_u8": 1, "hp_encode_u8": 2},
-               lambda: mc.encode_color_batch_auto(p, frames, cfg))
-    label = f"{n_img}x{side}^2 decode_color_batch_auto"
-    dec = step(label, {"hp_decode_u8": 2, "color_merge_420_u8": 1},
-               lambda: mc.decode_color_batch_auto(p, [(pl, m, cfg) for pl, m in enc]))
-    if len(dec) != n_img or any(r.shape != (side, side, 3) for r in dec):
-        _fail(f"{label}: {len(dec)} frames of shapes {sorted({r.shape for r in dec})}")
-    _color_band_check(f"{n_img}x{side}^2 bulk frame 0", frames[0], enc[0][0], dec[0], "420", cfg)
+    # the bulk helpers stack frames on the (64, 256) grid: B8-B13, every mode
+    for mode in COLOR_MODES:
+        sub = False if mode == "444" else mode
+        label = f"{n_img}x{side}^2 encode_color_batch_auto {mode}"
+        enc = step(label, {f"color_split_{mode}_u8": 1, "hp_encode_u8": 2},
+                   lambda: mc.encode_color_batch_auto(p, frames, cfg, subsample=sub))
+        label = f"{n_img}x{side}^2 decode_color_batch_auto {mode}"
+        dec = step(label, {"hp_decode_u8": 2, f"color_merge_{mode}_u8": 1},
+                   lambda: mc.decode_color_batch_auto(p, [(pl, m, cfg) for pl, m in enc]))
+        if len(dec) != n_img or any(r.shape != (side, side, 3) for r in dec):
+            _fail(f"{label}: {len(dec)} frames of shapes {sorted({r.shape for r in dec})}")
+        _color_band_check(f"{n_img}x{side}^2 bulk {mode} frame 0", frames[0], enc[0][0], dec[0], sub, cfg)
     cfg_q = CodecConfig(q_scale=0.5)
     label = f"{sq} roundtrip_color_auto q_scale=0.5 (f32 path)"
     planes, meta, rec = step(label, {"hp_dct": 2, "hp_idct": 2},
@@ -1624,16 +1725,18 @@ def phase_color_main_path(dev) -> dict:
 # rank in the codec step, the color step's luma and the grid color step's
 # luma tiles (chroma and the grid codec tiles are narrower than 128: the
 # batched fallback); B1 per rank in the serving step; the coefficients of the
-# decode ring (B2) and the color roundtrip feeding the color ring (B8, 2 B2,
-# 2 B3, B9); both rings; B6 per rank in sharded_idct, on the full and on the
-# progressive map; B1 per rank in each of the streamed sharded roundtrip's
-# three host bands and one for the whole image it is held against; B5 per
-# rank on the luma of the sharded color encode feeding save_color_sharded;
-# the streamed color codec's two bands (B8 and 2 B2, then 2 B3 and B9
-# each) and the in-memory pass it is held against (B8, 2 B2, 2 B3, B9)
+# decode ring (B2) and the color roundtrip feeding the color ring (the
+# direct split, 2 B2, 2 B3, the direct merge); both rings; B6 per rank in
+# sharded_idct, on the full and on the progressive map; B1 per rank in each
+# of the streamed sharded roundtrip's three host bands and one for the whole
+# image it is held against; B5 per rank on the luma of the sharded color
+# encode feeding save_color_sharded; the streamed color codec's two bands
+# (B8 and 2 B2, then 2 B3 and B9 each) and the in-memory pass it is held
+# against (the direct split, 2 B2, 2 B3, the direct merge)
 DRYRUN_LAUNCHES = {
     "hp_roundtrip": 24, "hp_roundtrip_u8": 33, "hp_encode_u8": 9, "hp_decode_u8": 8, "hp_idct": 16,
-    "hp_dct": 8, "color_split_420_u8": 4, "color_merge_420_u8": 4,
+    "hp_dct": 8, "color_split_420_u8": 2, "color_merge_420_u8": 2,
+    "color_split_direct_420": 2, "color_merge_direct_420": 2,
     "ring_forward": 24, "ring_forward_decode": 64, "ring_forward_decode_color": 64,
 }
 
@@ -1834,8 +1937,8 @@ def phase_study_path(dev) -> dict:
     # six timed stages: each kernel runs in two of them
     n = 1 + 2 * (1 + color_fused_ab.REPS)
     fused = step(f"{SQUARE}^2 studies.color_fused_ab.main",
-                 {"color_encode_420_u8": n, "color_decode_420_u8": n, "color_split_420_u8": n,
-                  "hp_encode_u8": 2 * n, "hp_decode_u8": 2 * n, "color_merge_420_u8": n},
+                 {"color_encode_420_u8": n, "color_decode_420_u8": n, "color_split_direct_420": n,
+                  "hp_encode_u8": 2 * n, "hp_decode_u8": 2 * n, "color_merge_direct_420": n},
                  lambda: color_fused_ab.main(SQUARE, dev))
     # the variant studies: their checks once, then the timed pairs (shipped
     # twice), each kernel in as many pairs as name it
@@ -1974,7 +2077,8 @@ def phase_measurement_path(dev, card: str) -> dict:
     ck.reset_launches()
     study.reset_launches()
     k, n_img, side = 1 + BENCH_REPS, *BATCH
-    color = {"color_split_420_u8": k, "hp_encode_u8": 2 * k, "hp_decode_u8": 2 * k, "color_merge_420_u8": k}
+    color = {"color_split_direct_420": k, "hp_encode_u8": 2 * k, "hp_decode_u8": 2 * k,
+             "color_merge_direct_420": k}
     sweep_sizes = (256, 512, 1024)
     benches = [
         ("bench_pipeline hp 1024", {"hp_dct": 2 * k, "hp_idct": k},
@@ -2068,11 +2172,11 @@ def phase_file_path(dev, card: str) -> dict:
                  ["run", f["gray.npy"], f["run.npy"], "--coeffs", f["run.tdc"]])
         cli_step(f"{sq} decode --scale 2/8", {"hp_scaled_decode_u8": 1},
                  ["decode", "--scale", "2/8", f["g.tdc"], f["s.npy"]])
-        cenc = cli_step(f"{cam} encode --color", {"color_split_420_u8": 1, "hp_encode_u8": 2},
+        cenc = cli_step(f"{cam} encode --color", {"color_split_direct_420": 1, "hp_encode_u8": 2},
                         ["encode", "--color", f["rgb.npy"], f["c.tdcc"]])
-        cli_step(f"{cam} decode .tdcc", {"hp_decode_u8": 2, "color_merge_420_u8": 1},
+        cli_step(f"{cam} decode .tdcc", {"hp_decode_u8": 2, "color_merge_direct_420": 1},
                         ["decode", f["c.tdcc"], f["c.npy"]])
-        cli_step(f"{cam} encode --color --chroma 444", {"color_split_444_u8": 1, "hp_encode_u8": 2},
+        cli_step(f"{cam} encode --color --chroma 444", {"color_split_direct_444": 1, "hp_encode_u8": 2},
                  ["encode", "--color", "--chroma", "444", f["rgb.npy"], f["c444.tdcc"]])
         launches = counts()
         print(f"  file path: {time.perf_counter() - t0:.1f} s for the CLI calls; launches:", json.dumps(launches))
@@ -2272,8 +2376,8 @@ def _measuring_verbs(step, card: str, k: int, d: dict, gray_tdc: str) -> None:
     import torch as _t
 
     n_img, side = BATCH
-    color = lambda n: {"color_split_420_u8": n, "hp_encode_u8": 2 * n,  # noqa: E731
-                       "hp_decode_u8": 2 * n, "color_merge_420_u8": n}
+    color = lambda n: {"color_split_direct_420": n, "hp_encode_u8": 2 * n,  # noqa: E731
+                       "hp_decode_u8": 2 * n, "color_merge_direct_420": n}
     reps = ["--reps", str(BENCH_REPS)]
     out = {}
     out["bench"] = _cli_records(step, card, f"bench --size {SQUARE} --fused --color",
@@ -2986,12 +3090,12 @@ def _archive_launches(n: int, nc: int) -> dict:
     B2 per gray band; the ROI's covering band streamed (B3) and in memory
     (B2, B3); B7 per band and the in-memory band (B2, B7); B8 and two B2 per
     color band; the color ROI's f32 decode (two B6) and its in-memory band
-    (B8, two B2, two B6)."""
+    (the direct split, two B2, two B6)."""
     return {"gen": {}, "enc": {"hp_encode_u8": n}, "preview": {},
             "roi": {"hp_decode_u8": 2, "hp_encode_u8": 1},
             "scale": {"hp_scaled_decode_u8": n + 1, "hp_encode_u8": 1}, "genc": {},
             "encc": {"color_split_420_u8": nc, "hp_encode_u8": 2 * nc}, "previewc": {},
-            "roic": {"hp_idct": 4, "color_split_420_u8": 1, "hp_encode_u8": 2}}
+            "roic": {"hp_idct": 4, "color_split_direct_420": 1, "hp_encode_u8": 2}}
 
 
 def _archive_phase(phase: str, directory: str) -> dict:
@@ -3452,6 +3556,15 @@ def phase_timing(dev, card: str) -> dict:
                                                  lambda m=mode: ck.split_plain(rgb, m))
                 fns[f"color_merge_{mode}_u8"] = (lambda f=merge, pl=planes: f(*pl),
                                                  lambda m=mode, pl=planes: ck.merge_plain(*pl, m))
+            # the direct instances on the same frame, interleaved
+            hwc = rgb.movedim(0, -1).contiguous()
+            for mode in COLOR_MODES:
+                yd, ccd = ck.color_split_direct_u8(hwc, mode)
+                pl = (yd, *ccd.split(ccd.shape[0] // 2))
+                fns[f"color_split_direct_{mode}"] = (lambda m=mode: ck.color_split_direct_u8(hwc, m),
+                                                     lambda m=mode: ck.split_direct_plain(hwc, m))
+                fns[f"color_merge_direct_{mode}"] = (lambda m=mode, pl=pl: ck.color_merge_direct_u8(*pl, h, w, m),
+                                                     lambda m=mode, pl=pl: ck.merge_direct_plain(*pl, h, w, m))
             # the study kernels: the copies work in place on their own map
             # (its values stay), the fused pair on its own RGB and planes
             xs = _noise(h, w, seed=8, dev=dev)
@@ -3540,10 +3653,59 @@ def phase_timing(dev, card: str) -> dict:
             v1, b9 = times[("color_merge_v1", label)][0], times[("color_merge_420_u8", label)][0]
             print(f"  {label} color_merge_v1 (compare-form round) {v1:.4f} ms beside color_merge_420_u8 (B9, "
                   f"add-form round) {b9:.4f} ms: {v1 / b9:.3f}x [{card}]")
+    _time_direct_camera(dev, card)
     ring_times, copy_ms = _time_rings(dev, card)
     times.update(ring_times)
     times["library"]["ring_forward"] = copy_ms
     return times
+
+
+def _time_direct_camera(dev, card: str) -> None:
+    """At the camera frame (interleaved): each direct split and merge
+    beside its twin and its bound, in turns with what it replaces on the
+    reference's grid (the split: the layout copy, the edge pad to the grid,
+    B8/B10/B12 and the chroma stack; the merge: B9/B11/B13 on the grid's
+    planes); then the 4:2:0 roundtrip_color_u8 in turns with the grid's
+    chain (device ms per call, host gaps between launches included)."""
+    from tpudct_torch import CodecConfig, get_pipeline
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.models import color as mc
+    from tpudct_torch.ops.padding import pad_to_kernel
+
+    h, w = COLOR_FRAME
+    cam = torch.as_tensor(_camera_rgb(h, w), device=dev)
+    label = f"{h}x{w}"
+    for mode in COLOR_MODES:
+        split, merge = f"color_split_direct_{mode}", f"color_merge_direct_{mode}"
+        grid_split, grid_merge = (getattr(ck, f"color_{d}_{mode}_u8") for d in ("split", "merge"))
+
+        def passes(f=grid_split):
+            cb, cr = f(pad_to_kernel(cam.movedim(-1, 0).contiguous(), 64, 256)[0])[1:]
+            return torch.cat([cb, cr])
+
+        yd, ccd = ck.color_split_direct_u8(cam, mode)
+        pl = (yd, *ccd.split(ccd.shape[0] // 2))
+        gpl = grid_split(pad_to_kernel(cam.movedim(-1, 0).contiguous(), 64, 256)[0])
+        for name, kern, plain, other, what in (
+            (split, lambda m=mode: ck.color_split_direct_u8(cam, m), lambda m=mode: ck.split_direct_plain(cam, m),
+             passes, f"the layout copy, the edge pad, color_split_{mode}_u8 and the chroma stack"),
+            (merge, lambda m=mode: ck.color_merge_direct_u8(*pl, h, w, m),
+             lambda m=mode: ck.merge_direct_plain(*pl, h, w, m), lambda f=grid_merge: f(*gpl),
+             f"color_merge_{mode}_u8 on the grid's planes"),
+        ):
+            p1 = _time(plain, dev, 3)
+            k1, k2, (o1, o2) = _in_turns(kern, other, dev)
+            bound = _bound(name, h, w)[0]
+            ms = (k1 + k2) / 2
+            print(f"  {label} {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} ms; bound {bound:.4f} ms, "
+                  f"kernel at {bound / ms:.1%} of it; in turns with {what}: {o1:.4f} / {o2:.4f} ms, kernel / "
+                  f"those {2 * ms / (o1 + o2):.3f} [{card}]")
+    p, cfg = get_pipeline("hp"), CodecConfig()
+    k1, k2, (o1, o2) = _in_turns(lambda: mc.roundtrip_color_u8(p, cam, cfg),
+                                 lambda: _parent_color_chain(p, cfg, cam, "420"), dev)
+    print(f"  {label} roundtrip_color_u8 4:2:0 (direct) {k1:.4f} / {k2:.4f} ms in turns with the grid's chain "
+          f"{o1:.4f} / {o2:.4f} ms: {(k1 + k2) / (o1 + o2):.3f}x; floor 7.5 B/px "
+          f"{7.5 * h * w / HBM_PEAK_BPS * 1e3:.4f} ms [{card}]")
 
 
 def _time_copy2_pair(kern, xs, dev, card: str) -> None:

@@ -289,11 +289,12 @@ def test_utils_color_matches_reference(shape):
 
 
 @pytest.mark.parametrize("layout", ["interleaved", "planar"])
-@pytest.mark.parametrize("shape", [(128, 256), (100, 300)])
+@pytest.mark.parametrize("shape", [(128, 256), (100, 300), (252, 189), (98, 296)])
 @pytest.mark.parametrize("mode", MODES)
 def test_color_u8_path_matches_reference(mode, shape, layout):
     """encode/decode/roundtrip_color_u8 and the _auto forms, every mode, an
-    aligned and a ragged frame, both layouts."""
+    aligned frame and ragged ones (a camera-aspect frame, a width not a
+    multiple of 16), both layouts."""
     (p, rp), (cfg, rcfg) = _pair(), _cfgs()
     sub = _SUBSAMPLE[mode]
     rgb = _smooth_rgb(*shape)
@@ -571,3 +572,136 @@ def test_color_gate_passes_on_cpu():
     assert rep["recon_diff_pixels"] == 0 and rep["device"] == "cpu"
     skip = selftest.color_gate(tpudct_torch.get_pipeline("batched"), tpudct_torch.CodecConfig(), device="cpu")
     assert skip["gate"] == "skip"
+
+
+# ---- the direct instances ------------------------------------------------------
+
+_FRAMES = ((128, 256), (100, 300), (252, 189), (98, 296))
+
+
+def _grid_chain(p, cfg, x, mode):
+    """The u8 colour roundtrip on the reference's (64, 256) grid, as it ran
+    before the direct instances: planar frame, edge pad to the grid, the
+    planar split, the codec on the grid planes and the crops to the
+    8-aligned plane shapes; zero pads back to the grid, the chroma stack,
+    the decode, the planar merge and the crop."""
+    import torch.nn.functional as F
+
+    from tpudct_torch.ops.padding import pad_to_kernel, padded_shape
+
+    planar = x if x.shape[0] == 3 and x.shape[-1] != 3 else x.movedim(-1, 0).contiguous()
+    h, w = planar.shape[1:]
+    xp, _ = pad_to_kernel(planar, 64, 256)
+    y, cb, cr = getattr(K, f"color_split_{mode}_u8")(xp)
+    cy = p.encode_u8(y, C._luma_cfg(cfg))
+    cc = p.encode_u8(torch.cat([cb, cr]), C._chroma_cfg(cfg))
+    ph = cb.shape[0]
+    y8 = padded_shape(h, w)
+    c8 = padded_shape(*C._chroma_plane_shape(_SUBSAMPLE[mode], h, w))
+    planes = {"y": cy[: y8[0], : y8[1]], "cb": cc[:ph][: c8[0], : c8[1]], "cr": cc[ph:][: c8[0], : c8[1]]}
+
+    def zpad(c, a, b):
+        return F.pad(c, (0, b - c.shape[1], 0, a - c.shape[0]))
+
+    yd = p.decode_u8(zpad(planes["y"], *xp.shape[1:]), C._luma_cfg(cfg))
+    cd = p.decode_u8(torch.cat([zpad(planes[k], *cb.shape) for k in ("cb", "cr")]), C._chroma_cfg(cfg))
+    return planes, getattr(K, f"color_merge_{mode}_u8")(yd, cd[:ph], cd[ph:]).movedim(0, -1)[:h, :w]
+
+
+@pytest.mark.parametrize("shape", _FRAMES)
+@pytest.mark.parametrize("layout", ("interleaved", "planar"))
+@pytest.mark.parametrize("mode", MODES)
+def test_direct_path_equals_the_grid_chain(mode, layout, shape):
+    """roundtrip_color_u8 (the direct split and merge, the codec at the
+    planes' own shapes) gives the grid chain's planes and RGB bit for bit;
+    cb and cr are row halves of one buffer, the RGB is contiguous, and
+    planes from separate buffers decode the same."""
+    p, cfg = _pair()[0], _cfgs()[0]
+    h, w = shape
+    x = torch.as_tensor(_smooth_rgb(h, w))
+    if layout == "planar":
+        x = x.movedim(-1, 0).contiguous()
+    planes, meta, rec = C.roundtrip_color_u8(p, x, cfg, subsample=_SUBSAMPLE[mode], device="cpu")
+    want, want_rec = _grid_chain(p, cfg, x, mode)
+    for k in ("y", "cb", "cr"):
+        assert torch.equal(planes[k], want[k]), k
+    assert torch.equal(rec, want_rec) and rec.is_contiguous() and rec.shape == (h, w, 3)
+    assert C._stacked(planes["cb"], planes["cr"]) is not None
+    apart = {k: v.clone() for k, v in planes.items()}
+    assert C._stacked(apart["cb"], apart["cr"]) is None
+    assert torch.equal(C.decode_color_u8(p, apart, meta, cfg), rec)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_direct_kernels_equal_the_grid_kernels_cropped(mode):
+    """The direct split of a ragged frame is the planar split of the
+    frame edge-padded to the grid, cropped to the plane shapes; the direct
+    merge is the planar merge's crop, interleaved."""
+    from tpudct_torch.ops.padding import pad_to_kernel
+
+    h, w = 98, 296
+    x = torch.as_tensor(_rgb((h, w, 3), 31))
+    y, cc = K.color_split_direct_u8(x, mode)
+    (yh, yw), (ch, cw) = K.direct_shapes(h, w, mode)
+    assert y.shape == (yh, yw) and cc.shape == (2 * ch, cw)
+    gy, gcb, gcr = getattr(K, f"color_split_{mode}_u8")(pad_to_kernel(x.movedim(-1, 0), 64, 256)[0])
+    assert torch.equal(y, gy[:yh, :yw])
+    assert torch.equal(cc, torch.cat([gcb[:ch, :cw], gcr[:ch, :cw]]))
+    assert torch.equal(K.color_split_direct_u8(x.movedim(-1, 0).contiguous(), mode, "planar")[1], cc)
+    out = K.color_merge_direct_u8(y, cc[:ch], cc[ch:], h, w, mode)
+    ref = getattr(K, f"color_merge_{mode}_u8")(gy, gcb, gcr).movedim(0, -1)[:h, :w]
+    assert out.shape == (h, w, 3) and torch.equal(out, ref)
+
+
+def test_direct_path_reads_any_strides_of_either_layout():
+    """An interleaved view of a planar buffer reads as planar (no copy), a
+    planar view of an interleaved one as interleaved; other strides are
+    copied once; the planes are the same."""
+    p, cfg = _pair()[0], _cfgs()[0]
+    hwc = torch.as_tensor(_smooth_rgb(64, 200))
+    want = C.encode_color_u8(p, hwc, cfg, device="cpu")[0]
+    chw = hwc.movedim(-1, 0).contiguous()
+    wide = torch.as_tensor(_smooth_rgb(64, 210))[:, 5:205]
+    assert C._u8_frame(chw.movedim(0, -1))[1] == "planar"
+    assert C._u8_frame(hwc.movedim(-1, 0))[1] == "interleaved"
+    for x in (chw.movedim(0, -1), hwc.movedim(-1, 0), hwc.numpy(), wide):
+        got = C.encode_color_u8(p, x, cfg, device="cpu")[0]
+        ref = want if x is not wide else C.encode_color_u8(p, wide.contiguous(), cfg, device="cpu")[0]
+        assert all(torch.equal(got[k], ref[k]) for k in ("y", "cb", "cr"))
+
+
+def test_direct_wrappers_refuse_what_they_cannot_read():
+    y = torch.zeros((104, 304), dtype=torch.uint8)
+    c = torch.zeros((56, 152), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="takes y"):
+        K.color_merge_direct_u8(y, c, c[:48], 100, 300, "420")
+    with pytest.raises(ValueError, match=r"takes \(3, H, W\) planar RGB"):
+        K.color_split_direct_u8(torch.zeros((4, 5, 6), dtype=torch.uint8))
+    with pytest.raises(ValueError, match=r"takes \(H, W, 3\) interleaved RGB"):
+        K.color_split_direct_u8(torch.zeros((3, 5, 6), dtype=torch.uint8), layout="interleaved")
+    with pytest.raises(TypeError, match="uint8"):
+        K.color_split_direct_u8(torch.zeros((4, 5, 3), dtype=torch.int16))
+    with pytest.raises(ValueError, match="non-empty"):
+        K.color_split_direct_u8(torch.zeros((0, 5, 3), dtype=torch.uint8))
+
+
+def test_direct_roundtrip_opens_no_pad_or_layout_span():
+    """entry.roundtrip_color_auto on a u8 frame: no ``pad`` or ``layout``
+    span under it, and ``color.u8.direct`` counts the encode and the
+    decode."""
+    from tpudct_torch.utils import profiling
+
+    p, cfg = _pair()[0], _cfgs()[0]
+    rgb = torch.as_tensor(_smooth_rgb(100, 300))
+    profiling.reset()
+    profiling.enable()
+    try:
+        C.roundtrip_color_auto(p, rgb, cfg)
+        snap = profiling.snapshot()
+    finally:
+        profiling.disable()
+        profiling.reset()
+    names = set(snap["spans"])
+    assert profiling.PREFIX + "entry.roundtrip_color_auto" in names
+    assert not {profiling.PREFIX + "pad", profiling.PREFIX + "layout"} & names
+    assert snap["counters"] == {profiling.PREFIX + "color.u8.direct": 2}

@@ -11,18 +11,21 @@ Two paths, chosen as the reference chooses them:
 - f32 (``encode_color``/``decode_color``): float planes through the
   pipeline's ``encode``/``idct`` (on ``hp``: the ``hp_dct``/``hp_idct``
   kernels at kernel shapes), torch resampling and conversion;
-- u8 (``encode_color_u8``/``decode_color_u8``): one split kernel (B8, B10
-  or B12), one luma and one stacked-chroma launch of ``hp_encode_u8``, and
-  back through two ``hp_decode_u8`` launches and one merge kernel (B9, B11
-  or B13), padded to the (64, 256) kernel grid and cropped back.
+- u8 (``encode_color_u8``/``decode_color_u8``): one direct split kernel
+  on the caller's frame, one luma and one stacked-chroma launch of
+  ``hp_encode_u8``, and back through two ``hp_decode_u8`` launches and one
+  direct merge kernel writing the interleaved frame, every plane at its
+  true size rounded up to 8; the gate is the reference's, on the (64, 256)
+  kernel grid.
 
 The ``_auto`` helpers pick the u8 path where the input and the geometry
 allow it, the bulk helpers stack same-width frames into one pass.  Host
 (numpy) inputs run on ``dispatch.default_device(device)``: the first CUDA
 card, or the device named (``device="cpu"`` runs the plain twins); a tensor
 stays where it is.  Per-image functions return tensors on the device (the
-interleaved RGB is a ``movedim`` view, as the reference's ``moveaxis``); the
-bulk helpers return numpy arrays.
+f32 path's interleaved RGB is a ``movedim`` view, as the reference's
+``moveaxis``; the u8 path's is contiguous); the bulk helpers return numpy
+arrays.
 """
 
 from __future__ import annotations
@@ -264,20 +267,23 @@ def _layout(rgb) -> tuple:
     raise ValueError(f"expected 3 channels, got shape {shape}")
 
 
-def _planar_u8(rgb, device=None) -> torch.Tensor:
-    """(H, W, 3) interleaved or (3, H, W) planar uint8 -> contiguous planar
-    (an interleaved input costs one copy)."""
+def _u8_frame(rgb, device=None) -> tuple:
+    """(tensor, layout) of a uint8 frame of either layout as the direct
+    split reads it: contiguous in its own layout, or in the other one (a
+    view), else copied (a ``layout`` span)."""
     layout, _h, _w = _layout(rgb)
     if not _is_u8(rgb):
         dt = str(rgb.dtype).removeprefix("torch.")
         raise ValueError(f"u8 color path needs uint8 input, got {dt}")
     x = _tensor(rgb, device)
-    if layout == "interleaved":
-        x = x.movedim(-1, 0)
     if x.is_contiguous():
-        return x
+        return x, layout
+    if layout == "interleaved" and x.movedim(-1, 0).is_contiguous():
+        return x.movedim(-1, 0), "planar"
+    if layout == "planar" and x.movedim(0, -1).is_contiguous():
+        return x.movedim(0, -1), "interleaved"
     with profiling.span("layout"):
-        return x.contiguous()
+        return x.contiguous(), layout
 
 
 def _interleaved_f32(rgb, device=None) -> torch.Tensor:
@@ -308,6 +314,11 @@ def supports_color_u8(p: Pipeline, cfg: CodecConfig, h: int, w: int, subsample="
         and hp.supports_u8(h, w, cfg.q_scale, cfg.transform, "luma")
         and hp.supports_u8(ch, cw, cfg.q_scale, cfg.transform, "chroma")
     )
+
+
+def _mode_name(mode) -> str:
+    """The kernels' name of a normalized mode: "420", "422" or "444"."""
+    return mode or "444"
 
 
 def _u8_kernels(mode):
@@ -341,15 +352,30 @@ def _zero_pad(c: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
         return F.pad(c, (0, pw - w, 0, ph - h))
 
 
+def _stacked(cb: torch.Tensor, cr: torch.Tensor):
+    """The (2 h, w) stack of cb above cr as a view where cr directly follows
+    cb in one contiguous buffer (the planes ``encode_color_u8`` returns),
+    else None."""
+    if (cb.shape != cr.shape or cb.dtype != cr.dtype or cb.device != cr.device
+            or not (cb.is_contiguous() and cr.is_contiguous())
+            or cb.untyped_storage().data_ptr() != cr.untyped_storage().data_ptr()
+            or cr.storage_offset() != cb.storage_offset() + cb.numel()):
+        return None
+    h, w = cb.shape
+    return cb.as_strided((2 * h, w), (w, 1))
+
+
 def encode_color_u8(p: Pipeline, rgb_u8, cfg: CodecConfig, subsample=True, device=None):
     """u8 color encode: uint8 RGB (either layout) -> int8 coefficient planes.
 
-    Edge-pads to :func:`color_kernel_shape`, splits (one kernel), codes luma
-    and the stacked chroma (one ``hp_encode_u8`` launch each), and crops the
-    planes to the 8-aligned true plane shapes, so a ragged frame's planes
-    have the f32 path's shapes."""
-    x = _planar_u8(rgb_u8, device)
-    _c, h, w = x.shape
+    The direct split reads the frame as it lies (edge rows and columns
+    replicated, as the reference's pad to :func:`color_kernel_shape` gives
+    them) and writes luma and the stacked chroma at the 8-aligned true plane
+    shapes; one ``hp_encode_u8`` launch codes each.  A ragged frame's planes
+    have the f32 path's shapes; cb and cr are the row halves of one
+    buffer."""
+    x, layout = _u8_frame(rgb_u8, device)
+    h, w = x.shape[:2] if layout == "interleaved" else x.shape[1:]
     mode = normalize_subsample(subsample)
     hk, wk = color_kernel_shape(h, w)
     if not supports_color_u8(p, cfg, hk, wk, mode):
@@ -357,29 +383,22 @@ def encode_color_u8(p: Pipeline, rgb_u8, cfg: CodecConfig, subsample=True, devic
             f"u8 color path unsupported for {h}x{w} subsample={subsample} "
             "(needs hp pipeline and an int8-safe q_scale); use encode_color"
         )
-    x, _ = pad_to_kernel(x, *_GRID)
-    split, _merge = _u8_kernels(mode)
-    y, cb, cr = split(x)
-    cy = p.encode_u8(y, _luma_cfg(cfg))
-    cc = p.encode_u8(_stack(cb, cr), _chroma_cfg(cfg))
-    ph = cb.shape[0]
-    ch, cw = _chroma_plane_shape(mode, h, w)
-    y8, c8 = padded_shape(h, w), padded_shape(ch, cw)
-    meta = {"orig_shape": (h, w), "chroma_shape": (ch, cw), "subsample": mode}
-    return {
-        "y": cy[: y8[0], : y8[1]],
-        "cb": cc[:ph][: c8[0], : c8[1]],
-        "cr": cc[ph:][: c8[0], : c8[1]],
-    }, meta
+    y, cc = ck.color_split_direct_u8(x, _mode_name(mode), layout)
+    cy = p._encode_u8_plane(y, _luma_cfg(cfg))
+    ccq = p._encode_u8_plane(cc, _chroma_cfg(cfg))
+    profiling.count("color.u8.direct", 1)
+    ch = cc.shape[0] // 2
+    meta = {"orig_shape": (h, w), "chroma_shape": _chroma_plane_shape(mode, h, w), "subsample": mode}
+    return {"y": cy, "cb": ccq[:ch], "cr": ccq[ch:]}, meta
 
 
 def decode_color_u8(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig, device=None):
     """Inverse of :func:`encode_color_u8` -> (H, W, 3) uint8 interleaved.
 
     Takes planes at the 8-aligned true plane shapes (what both encode paths
-    give), zero-pads them to the kernel grid (zero blocks decode to the
-    neutral 128), decodes luma and the stacked chroma (one ``hp_decode_u8``
-    launch each), merges (one kernel) and crops to ``orig_shape``."""
+    give) and decodes luma and the stacked chroma (one ``hp_decode_u8``
+    launch each; cb and cr from one buffer are stacked as a view, others by
+    one copy); the direct merge writes the (H, W, 3) frame, contiguous."""
     h, w = meta["orig_shape"]
     mode = normalize_subsample(meta["subsample"])
     y8 = padded_shape(h, w)
@@ -391,11 +410,14 @@ def decode_color_u8(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig, dev
             f"cb/cr are {shapes['cb']}/{shapes['cr']} (want {c8}); "
             "use decode_color for other paddings"
         )
-    hk, wk = color_kernel_shape(h, w)
-    chk, cwk = _chroma_plane_shape(mode, hk, wk)  # exact: hk, wk are aligned
     pl = {k: _cast(_tensor(planes[k], device), torch.int8) for k in PLANES}
-    cc = _stack(_zero_pad(pl["cb"], chk, cwk), _zero_pad(pl["cr"], chk, cwk))
-    return _decode_u8_padded(p, _zero_pad(pl["y"], hk, wk), cc, cfg, mode).movedim(0, -1)[:h, :w]
+    cc = _stacked(pl["cb"], pl["cr"])
+    if cc is None:
+        cc = _stack(pl["cb"], pl["cr"])
+    y = p._decode_u8_plane(pl["y"], _luma_cfg(cfg))
+    cd = p._decode_u8_plane(cc, _chroma_cfg(cfg))
+    profiling.count("color.u8.direct", 1)
+    return ck.color_merge_direct_u8(y, cd[: c8[0]], cd[c8[0]:], h, w, _mode_name(mode))
 
 
 def _decode_u8_padded(p: Pipeline, y_i8: torch.Tensor, cc_i8: torch.Tensor, cfg: CodecConfig,

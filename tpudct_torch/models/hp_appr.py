@@ -100,6 +100,11 @@ class HpApprPipeline(Pipeline):
                 f"u8 path needs h%32==0, w%128==0 and {why} "
                 f"(got {h}x{w}, q_scale={cfg.q_scale}, transform={cfg.transform})"
             )
+        return self._encode_u8_plane(image_u8, cfg)
+
+    def _encode_u8_plane(self, image_u8, cfg: CodecConfig):
+        """``encode_u8`` without its shape gate: any 8-aligned plane (the
+        u8 colour path, whose gate is on the colour kernel grid)."""
         return hp.hp_encode_u8(
             image_u8.contiguous(), q_scale=cfg.q_scale, q_table=cfg.q_table,
             retain_k=cfg.retain_k, transform=cfg.transform,
@@ -113,6 +118,10 @@ class HpApprPipeline(Pipeline):
                 f"u8 decode path needs h%32==0 and w%128==0, got {h}x{w}; "
                 "use idct() + to_uint8 for other shapes"
             )
+        return self._decode_u8_plane(coeffs_i8, cfg)
+
+    def _decode_u8_plane(self, coeffs_i8, cfg: CodecConfig):
+        """``decode_u8`` without its shape gate: any 8-aligned plane."""
         return hp.hp_decode_u8(
             coeffs_i8.contiguous(), q_scale=cfg.q_scale, q_table=cfg.q_table,
             decode_precision=_decode_prec(cfg), transform=cfg.transform,

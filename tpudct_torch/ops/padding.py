@@ -19,14 +19,20 @@ def padded_shape(h: int, w: int, bs: int = BLOCK_SIZE):
     return ((h + bs - 1) // bs * bs, (w + bs - 1) // bs * bs)
 
 
-def _edge_pad(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+def edge_pad_plain(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
     """Edge-replicate pad the last two dims (..., H, W) -> (..., ph, pw) for
-    any dtype (F.pad's replicate mode takes floating tensors only)."""
+    any dtype (F.pad's replicate mode takes floating tensors only): row
+    min(i, H - 1), column min(j, W - 1)."""
     h, w = x.shape[-2:]
+    rows = torch.arange(ph, device=x.device).clamp_(max=h - 1)
+    cols = torch.arange(pw, device=x.device).clamp_(max=w - 1)
+    return x[..., rows[:, None], cols[None, :]]
+
+
+def _edge_pad(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """:func:`edge_pad_plain` as a pass of the program (a ``pad`` span)."""
     with profiling.span("pad"):
-        rows = torch.arange(ph, device=x.device).clamp_(max=h - 1)
-        cols = torch.arange(pw, device=x.device).clamp_(max=w - 1)
-        return x[..., rows[:, None], cols[None, :]]
+        return edge_pad_plain(x, ph, pw)
 
 
 def pad_to_blocks(x: torch.Tensor, bs: int = BLOCK_SIZE):

@@ -24,8 +24,11 @@ Every name starts with ``PREFIX``; callers pass the rest:
   ``models/color.py`` ``roundtrip_color_auto``, ``encode_color_auto``,
   ``decode_color_auto``), the roots of their calls;
 - ``pad`` (edge and zero pads that copy: ``ops/padding.py``,
-  ``models/color.py`` ``_zero_pad``) and ``layout`` (``_planar_u8``'s
-  copy, the chroma stacks, dtype casts and the bulk merge's interleave);
+  ``models/color.py`` ``_zero_pad``) and ``layout`` (``_u8_frame``'s copy
+  of a frame strided in neither layout, the chroma stacks of planes from
+  separate buffers, dtype casts and the bulk merge's interleave);
+- the counter ``color.u8.direct``: a u8 colour encode or decode that ran
+  the direct split or merge (``models/color.py``), one each;
 - ``to_device``, ``to_host`` and the counter ``bytes.pageable``: a host
   array's copy to the card and a device tensor's copy back, in the port's
   own calls;

@@ -324,9 +324,9 @@ def roundtrip_color_u8_streamed(
     device=None,
 ) -> Tuple[dict, dict, np.ndarray]:
     """(3, H, W) planar uint8 RGB -> (coefficient planes, meta, (H, W, 3)
-    uint8 reconstruction), streamed in row bands through the fused u8
-    color path (``models.color.roundtrip_color_u8``: B8, two B2, two B3,
-    B9 per band).
+    uint8 reconstruction), streamed in row bands through the u8 color
+    path (``models.color.roundtrip_color_u8``: the direct 4:2:0 split, two
+    B2, two B3 and the direct merge per band, at the planes' own shapes).
 
     Bands align to 64 rows so YCbCr conversion (pixel-local), 4:2:0
     pooling (2x2-local) and blockwise coding never cross band edges —
