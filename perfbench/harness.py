@@ -6,9 +6,12 @@ generator, comparison or metric sits in a file of its own, found by name:
 
 - ``BENCHMARK.json`` (the checkout's root): the cells, their metrics;
 - ``cells/<cell>.json``: the traffic mix (driver, generator, pool, warm-up,
-  sample, traced stretch, the limits of the comparison);
+  sample, traced stretch, the limits of the comparison, and the shape the
+  CPU tests run it at);
 - ``configs/<config>.json``: the deployment (shape, codec, floor bytes);
-- ``traffic/<driver>.py``: ``setup(ctx)`` returning the driver;
+- ``traffic/<driver>.py``: ``setup(ctx)`` returning the driver, and what
+  the harness and its tests read of its calls (``ANSWER_FROM``,
+  ``ENTRIES``, ``STAGES``, ``pageable_bytes(config)``);
 - ``inputs/<generator>.py``: ``make(seed, count, shape, device)``;
 - ``compare/<comparison>.py``: ``numbers(answers, source, codec, device)``;
 - ``metrics/<metric>.py``: ``read(run)``, a number or None.
@@ -18,6 +21,15 @@ A driver has ``pixels`` (input pixels per call), ``call(slot)`` returning
 reference) and ``release()`` (drops the system's state).  A call returns
 when its result is where its caller wants it: host arrays or bytes, or
 device tensors after a synchronize.
+
+A traced run reads the port's registry of spans and counters
+(``tpudct_torch.utils.profiling``) over ``REGISTRY_S`` of the cell's
+calls, and its trace's ``min_calls`` at least, at the end of set-up,
+before any profiler has run in the process (a profiler's per-operation
+costs, and on the card what its session leaves behind, would count in the
+host times of the port's spans).  The registry is off again before the
+window, traced or not, so its costs stay out of every reading of the
+window.  An untraced run never turns it on.
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 HERE = ROOT / "perfbench"
 CALL = "call"  # the span around each whole call
 EVENT_RING = 1024  # CUDA event pairs reused in turn
+REGISTRY_S = 5.0  # seconds of calls a traced run reads the port's registry over
 # Top-level modules no run may load: the reference package and JAX.
 FORBIDDEN = ("jax", "jaxlib", "flax", "tpudct")
 
@@ -128,6 +141,9 @@ class Run:
     spans: dict  # host seconds per span over the window
     trace: object  # trace.Trace of the traced stretch, or None
     peaks: dict  # the card's row of peaks.json, or None
+    stages: dict = dataclasses.field(default_factory=dict)  # the driver's STAGES
+    registry: dict | None = None  # the port's registry before a traced run's window
+    registry_calls: int = 0  # the calls it covers
 
 
 class CallTimer:
@@ -210,9 +226,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: torch.de
         raise ValueError(f"cells/{name}.json names {cell['config']!r}, BENCHMARK.json {wl['config']!r}")
     readers = [(m, load("metrics", m["name"])) for m in metrics_of(bench, name, trace)]
     compare = load("compare", cell["compare"])
+    traffic = load("traffic", cell["driver"])
     spans = Spans()
 
-    driver = _set_up(cell, config, seed, trace, device, spans)
+    driver, registry = _set_up(traffic, cell, config, seed, trace, device, spans)
     setup_s = time.perf_counter() - t_start
     w = _window(driver, cell, seconds, trace, seed, device, spans)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
@@ -227,8 +244,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: torch.de
         print(f"host ms per call over {w.calls} calls: {per_call}", file=sys.stderr)
     peaks = json.loads((HERE / "peaks.json").read_text()).get(
         torch.cuda.get_device_name(device) if device.type == "cuda" else "", None)
+    if registry is not None:
+        print(f"port registry over {registry[1]} calls before the window: {len(registry[0]['spans'])} span names",
+              file=sys.stderr)
     run = Run(config, setup_s, w.seconds, w.calls, w.calls * driver.pixels, w.call_ms,
-              w.stats, dict(spans.seconds), tr, peaks)
+              w.stats, dict(spans.seconds), tr, peaks, traffic.STAGES, *(registry or (None, 0)))
     metrics = {}
     for m, reader in readers:
         v = reader.read(run)
@@ -238,7 +258,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: torch.de
     # -- correctness: the sample against the plain reference ----------------
     driver.release()
     source = driver.source
-    del driver, w.prof
+    del driver, run, registry
+    w.prof = None
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -270,19 +291,23 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: torch.de
     return result
 
 
-def _set_up(cell, config, seed, trace, device, spans):
+def _set_up(traffic, cell, config, seed, trace, device, spans):
     """Inputs from the seed, the driver, the warm-up of every shape the
-    cell uses (and, for a traced run, of the profiler); returns the driver
-    with the card's peak memory reset."""
+    cell uses (and, for a traced run, the port's registry over the cell's
+    calls, then the profiler's warm-up); returns the driver, with the
+    card's peak memory reset, and for a traced run the registry's snapshot
+    and its calls."""
     inputs = load("inputs", cell["inputs"]).make(seed, cell["pool"], tuple(config["shape"]), device)
     ctx = Context(device, config, inputs, spans)
-    driver = load("traffic", cell["driver"]).setup(ctx)
+    driver = traffic.setup(ctx)
     ctx.inputs = inputs = None  # a driver keeps what it uses
     kept = []  # as many answers held as the window holds
     for i in range(cell["warmup_calls"]):
         kept = (kept + [driver.call(i % cell["pool"])])[-cell["sample"]:]
-    if trace:  # the profiler's first start (CUPTI's set-up) takes seconds
-        warm = _profiler()
+    registry = None
+    if trace:
+        registry = _read_registry(driver, cell, spans)
+        warm = _profiler()  # the profiler's first start (CUPTI's set-up) takes seconds
         warm.start()
         kept.append(driver.call(0))
         warm.stop()
@@ -296,7 +321,28 @@ def _set_up(cell, config, seed, trace, device, spans):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-    return driver
+    return driver, registry
+
+
+def _read_registry(driver, cell, spans) -> tuple:
+    """The port's registry over the cell's calls for its trace's
+    ``REGISTRY_S`` and its trace's ``min_calls`` at least, each in the
+    span ``CALL`` as ``perfbench/spans.py`` makes them: (snapshot, calls)."""
+    from tpudct_torch.utils import profiling as registry
+
+    registry.reset()
+    registry.enable()
+    n, t0 = 0, time.perf_counter()
+    try:
+        while n < max(1, cell["trace"]["min_calls"]) or time.perf_counter() - t0 < REGISTRY_S:
+            with spans(CALL):
+                driver.call(n % cell["pool"])
+            n += 1
+    finally:
+        registry.disable()
+    snap = registry.snapshot()
+    registry.reset()
+    return snap, n
 
 
 @dataclasses.dataclass

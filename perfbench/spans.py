@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The port's spans and counters over a cell's own traffic: the readings
-that the registry of ``tpudct_torch/utils/profiling.py`` gives, until the
-harness turns it on in its traced runs.
+that the registry of ``tpudct_torch/utils/profiling.py`` gives over a
+loop of calls, beside a traced run's (whose metrics on the registry read
+through ``readings`` here, so that the two cannot drift apart).
 
     python3 perfbench/spans.py --workload <cell> --seed <n> --calls <N> [--profile <M>]
 
@@ -66,23 +67,6 @@ def layout_ms_per_call(annotations, device, calls: int, prefix: str = "tpudct_to
     kernels = [(s, e) for n, s, e in device if tracing.kind(n) in ("kernel", "memset")]
     inside = [(max(s, a), min(e, b)) for a, b in ranges for s, e in kernels if e > a and s < b]
     return tracing.union(inside) / 1e3 / calls
-
-
-def _split_events(prof, prefix: str):
-    """(the port's device-side ranges, every other device interval), each
-    (name, start us, end us), from a profiler's events."""
-    from torch.autograd import DeviceType
-
-    ann, dev = [], []
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        iv = (e.name, float(e.time_range.start), float(e.time_range.end))
-        if e.name.startswith(prefix):
-            ann.append(iv)
-        elif not getattr(e, "is_user_annotation", False):
-            dev.append(iv)
-    return ann, dev
 
 
 def measure(name: str, seed: int, calls: int, profile: int, device, cell=None, config=None) -> dict:
@@ -153,12 +137,10 @@ def measure(name: str, seed: int, calls: int, profile: int, device, cell=None, c
             spans.profiling = False
             prof.stop()
             profiling.disable()
-        ann, dev = _split_events(prof, pre)
         names = set(spans.seconds) | {e.name for e in prof.events() if e.name.startswith(pre)}
         tr = tracing.from_profiler(prof, names, CALL)
-        tr.device = dev
         out.update({"profiled_calls": tr.calls,
-                    "layout_ms_per_call": layout_ms_per_call(ann, dev, tr.calls, pre),
+                    "layout_ms_per_call": layout_ms_per_call(tr.annotations, tr.device, tr.calls, pre),
                     "busy_s": tr.busy_s(), "window_s": tr.window_s,
                     "breakdown": tracing.breakdown(tr) if tr.calls else None})
     driver.release()

@@ -88,6 +88,9 @@ def test_every_cell_resolves_by_name(bench):
         assert cell["sample"] >= 1 and cell["pool"] >= 1 and cell["warmup_calls"] >= 1
         assert set(cell["trace"]) == {"lead_s", "max_s", "min_calls", "max_calls"}
         assert cell["trace"]["lead_s"] < bench["run_seconds"]
+        assert len(cell["test_shape"]) == len(harness.read_json("configs", w["config"])["shape"])
+        traffic = harness.load("traffic", cell["driver"])
+        assert {"ANSWER_FROM", "ENTRIES", "STAGES", "pageable_bytes"} <= set(vars(traffic)), cell["driver"]
         for m in harness.metrics_of(bench, w["name"], False) + harness.metrics_of(bench, w["name"], True):
             assert (harness.HERE / "metrics" / f"{m['name']}.py").is_file(), m["name"]
     assert used == set(configs)

@@ -1,7 +1,7 @@
 """The control of each cell's comparison: the plain reference in the
 system's place, computed in bfloat16 (the precision below the float32 the
-configurations state), has to come out not correct.  On the CPU at a size
-a test run holds; on the card (marked ``card``) at the cell's own size,
+configurations state), has to come out not correct.  On the CPU at the
+cell's ``test_shape``; on the card (marked ``card``) at the cell's own size,
 through ``perfbench/control.py``."""
 
 import json
@@ -13,7 +13,6 @@ import torch
 
 from perfbench import harness
 
-SMALL = {"gray8192": (512, 512), "camera420": (256, 512)}
 CELLS = [w["name"] for w in harness.benchmark()["workloads"]]
 
 
@@ -27,7 +26,7 @@ def _parts(name):
 @pytest.mark.parametrize("seed", [11, 12, 13])
 def test_the_bfloat16_control_fails_a_limit(name, seed):
     cell, config, compare, gen = _parts(name)
-    x = gen.make(seed, 2, SMALL[config["name"]], torch.device("cpu"))
+    x = gen.make(seed, 2, tuple(cell["test_shape"]), torch.device("cpu"))
     answers = [(k, compare.reference_answer(x[k], config["codec"], torch.bfloat16)) for k in range(2)]
     nums = compare.numbers(answers, lambda k: x[k], config["codec"], torch.device("cpu"))
     assert any(v > cell["limits"][k] for k, v in nums.items()), nums
@@ -36,7 +35,7 @@ def test_the_bfloat16_control_fails_a_limit(name, seed):
 @pytest.mark.parametrize("name", CELLS)
 def test_the_float64_reference_in_the_system_place_is_exact(name):
     cell, config, compare, gen = _parts(name)
-    x = gen.make(5, 1, SMALL[config["name"]], torch.device("cpu"))
+    x = gen.make(5, 1, tuple(cell["test_shape"]), torch.device("cpu"))
     nums = compare.numbers([(0, compare.reference_answer(x[0], config["codec"], torch.float64))],
                            lambda k: x[k], config["codec"], torch.device("cpu"))
     assert all(v == 0 for v in nums.values()), nums

@@ -1,7 +1,9 @@
-"""Whole runs of every cell on the CPU at a small size, past the look for a
-card: the system's plain twins on the timed path, the window, the traced
-stretch and the comparison.  Sound runs come out correct; runs with the
-timed path broken underneath come out not correct."""
+"""Whole runs of every cell on the CPU at its ``test_shape``, past the look
+for a card: the system's plain twins on the timed path, the window, the
+traced stretch, the port's registry and the comparison.  Sound runs come
+out correct; runs with the timed path broken underneath come out not
+correct.  What a test needs to know of a cell's calls, its traffic
+driver's module says."""
 
 import time
 
@@ -11,16 +13,27 @@ import torch
 
 from perfbench import harness
 
-SMALL = {"gray8192": [256, 256], "camera420": [128, 512]}
 CELLS = [w["name"] for w in harness.benchmark()["workloads"]]
+WARMUP = 2  # warm-up calls of a small run
+
+
+def traffic_of(name):
+    """The module of the cell's traffic driver."""
+    return harness.load("traffic", harness.read_json("cells", name)["driver"])
+
+
+@pytest.fixture(autouse=True)
+def _short_registry_read(monkeypatch):
+    """A small traced run reads the registry over its one call."""
+    monkeypatch.setattr(harness, "REGISTRY_S", 0.0)
 
 
 def run_small(name, seconds=0.3, trace=False, seed=2**31 + 99):
     bench = harness.benchmark()
     cell = harness.read_json("cells", name)
     config = harness.read_json("configs", harness.workload(bench, name)["config"])
-    config["shape"] = SMALL[config["name"]]
-    cell["warmup_calls"] = 2
+    config["shape"] = cell["test_shape"]
+    cell["warmup_calls"] = WARMUP
     cell["trace"] = dict(cell["trace"], lead_s=0.0, max_s=0.05, min_calls=1)
     return harness.run_cell(name, seed, seconds, trace, torch.device("cpu"), time.perf_counter(),
                             bench=bench, cell=cell, config=config)
@@ -43,18 +56,70 @@ def test_a_traced_run_reports_the_stretch(name):
     assert r["correct"], r["checks"]
     assert r["device"]["window_s"] > 0 and r["device"]["busy_s"] == 0.0  # no device on the CPU
     assert r["breakdown"]["idle_gaps"]
-    if name == "camera420.tdcc":
+    if "entropy" in traffic_of(name).STAGES:
         assert r["metrics"]["entropy_ms_per_call"]["value"] > 0
+    # without a card the device's readers find nothing; every other one reads
+    readable = {m["name"] for m in harness.metrics_of(harness.benchmark(), name, True)
+                if m["source"] != "device_trace"}
+    assert readable <= set(r["metrics"]), readable - set(r["metrics"])
 
 
-# The function of the system whose result each cell's answer reads, and
-# where in that result the decoded pixels and the coefficients are.
-TARGETS = {
-    "gray8192.device": ("tpudct_torch.models.dispatch", "roundtrip_gray", 1, 0),
-    "gray8192.host": ("tpudct_torch.models.dispatch", "decode_gray_auto", None, None),
-    "camera420.device": ("tpudct_torch.models.color", "roundtrip_color_auto", 2, 0),
-    "camera420.tdcc": ("tpudct_torch.models.color", "decode_color_auto", None, None),
-}
+def _capture_runs(monkeypatch) -> list:
+    """Every ``harness.Run`` that the metrics are read from, kept."""
+    runs = []
+
+    class Kept(harness.Run):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            runs.append(self)
+
+    monkeypatch.setattr(harness, "Run", Kept)
+    return runs
+
+
+def _registry_states(monkeypatch, name) -> list:
+    """Whether the port's registry was on, at each call of the port's
+    function that the cell's answer reads."""
+    import importlib
+
+    from tpudct_torch.utils import profiling
+
+    mod_name, attr = traffic_of(name).ANSWER_FROM[:2]
+    mod = importlib.import_module(mod_name)
+    real, seen = getattr(mod, attr), []
+
+    def spy(*a, **k):
+        seen.append(profiling._on)
+        return real(*a, **k)
+
+    monkeypatch.setattr(mod, attr, spy)
+    return seen
+
+
+def test_an_untraced_run_leaves_the_registry_off(monkeypatch):
+    runs, seen = _capture_runs(monkeypatch), _registry_states(monkeypatch, "gray8192.device")
+    r = run_small("gray8192.device", seconds=0.2)
+    assert r["correct"] and seen and not any(seen)
+    (run,) = runs
+    assert run.registry is None and run.registry_calls == 0
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_a_traced_run_hands_the_run_the_registry(name, monkeypatch):
+    from tpudct_torch.utils import profiling
+
+    runs, seen = _capture_runs(monkeypatch), _registry_states(monkeypatch, name)
+    r = run_small(name, trace=True)
+    assert r["correct"], r["checks"]
+    (run,) = runs
+    read, profiled = run.registry_calls, run.trace.calls
+    assert read >= 1 and profiled >= 1 and not profiling._on
+    # off over the warm-up, on over the registry's calls, off from the
+    # profiler's warm-up call on, through the window and its profiled stretch
+    assert seen == [False] * WARMUP + [True] * read + [False] * (len(seen) - WARMUP - read)
+    spans = run.registry["spans"]
+    for entry in traffic_of(name).ENTRIES:
+        assert spans[profiling.PREFIX + "entry." + entry]["count"] == run.registry_calls, entry
 
 
 def _flip_rows(x):
@@ -98,14 +163,14 @@ def _broken(fn, fault, pix, coef):
 
 
 FAULTS = [(n, f) for n in CELLS for f in ("altered", "half_left_out", "stale")
-          ] + [(n, "coefficients_half_left_out") for n in CELLS if TARGETS[n][3] is not None]
+          ] + [(n, "coefficients_half_left_out") for n in CELLS if traffic_of(n).ANSWER_FROM[3] is not None]
 
 
 @pytest.mark.parametrize("name,fault", FAULTS)
 def test_a_broken_timed_path_is_not_correct(monkeypatch, name, fault):
     import importlib
 
-    mod_name, attr, pix, coef = TARGETS[name]
+    mod_name, attr, pix, coef = traffic_of(name).ANSWER_FROM
     mod = importlib.import_module(mod_name)
     monkeypatch.setattr(mod, attr, _broken(getattr(mod, attr), fault, pix, coef))
     r = run_small(name, seconds=0.2)

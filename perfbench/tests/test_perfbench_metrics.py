@@ -72,8 +72,60 @@ def test_readers_find_nothing_without_a_trace():
 
 def test_entropy_spans_per_call():
     spans = {"color_to_bytes": 3.0, "bytes_to_color": 1.0, "encode_color_auto": 9.0}
-    assert _read("entropy_ms_per_call", _run(spans=spans, calls=10)) == pytest.approx(400.0)
-    assert _read("entropy_ms_per_call", _run()) is None
+    stages = {"entropy": ("color_to_bytes", "bytes_to_color")}
+    assert _read("entropy_ms_per_call", _run(spans=spans, calls=10, stages=stages)) == pytest.approx(400.0)
+    assert _read("entropy_ms_per_call", _run(spans=spans, calls=10)) is None  # a driver with no such stage
+    assert _read("entropy_ms_per_call", _run(stages=stages)) is None
+
+
+def test_dispatch_self_time_reads_the_registry_as_spans_py_does():
+    from perfbench import spans as S
+
+    snap = {"spans": {"tpudct_torch.entry.encode_gray_auto": {"count": 4, "total_s": 0.04, "self_s": 0.004,
+                                                              "kept": 0, "kept_s": 0.0},
+                      "tpudct_torch.to_device": {"count": 4, "total_s": 0.03, "self_s": 0.03, "kept": 0,
+                                                 "kept_s": 0.0}},
+            "counters": {}, "records": []}
+    got = _read("dispatch_self_ms_per_call", _run(registry=snap, registry_calls=4))
+    assert got == pytest.approx(1.0) == S.readings(snap, 4)["dispatch_self_ms_per_call"]
+    assert _read("dispatch_self_ms_per_call", _run()) is None  # an untraced run: no snapshot
+    assert _read("dispatch_self_ms_per_call", _run(registry=snap, registry_calls=0)) is None
+    assert _read("dispatch_self_ms_per_call", _run(registry={"spans": {}, "counters": {}}, registry_calls=4)) is None
+
+
+class _Event:
+    def __init__(self, name, start, end, cuda=False, annotation=False):
+        from torch.autograd import DeviceType
+
+        self.name, self.is_user_annotation = name, annotation
+        self.device_type = DeviceType.CUDA if cuda else DeviceType.CPU
+        self.time_range = type("Interval", (), {"start": start, "end": end})()
+
+
+class _Profile:
+    def __init__(self, events):
+        self._events = events
+
+    def events(self):
+        return self._events
+
+
+def test_a_device_side_annotation_is_no_device_time():
+    """A port span's range on the device's timeline, over no kernel, named as
+    no harness span is: kept out of the device's intervals by its kind."""
+    base = [_Event("call", 0.0, 1000.0), _Event("call", 1000.0, 2000.0),
+            _Event("void k_rt_u8<0, 0>(...)", 100.0, 300.0, cuda=True),
+            _Event("Memcpy DtoH (Device -> Pageable)", 1100.0, 1200.0, cuda=True),
+            _Event("tpudct_torch.entry.roundtrip_gray", 10.0, 990.0)]  # the port's host-side range
+    ranges = [_Event("tpudct_torch.entry.roundtrip_gray", 400.0, 900.0, cuda=True, annotation=True),
+              _Event("call", 1300.0, 1900.0, cuda=True, annotation=True)]  # and the harness's
+    plain = tracing.from_profiler(_Profile(base), {"call"}, "call")
+    tr = tracing.from_profiler(_Profile(base + ranges), {"call"}, "call")
+    assert [n for n, _, _ in tr.device] == ["void k_rt_u8<0, 0>(...)", "Memcpy DtoH (Device -> Pageable)"]
+    assert tr.annotations == [("tpudct_torch.entry.roundtrip_gray", 400.0, 900.0), ("call", 1300.0, 1900.0)]
+    assert tr.busy_s() == plain.busy_s() == pytest.approx(300e-6)
+    assert (tr.calls, tr.t0, tr.t1) == (2, 0.0, 2000.0) and len(tr.spans) == 2
+    assert _read("device_idle_pct", _run(trace=tr)) == pytest.approx(100 * (1 - 300 / 2000))
 
 
 def test_breakdown_names_ops_and_the_spans_open_in_each_gap():

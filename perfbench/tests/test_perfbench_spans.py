@@ -1,6 +1,7 @@
 """``perfbench/spans.py``: the readings of the port's registry, on planted
 snapshots and device intervals, and over each cell's traffic on the CPU at
-a small size."""
+its ``test_shape``, with what its traffic driver says a call opens and
+moves."""
 
 import pytest
 import torch
@@ -9,7 +10,6 @@ from perfbench import harness
 from perfbench import spans as S
 
 P = "tpudct_torch."
-SMALL = {"gray8192": [256, 256], "camera420": [128, 512]}
 
 
 def _span(count, total, self_s=None, kept_s=0.0):
@@ -54,22 +54,19 @@ def test_each_cell_reads_its_spans_on_the_cpu(name, monkeypatch):
     bench = harness.benchmark()
     cell = harness.read_json("cells", name)
     config = harness.read_json("configs", harness.workload(bench, name)["config"])
-    config["shape"] = SMALL[config["name"]]
+    config["shape"] = cell["test_shape"]
     cell["warmup_calls"] = 1
+    traffic = harness.load("traffic", cell["driver"])
     r = S.measure(name, 2**31 + 5, 2, 1, torch.device("cpu"), cell=cell, config=config)
-    entry = {"gray8192.device": "roundtrip_gray", "camera420.device": "roundtrip_color_auto",
-             "gray8192.host": "encode_gray_auto", "camera420.tdcc": "encode_color_auto"}[name]
     assert 0 < r["dispatch_self_ms_per_call"] <= r["harness_ms_per_call"][S.CALL]
-    assert r["spans_ms_per_call"][f"entry.{entry}"]["count"] == 1
-    h, w = config["shape"]
-    pageable = {"gray8192.device": None, "camera420.device": None,
-                "gray8192.host": 3 * h * w,  # the image in, int8 coefficients in, the pixels out
-                # the frame in, then the parsed planes in as float32
-                "camera420.tdcc": 3 * h * w + 4 * (h * w + 2 * (h // 2) * (w // 2))}[name]
+    for entry in traffic.ENTRIES:
+        assert r["spans_ms_per_call"][f"entry.{entry}"]["count"] == 1, entry
+    pageable = traffic.pageable_bytes(config)
     assert r["pageable_mib_per_call"] == (None if pageable is None else pageable / 2**20)
     assert (r["staging_ms_per_call"] is None) == (pageable is None)
-    assert (r["entropy_useful_pct"] is None) == (name != "camera420.tdcc")
-    if name == "camera420.tdcc":
+    entropy = "entropy" in traffic.STAGES
+    assert (r["entropy_useful_pct"] is None) == (not entropy)
+    if entropy:
         assert 0 < r["entropy_useful_pct"] < 100
     assert r["profiled_calls"] == 1 and r["layout_ms_per_call"] is None  # no device ranges here
     assert r["breakdown"]["idle_gaps"]

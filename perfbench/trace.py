@@ -3,7 +3,10 @@ intervals, the benchmark's own host spans, and what follows from them.
 
 Device time is the union of the device's intervals (kernels, copies,
 memsets), never their sum: a copy that overlaps a kernel is busy time
-once.  Times here are the profiler's microseconds.
+once.  A user annotation (a ``record_function`` range of the benchmark or
+of the port) also shows on the device's timeline, over the kernels launched
+inside it; it is no device time, and is kept apart by its kind.  Times here
+are the profiler's microseconds.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ class Trace:
     t1: float
     device: list  # (name, start, end) of every device interval
     spans: list  # (name, start, end) of the benchmark's host spans
+    annotations: list = dataclasses.field(default_factory=list)  # device-side user annotations
 
     @property
     def window_s(self) -> float:
@@ -78,24 +82,21 @@ def gaps(intervals, t0: float, t1: float) -> list:
 
 
 def from_profiler(prof, span_names, call_span: str) -> Trace:
-    """The stretch a profiler recorded: device intervals, and the spans whose
-    names are in ``span_names``; the stretch runs from the first
-    ``call_span`` to the end of the last."""
+    """The stretch a profiler recorded: device intervals, device-side user
+    annotations, and the host spans whose names are in ``span_names``; the
+    stretch runs from the first ``call_span`` to the end of the last."""
     from torch.autograd import DeviceType
 
-    device, spans = [], []
+    device, spans, annotations = [], [], []
     for e in prof.events():
-        tr = e.time_range
-        if e.name in span_names:
-            # a span also shows on the device's timeline as an annotation
-            if e.device_type != DeviceType.CUDA:
-                spans.append((e.name, float(tr.start), float(tr.end)))
-        elif e.device_type == DeviceType.CUDA:
-            device.append((e.name, float(tr.start), float(tr.end)))
+        iv = (e.name, float(e.time_range.start), float(e.time_range.end))
+        if e.device_type == DeviceType.CUDA:
+            (annotations if e.is_user_annotation else device).append(iv)
+        elif e.name in span_names:
+            spans.append(iv)
     calls = [(s, e) for n, s, e in spans if n == call_span]
-    if not calls:
-        return Trace(0, 0.0, 0.0, device, spans)
-    return Trace(len(calls), min(s for s, _ in calls), max(e for _, e in calls), device, spans)
+    t0, t1 = (min(s for s, _ in calls), max(e for _, e in calls)) if calls else (0.0, 0.0)
+    return Trace(len(calls), t0, t1, device, spans, annotations)
 
 
 def _innermost(spans, t0: float, t1: float) -> list:

@@ -7,6 +7,16 @@ padding passes around them; no host copies, no entropy stage."""
 from __future__ import annotations
 
 
+# What the harness and its tests read of this driver (see ``gray_device``).
+ANSWER_FROM = ("tpudct_torch.models.color", "roundtrip_color_auto", 2, 0)
+ENTRIES = ("roundtrip_color_auto",)
+STAGES: dict = {}
+
+
+def pageable_bytes(config) -> int | None:
+    return None
+
+
 class Driver:
     def __init__(self, ctx):
         from tpudct_torch import CodecConfig, get_pipeline

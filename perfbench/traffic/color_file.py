@@ -12,6 +12,26 @@ from __future__ import annotations
 import torch
 
 
+# What the harness and its tests read of this driver (see ``gray_device``).
+ANSWER_FROM = ("tpudct_torch.models.color", "decode_color_auto", None, None)
+ENTRIES = ("encode_color_auto", "decode_color_auto")
+STAGES = {"entropy": ("color_to_bytes", "bytes_to_color")}
+SUBSAMPLE = {"420": (2, 2), "422": (1, 2), "444": (1, 1)}
+
+
+def pageable_bytes(config) -> int | None:
+    """The frame in, then the parsed planes in as float32 at their 8-aligned
+    shapes (the RGB out is the driver's own copy)."""
+    h, w = config["shape"]
+    rh, rw = SUBSAMPLE[config["chroma"]]
+    planes = _aligned(h) * _aligned(w) + 2 * _aligned(-(-h // rh)) * _aligned(-(-w // rw))
+    return 3 * h * w + 4 * planes
+
+
+def _aligned(n: int) -> int:
+    return -(-n // 8) * 8
+
+
 class Driver:
     def __init__(self, ctx):
         from tpudct_torch import CodecConfig, get_pipeline

@@ -6,6 +6,24 @@ host copies, no entropy stage."""
 from __future__ import annotations
 
 
+# What the harness and its tests read of this driver besides its calls, so
+# that a cell on it needs no entry of its own in them:
+#: the port's function whose result a call's answer reads, and the places in
+#: that result of the decoded pixels and of the coefficients (None: the
+#: result is the pixels; no coefficients)
+ANSWER_FROM = ("tpudct_torch.models.dispatch", "roundtrip_gray", 1, 0)
+#: the port's entry spans (``entry.<name>``) that a call opens, once each
+ENTRIES = ("roundtrip_gray",)
+#: the harness's spans around each stage of a call, by stage ("entropy": the
+#: serializer and entropy stage), for the metrics that read a stage
+STAGES: dict = {}
+
+
+def pageable_bytes(config) -> int | None:
+    """Bytes a call moves through the port's pageable copies, or None."""
+    return None
+
+
 class Driver:
     def __init__(self, ctx):
         from tpudct_torch import CodecConfig, get_pipeline

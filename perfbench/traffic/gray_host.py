@@ -9,6 +9,18 @@ from __future__ import annotations
 import torch
 
 
+# What the harness and its tests read of this driver (see ``gray_device``).
+ANSWER_FROM = ("tpudct_torch.models.dispatch", "decode_gray_auto", None, None)
+ENTRIES = ("encode_gray_auto", "decode_gray_auto")
+STAGES: dict = {}
+
+
+def pageable_bytes(config) -> int | None:
+    """The image in, its int8 coefficients in for the decode, the pixels out."""
+    h, w = config["shape"]
+    return 3 * h * w
+
+
 class Driver:
     def __init__(self, ctx):
         from tpudct_torch import CodecConfig, get_pipeline
