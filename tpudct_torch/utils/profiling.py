@@ -38,6 +38,10 @@ Every name starts with ``PREFIX``; callers pass the rest:
   (``utils/serialize.py``): ``auto``'s trials, the spectral reorder they
   share, the sampled estimate, the real encode and a plane's decode; the
   spans whose bytes went into the stream are kept;
+- ``entropy.narrow`` and ``entropy.widen`` (``utils/serialize.py``): the
+  container's dtype casts, a map's bound scan and int16 copy on the way in
+  (``_validate_map``) and the decoded map's float32 copy on the way out
+  (``_parse_plane``);
 - ``streaming.<part>`` (``utils/streaming.py``): spans ``stage``, ``wait``,
   ``finish``, ``entropy``; counters of seconds from CUDA events ``h2d``,
   ``kernels``, ``d2h``, ``device_busy``.

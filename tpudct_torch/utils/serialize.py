@@ -576,13 +576,14 @@ def _validate_map(coeffs) -> np.ndarray:
     # sane config (|c| <= ~97/q_scale for the shipped transforms), but an
     # extreme q_scale (e.g. 0.001) CAN overflow — narrowing silently would
     # round-trip 40000.0 as -25536.0.  Refuse instead of corrupting.
-    amax = _abs_bound(cf)
-    if amax > 32767.0 or not np.isfinite(amax):
-        raise ValueError(
-            f"coefficient magnitude {amax} exceeds the .tdc int16 range "
-            "(32767); raise q_scale or store the float map yourself"
-        )
-    c = np.ascontiguousarray(cf, dtype=np.int16)
+    with profiling.span("entropy.narrow"):
+        amax = _abs_bound(cf)
+        if amax > 32767.0 or not np.isfinite(amax):
+            raise ValueError(
+                f"coefficient magnitude {amax} exceeds the .tdc int16 range "
+                "(32767); raise q_scale or store the float map yourself"
+            )
+        c = np.ascontiguousarray(cf, dtype=np.int16)
     h, w = c.shape
     if h % _BS or w % _BS:
         raise ValueError(f"coefficient map {h}x{w} is not block-aligned")
@@ -719,8 +720,10 @@ def _parse_plane(data: bytes) -> tuple:
         from tpudct_torch.constants import register_q_table
 
         q_table = register_q_table(custom_q)
+    with profiling.span("entropy.widen"):
+        coeffs = coeffs.astype(np.float32)
     plane = {
-        "coeffs": coeffs.astype(np.float32),
+        "coeffs": coeffs,
         "orig_shape": (oh or h, ow or w),
         "q_scale": float(q_scale),
         "retain_k": None if retain_k < 0 else retain_k,
