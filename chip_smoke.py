@@ -48,7 +48,11 @@ variants) from ``tpudct_torch/csrc`` and, in order:
      frame and 8192^2, interleaved and planar, every mode, and
      roundtrip_color_u8's planes and RGB bit for bit against the grid's
      chain (edge pad, B8-B13, the codec on the grid planes, crops, zero
-     pads); then the three ring kernels at 512^2 (n = 8) and 8192^2
+     pads); then the u8 colour path's two chain calls against the six
+     per-kernel wrappers' chain, planes, RGB and launch counts bit for
+     bit, at the camera frame, a ragged 4031x3023 frame and the camera
+     frame at a 1-byte offset, interleaved and planar, every mode; then
+     the three ring kernels at 512^2 (n = 8) and 8192^2
      (n = 1, 2, 4, 8 virtual ranks on the card): one slot of each against
      its twin, and every rank's outputs of ring_all_gather,
      ring_decode_gather and ring_decode_color_gather bit-identical to the
@@ -671,6 +675,7 @@ def phase_compare(dev) -> dict:
     _check_pinned_precision(dev)
     _compare_color(dev, errs)
     _compare_color_direct(dev, errs)
+    _compare_color_chain(dev)
     _compare_ring(dev, errs)
     _compare_copy_edges(dev, errs)
     _compare_study(dev, errs)
@@ -1217,6 +1222,98 @@ def _compare_color_direct(dev, errs: dict) -> None:
                 _equal(f"roundtrip_color_u8 {tag} RGB vs the grid's chain", rec, want_rec.contiguous())
         print(f"  {label}: the direct split and merge bit-identical to their twins, and roundtrip_color_u8's "
               f"planes and RGB to the grid's chain, interleaved and planar, 4:2:0, 4:2:2 and 4:4:4")
+
+
+def _launch_counts() -> dict:
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.kernels import hp
+
+    return {**ck.LAUNCHES, **hp.LAUNCHES}
+
+
+def _launch_delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _launch_counts().items() if v != before[k]}
+
+
+def _wrapper_chain(p, cfg, x, layout: str, mode: str) -> tuple:
+    """(planes, RGB, launches) of the u8 colour roundtrip through the six
+    per-kernel wrappers, as ``models/color.py`` ran it before its two chain
+    calls: the direct split, ``hp_encode_u8`` on luma and on the stacked
+    chroma, ``hp_decode_u8`` on each, the direct merge."""
+    from tpudct_torch.kernels import color as ck
+    from tpudct_torch.models import color as mc
+
+    h, w = x.shape[:2] if layout == "interleaved" else x.shape[1:]
+    before = _launch_counts()
+    y, cc = ck.color_split_direct_u8(x, mode, layout)
+    cy = p._encode_u8_plane(y, mc._luma_cfg(cfg))
+    ccq = p._encode_u8_plane(cc, mc._chroma_cfg(cfg))
+    half = ccq.shape[0] // 2
+    yd = p._decode_u8_plane(cy, mc._luma_cfg(cfg))
+    cd = p._decode_u8_plane(ccq, mc._chroma_cfg(cfg))
+    rgb = ck.color_merge_direct_u8(yd, cd[:half], cd[half:], h, w, mode)
+    return {"y": cy, "cb": ccq[:half], "cr": ccq[half:]}, rgb, _launch_delta(before)
+
+
+def _offset_frame(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x`` that starts one byte into its allocation (the
+    direct kernels' byte accesses, ``align`` 1)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _compare_color_chain(dev) -> None:
+    """The u8 colour path's two chain calls (``color_encode_u8_chain_launch``,
+    ``color_decode_u8_chain_launch``: ``roundtrip_color_u8``,
+    ``roundtrip_color_auto``, ``encode_color_u8`` and ``decode_color_u8`` on a
+    card) against the six-wrapper chain: planes and RGB bit for bit and
+    the same ``LAUNCHES`` deltas, on the camera frame, a ragged 4031x3023
+    frame and the camera frame at a 1-byte offset, interleaved and planar,
+    4:2:0, 4:2:2 and 4:4:4; and planes from separate buffers through
+    ``decode_color_u8`` (the chroma stacked by one copy)."""
+    from tpudct_torch import CodecConfig, get_pipeline
+    from tpudct_torch.models import color as mc
+
+    p, cfg = get_pipeline("hp"), CodecConfig()
+    cam = torch.as_tensor(_camera_rgb(*COLOR_FRAME), device=dev)
+    frames = [("x".join(map(str, COLOR_FRAME)) + " camera frame", cam, False),
+              ("4031x3023 ragged frame", _rgb_noise(4031, 3023, seed=63, dev=dev).movedim(0, -1).contiguous(),
+               False),
+              ("camera frame at a 1-byte offset", cam, True)]
+    n = 0
+    for label, hwc, offset in frames:
+        for layout, x in (("interleaved", hwc), ("planar", hwc.movedim(-1, 0).contiguous())):
+            if offset:
+                x = _offset_frame(x)
+                if x.data_ptr() % 16 == 0:
+                    _fail(f"{label}: the frame is 16-byte aligned")
+            for mode in COLOR_MODES:
+                sub = False if mode == "444" else mode
+                tag = f"{label} {layout} {mode}"
+                want, want_rgb, want_n = _wrapper_chain(p, cfg, x, layout, mode)
+                before = _launch_counts()
+                planes, meta, rgb = mc.roundtrip_color_u8(p, x, cfg, subsample=sub)
+                got_n = _launch_delta(before)
+                if got_n != want_n:
+                    _fail(f"roundtrip_color_u8 {tag}: launches {got_n}, the wrappers' {want_n}")
+                auto = mc.roundtrip_color_auto(p, x, cfg, subsample=sub)
+                enc, meta2 = mc.encode_color_u8(p, x, cfg, subsample=sub)
+                apart = {k: v.clone() for k, v in planes.items()}
+                for k in mc.PLANES:
+                    _equal(f"roundtrip_color_u8 {tag} plane {k} vs the wrappers' chain", planes[k], want[k])
+                    _equal(f"roundtrip_color_auto {tag} plane {k} vs the wrappers' chain", auto[0][k], want[k])
+                    _equal(f"encode_color_u8 {tag} plane {k} vs the wrappers' chain", enc[k], want[k])
+                for what, got in (("roundtrip_color_u8", rgb), ("roundtrip_color_auto", auto[2]),
+                                  ("decode_color_u8", mc.decode_color_u8(p, enc, meta2, cfg)),
+                                  ("decode_color_u8 of separate planes", mc.decode_color_u8(p, apart, meta, cfg))):
+                    _equal(f"{what} {tag} RGB vs the wrappers' chain", got, want_rgb)
+                n += 1
+        print(f"  {label}: the two chain calls' planes and RGB bit-identical to the six wrappers' chain, "
+              f"the same launches, interleaved and planar, 4:2:0, 4:2:2 and 4:4:4")
+    torch.cuda.synchronize()
+    print(f"  colour chains: {n} of {n} frame, layout and mode cases bit-identical to the wrappers' chain")
 
 
 def _compare_color_codec(label: str, mode: str, planes, errs: dict, scaled: bool) -> None:

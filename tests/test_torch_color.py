@@ -685,23 +685,176 @@ def test_direct_wrappers_refuse_what_they_cannot_read():
         K.color_split_direct_u8(torch.zeros((0, 5, 3), dtype=torch.uint8))
 
 
+def _registry(fn):
+    """(fn(), the registry's snapshot of it): the registry on and reset
+    around the call."""
+    from tpudct_torch.utils import profiling
+
+    profiling.reset()
+    profiling.enable()
+    try:
+        return fn(), profiling.snapshot()
+    finally:
+        profiling.disable()
+        profiling.reset()
+
+
 def test_direct_roundtrip_opens_no_pad_or_layout_span():
     """entry.roundtrip_color_auto on a u8 frame: no ``pad`` or ``layout``
-    span under it, and ``color.u8.direct`` counts the encode and the
-    decode."""
+    span under it (and no other span), ``color.u8.direct`` counts the
+    encode and the decode, and the call looks up one plan."""
     from tpudct_torch.utils import profiling
 
     p, cfg = _pair()[0], _cfgs()[0]
     rgb = torch.as_tensor(_smooth_rgb(100, 300))
-    profiling.reset()
-    profiling.enable()
-    try:
-        C.roundtrip_color_auto(p, rgb, cfg)
-        snap = profiling.snapshot()
-    finally:
-        profiling.disable()
-        profiling.reset()
+    C._u8_plan.cache_clear()
+    _out, snap = _registry(lambda: C.roundtrip_color_auto(p, rgb, cfg))
     names = set(snap["spans"])
-    assert profiling.PREFIX + "entry.roundtrip_color_auto" in names
+    assert names == {profiling.PREFIX + "entry.roundtrip_color_auto"}
     assert not {profiling.PREFIX + "pad", profiling.PREFIX + "layout"} & names
-    assert snap["counters"] == {profiling.PREFIX + "color.u8.direct": 2}
+    assert snap["counters"] == {profiling.PREFIX + "color.u8.direct": 2,
+                                profiling.PREFIX + "color.u8.plan.miss": 1}
+
+
+# ---- the u8 path's plans --------------------------------------------------------
+
+
+@pytest.mark.parametrize("kw", [{}, {"q_scale": 0.5}, {"q_scale": 0.8}, {"deadzone": 0.35},
+                                {"transform": "dct"}, {"transform": "wht"}])
+def test_u8_plan_verdict_and_shapes_match_the_gate(kw):
+    """A plan's verdict is supports_color_u8 on the kernel grid, for every
+    mode, layout, ragged and aligned shape and configuration the gate's
+    test covers (the batched pipeline refused); its plane shapes are the
+    8-aligned true plane shapes; _u8_eligible reads it, on a hit as on a
+    miss."""
+    from tpudct_torch.ops.padding import padded_shape
+
+    p, cfg = _pair()[0], _cfgs(**kw)[0]
+    bp = _pair("batched")[0]
+    C._u8_plan.cache_clear()
+    for mode in ("420", "422", False, True, "444"):
+        m = C.normalize_subsample(mode)
+        for h in (32, 64, 100, 4032, 8192):
+            for w in (256, 300, 3024, 3072):
+                want = C.supports_color_u8(p, cfg, *C.color_kernel_shape(h, w), mode)
+                for layout, shape in (("interleaved", (h, w, 3)), ("planar", (3, h, w))):
+                    plan = C._u8_plan(p, h, w, layout, m, cfg)
+                    assert plan.ok == want and plan.layout == layout and plan.mode == m
+                    assert plan.y8 == padded_shape(h, w)
+                    assert plan.c8 == padded_shape(*C._chroma_plane_shape(m, h, w))
+                    assert plan.chroma == C._chroma_plane_shape(m, h, w)
+                    assert plan.lcfg == C._luma_cfg(cfg) and plan.ccfg == C._chroma_cfg(cfg)
+                    frame = np.broadcast_to(np.zeros((), np.uint8), shape)
+                    assert C._u8_eligible(p, frame, cfg, mode) == want
+                    assert C._u8_eligible(p, frame, cfg, mode) == want
+                    assert not C._u8_plan(bp, h, w, layout, m, cfg).ok
+
+
+def test_u8_plan_keeps_the_refusals():
+    """A refusal is raised with its type and text on a plan's hit as on its
+    miss: the gate's in encode_color_u8, the plane shapes' in
+    decode_color_u8, an unknown mode's before any plan."""
+    p, cfg = _pair()[0], _cfgs()[0]
+    C._u8_plan.cache_clear()
+    texts = []
+    for _ in range(2):
+        with pytest.raises(ValueError) as e:
+            C.encode_color_u8(p, np.zeros((64, 256, 3), np.uint8), _cfgs(q_scale=0.25)[0], device="cpu")
+        texts.append(str(e.value))
+    assert texts[0] == texts[1] and texts[0].startswith("u8 color path unsupported for 64x256 subsample=True")
+    planes, meta = C.encode_color_u8(p, _smooth_rgb(64, 256), cfg, device="cpu")
+    bad = {**planes, "cb": torch.zeros((40, 128), dtype=torch.int8)}
+    texts = []
+    for _ in range(2):
+        with pytest.raises(ValueError) as e:
+            C.decode_color_u8(p, bad, meta, cfg, device="cpu")
+        texts.append(str(e.value))
+    assert texts[0] == texts[1] and texts[0].startswith("u8 decode expects 8-aligned planes")
+    with pytest.raises(ValueError, match="unknown chroma subsampling"):
+        C.roundtrip_color_auto(p, np.zeros((64, 256, 3), np.uint8), cfg, subsample="411", device="cpu")
+    with pytest.raises(ValueError, match="unknown transform"):
+        C.encode_color_auto(p, np.zeros((64, 256, 3), np.uint8), tpudct_torch.CodecConfig(transform="x"),
+                            device="cpu")
+
+
+@pytest.mark.parametrize("change", ["shape", "layout", "mode", "q_scale"])
+def test_u8_plan_counts_a_miss_then_hits(change):
+    """With the registry on, the first call on a frame shape counts one
+    ``color.u8.plan.miss`` and the next ones ``hit``s (one lookup a
+    roundtrip), with the same planes and RGB; a new shape, layout, mode or
+    q_scale counts a new miss."""
+    from tpudct_torch.utils import profiling
+
+    p, cfg = _pair()[0], _cfgs()[0]
+    hwc = torch.as_tensor(_smooth_rgb(64, 256))
+    other = {
+        "shape": (torch.as_tensor(_smooth_rgb(72, 256)), cfg, "420"),
+        "layout": (hwc.movedim(-1, 0).contiguous(), cfg, "420"),
+        "mode": (hwc, cfg, "422"),
+        "q_scale": (hwc, _cfgs(q_scale=2.0)[0], "420"),
+    }[change]
+    C._u8_plan.cache_clear()
+    miss, hit = profiling.PREFIX + "color.u8.plan.miss", profiling.PREFIX + "color.u8.plan.hit"
+
+    def calls():
+        return [C.roundtrip_color_auto(p, x, c, subsample=m)
+                for x, c, m in ((hwc, cfg, "420"), (hwc, cfg, "420"), (hwc, cfg, "420"), other)]
+
+    outs, snap = _registry(calls)
+    assert snap["counters"][miss] == 2 and snap["counters"][hit] == 2
+    for planes, _meta, rgb in outs[1:3]:
+        assert all(torch.equal(planes[k], outs[0][0][k]) for k in C.PLANES)
+        assert torch.equal(rgb, outs[0][2])
+    (planes, meta, rgb), _ = _registry(lambda: C.roundtrip_color_u8(p, *other[:2], subsample=other[2]))
+    assert all(torch.equal(planes[k], outs[3][0][k]) for k in C.PLANES) and torch.equal(rgb, outs[3][2])
+
+
+@pytest.mark.parametrize("layout", ("interleaved", "planar"))
+@pytest.mark.parametrize("mode", MODES)
+def test_chain_calls_carry_the_wrappers_arguments(monkeypatch, mode, layout):
+    """The two chain calls a card makes: the arity of their C signatures,
+    the scratch planes' offsets, the frame's alignment, the wrappers' core
+    ids and tables (by address) for each plane's table, and ``LAUNCHES``
+    advanced as the six wrappers advance it (read here on CPU tensors,
+    with the native call recorded instead of made)."""
+    from tpudct_torch.kernels import _build
+    from tpudct_torch.kernels import hp
+
+    calls = []
+    monkeypatch.setattr(C, "_chain", lambda name, dev, *args: calls.append((name, args)))
+    p, cfg = _pair()[0], _cfgs(q_scale=1.5, retain_k=6)[0]
+    h, w = 98, 296
+    x = torch.as_tensor(_rgb((h, w, 3), 5))
+    if layout == "planar":
+        x = x.movedim(-1, 0).contiguous()
+    plan = C._u8_plan(p, h, w, layout, _SUBSAMPLE[mode] or False, cfg)
+    (yh, yw), (ch, cw) = plan.y8, plan.c8
+    scratch = C._scratch(plan, x.device)
+    assert scratch.numel() == yh * yw + 2 * ch * cw
+    before = {**K.LAUNCHES, **hp.LAUNCHES}
+    cy, ccq = C._encode_chain(plan, x, h, w, scratch)
+    out = C._decode_chain(plan, cy, ccq, h, w, scratch)
+    after = {**K.LAUNCHES, **hp.LAUNCHES}
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        f"color_split_direct_{mode}": 1, "hp_encode_u8": 2, "hp_decode_u8": 2,
+        f"color_merge_direct_{mode}": 1}
+    assert cy.shape == (yh, yw) and ccq.shape == (2 * ch, cw) and out.shape == (h, w, 3)
+    s = scratch.data_ptr()
+    (enc, ea), (dec, da) = calls
+    assert (enc, dec) == ("color_encode_u8_chain_launch", "color_decode_u8_chain_launch")
+    assert len(ea) + 2 == len(_build._SIGNATURES[enc]) and len(da) + 2 == len(_build._SIGNATURES[dec])
+    hwc = layout == "interleaved"
+    rh, rw = K.WINDOWS[mode]
+    assert ea[:13] == (x.data_ptr(), s, s + yh * yw, cy.data_ptr(), ccq.data_ptr(), h, w, rh, rw,
+                       int(hwc), K._align(x, 3 * w if hwc else w),
+                       hp._core_of("haweel", "luma", 1.5, 6, "butterfly", True)[0],
+                       hp._core_of("haweel", "chroma", 1.5, 6, "butterfly", True)[0])
+    assert ea[13:] == (K._consts().ctypes.data,
+                       hp._args("haweel", "luma", 1.5, 6, "butterfly", True).packed.ctypes.data,
+                       hp._args("haweel", "chroma", 1.5, 6, "butterfly", True).packed.ctypes.data)
+    assert da[:12] == (cy.data_ptr(), ccq.data_ptr(), s, s + yh * yw, out.data_ptr(), h, w, rh, rw,
+                       K._align(out, 3 * w), hp._core_of("haweel", "luma", 1.5, None, "butterfly", False)[1],
+                       hp._core_of("haweel", "chroma", 1.5, None, "butterfly", False)[1])
+    assert da[12:] == (K._consts().ctypes.data,
+                       hp._args("haweel", "luma", 1.5, None, "butterfly", False).packed.ctypes.data,
+                       hp._args("haweel", "chroma", 1.5, None, "butterfly", False).packed.ctypes.data)

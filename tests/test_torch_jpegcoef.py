@@ -35,10 +35,11 @@ CODECS = ("auto", "auto-exact", "spectral", "huffman", "rans", "xz", "raw", "ban
 def _clear_table_caches() -> None:
     from tpudct.kernels import hp_pallas
     from tpudct_torch.kernels import hp, strip420, study
+    from tpudct_torch.models import color
 
     for fn in (hp_pallas._max_coeff, hp_pallas._consts_int, hp_pallas._consts_bf, hp_pallas._consts_f32,
                hp._max_coeff, hp.kernel_constants, hp._args, hp._core_of, study.encode_args,
-               strip420.strip_args):
+               strip420.strip_args, color._u8_plan):
         fn.cache_clear()
 
 
@@ -105,6 +106,19 @@ def _same_read(a: dict, b: dict) -> None:
         assert x["map"].dtype == y["map"].dtype and x["qtab"].dtype == y["qtab"].dtype
         np.testing.assert_array_equal(x["map"], y["map"])
         np.testing.assert_array_equal(x["qtab"], y["qtab"])
+
+
+def test_registries_reset_the_colour_plans(registries):
+    """The fixture clears the u8 colour path's plans with the caches keyed
+    by table names: a plan holds the tables it launches with."""
+    from tpudct_torch import CodecConfig, get_pipeline
+    from tpudct_torch.models import color
+
+    assert not color._PLANS
+    color._u8_plan(get_pipeline("hp"), 64, 256, "interleaved", "420", CodecConfig()).encoder()
+    assert color._PLANS
+    _clear_table_caches()
+    assert not color._PLANS
 
 
 @pytest.mark.parametrize("name,samps", [

@@ -29,7 +29,12 @@
 // put around B8-B13: the edge pad to the grid (an index gather over the
 // whole frame), the HWC -> CHW copy, the Cb/Cr concatenation, the zero pads
 // of the coefficient planes back to the grid and the crop of the merged
-// frame.
+// frame.  Two chains run them with hp_codec.cu's B2 and B3, the u8 colour
+// path's encode and decode in one call each (models/color.py on a card):
+//   color_encode_u8_chain_launch  the direct split, B2 on luma, B2 on the
+//                                 stacked chroma
+//   color_decode_u8_chain_launch  B3 on luma, B3 on the stacked chroma, the
+//                                 direct merge
 //
 // Value chain (the reference's, rounding included):
 //   split  Y = (19595 r + 38470 g + 7471 b + 32768) >> 16 in int32 (exact);
@@ -473,7 +478,24 @@ void split_direct(const void* rgb, void* y, void* cc, const Frame& f, int rh, in
     split<1, 1, kAddr>(rgb, y, cc, cr, f, k, s);
 }
 
+// The direct merge of an interleaved frame, by chroma window.
+void merge_direct(const void* y, const void* cb, const void* cr, void* out, const Frame& f, int rh,
+                  int rw, const ColorConsts& k, cudaStream_t s) {
+  if (rh == 2)
+    merge<2, 2, Merge::kTrunc, Addr::kHWC>(y, cb, cr, out, f, k, s);
+  else if (rw == 2)
+    merge<1, 2, Merge::kTrunc, Addr::kHWC>(y, cb, cr, out, f, k, s);
+  else
+    merge<1, 1, Merge::kTrunc, Addr::kHWC>(y, cb, cr, out, f, k, s);
+}
+
 }  // namespace
+
+// hp_codec.cu's B2 and B3 on the current device, for the colour chains.
+int hp_encode_u8_enqueue(const void* img, void* coef, int h, int w, int core, const void* consts,
+                         cudaStream_t s);
+int hp_decode_u8_enqueue(const void* coef, void* rec, int h, int w, void* fwd, int core,
+                         const void* consts, cudaStream_t s);
 
 // ---- C interface -------------------------------------------------------------
 // Pointers are device pointers (16-byte aligned, contiguous) except `consts`,
@@ -487,7 +509,16 @@ void split_direct(const void* rgb, void* y, void* cc, const Frame& f, int rh, in
 // `align` is 16 where it and the row pitch are 16-byte aligned, else 1, and
 // is refused where it does not hold.  The variant launchers are 4:2:0 only and
 // take the study's variant number: merge 1 (V1) or 12 (V12), split 5 (V5);
-// any other is refused with cudaErrorInvalidValue.  Each function returns a cudaError_t
+// any other is refused with cudaErrorInvalidValue.  The two chain launchers
+// are the u8 colour path's six launches in one call each, on one stream, in
+// the order and with the instances of the wrappers' chain: the encode runs
+// the direct split of `rgb` into y and cc (Cb's rows above Cr's, scratch),
+// then hp_codec.cu's B2 on y into cy (`core_y`, the `luma` HpConsts) and on
+// cc into ccq (`core_c`, `chroma`); the decode runs B3 on cy into y and on
+// ccq into cc (`inv_y`, `inv_c`: B3's `core`), then the direct merge of y
+// and cc into `out`.  They return the first error: a refused frame launches
+// nothing, a refused core id stops the chain at its launch.  Each function
+// returns a cudaError_t
 // value (0 = ok) after checking the launch (hp_error_string in hp_codec.cu
 // names it); it neither synchronizes nor allocates.
 
@@ -550,14 +581,48 @@ int color_merge_direct_launch(const void* y, const void* cb, const void* cr, voi
     return static_cast<int>(cudaErrorInvalidValue);
   int err = static_cast<int>(cudaSetDevice(device));
   if (err) return err;
+  merge_direct(y, cb, cr, out, f, rh, rw, *static_cast<const ColorConsts*>(consts),
+               static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int color_encode_u8_chain_launch(const void* rgb, void* y, void* cc, void* cy, void* ccq, int h,
+                                 int w, int rh, int rw, int hwc, int align, int core_y, int core_c,
+                                 const void* consts, const void* luma, const void* chroma,
+                                 void* stream, int device) {
+  Frame f;
+  const long long pitch = hwc ? 3LL * w : w;
+  if (!window_ok(rh, rw) || h <= 0 || w <= 0 || !direct_frame(h, w, rh, rw, align, rgb, pitch, f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = static_cast<int>(cudaSetDevice(device));
+  if (err) return err;
   const auto s = static_cast<cudaStream_t>(stream);
   const ColorConsts& k = *static_cast<const ColorConsts*>(consts);
-  if (rh == 2)
-    merge<2, 2, Merge::kTrunc, Addr::kHWC>(y, cb, cr, out, f, k, s);
-  else if (rw == 2)
-    merge<1, 2, Merge::kTrunc, Addr::kHWC>(y, cb, cr, out, f, k, s);
+  if (hwc)
+    split_direct<Addr::kHWC>(rgb, y, cc, f, rh, rw, k, s);
   else
-    merge<1, 1, Merge::kTrunc, Addr::kHWC>(y, cb, cr, out, f, k, s);
+    split_direct<Addr::kCHW>(rgb, y, cc, f, rh, rw, k, s);
+  err = static_cast<int>(cudaGetLastError());
+  if (!err) err = hp_encode_u8_enqueue(y, cy, f.yh, f.yw, core_y, luma, s);
+  if (!err) err = hp_encode_u8_enqueue(cc, ccq, 2 * f.ch, f.cw, core_c, chroma, s);
+  return err;
+}
+
+int color_decode_u8_chain_launch(const void* cy, const void* ccq, void* y, void* cc, void* out, int h,
+                                 int w, int rh, int rw, int align, int inv_y, int inv_c,
+                                 const void* consts, const void* luma, const void* chroma,
+                                 void* stream, int device) {
+  Frame f;
+  if (!window_ok(rh, rw) || h <= 0 || w <= 0 || !direct_frame(h, w, rh, rw, align, out, 3LL * w, f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = static_cast<int>(cudaSetDevice(device));
+  if (err) return err;
+  const auto s = static_cast<cudaStream_t>(stream);
+  err = hp_decode_u8_enqueue(cy, y, f.yh, f.yw, nullptr, inv_y, luma, s);
+  if (!err) err = hp_decode_u8_enqueue(ccq, cc, 2 * f.ch, f.cw, nullptr, inv_c, chroma, s);
+  if (err) return err;
+  const void* cr = static_cast<const uint8_t*>(cc) + static_cast<long long>(f.ch) * f.cw;  // Cr below Cb
+  merge_direct(y, cc, cr, out, f, rh, rw, *static_cast<const ColorConsts*>(consts), s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -231,6 +231,34 @@ __global__ void k_idct(const float* __restrict__ coef, float* __restrict__ rec, 
 
 }  // namespace
 
+// B2 and B3 on the caller's stream of the current device, without the device
+// prologue: the extern "C" launchers below after theirs, and color_codec.cu's
+// u8 colour chains between the direct split and merge (one cudaSetDevice per
+// chain).  Arguments as the launchers'; a cudaError_t value.
+int hp_encode_u8_enqueue(const void* img, void* coef, int h, int w, int core, const void* consts,
+                         cudaStream_t s) {
+  using Kernel = decltype(&k_encode_u8<0>);
+  static const Kernel kernels[kCores] = {k_encode_u8<0>, k_encode_u8<1>, k_encode_u8<2>, k_encode_u8<3>};
+  if (core < 0 || core >= kCores || h <= 0 || w <= 0 || h % 8 || w % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  kernels[core]<<<grid_for(h, w), kThreads, 0, s>>>(static_cast<const uint8_t*>(img),
+                                                    static_cast<int8_t*>(coef), h, w, consts_of(consts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int hp_decode_u8_enqueue(const void* coef, void* rec, int h, int w, void* fwd, int core,
+                         const void* consts, cudaStream_t s) {
+  using Kernel = decltype(&k_decode_u8<kDense>);
+  static const Kernel kernels[1 + kCores] = {k_decode_u8<kDense>, k_decode_u8<0>, k_decode_u8<1>,
+                                             k_decode_u8<2>, k_decode_u8<3>};
+  if (core < kDense || core >= kCores || h <= 0 || w <= 0 || h % 8 || w % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  kernels[core - kDense]<<<grid_for(h, w), kThreads, 0, s>>>(
+      static_cast<const int8_t*>(coef), static_cast<int8_t*>(fwd), static_cast<uint8_t*>(rec), h,
+      w, consts_of(consts));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---- C interface -------------------------------------------------------------
 // Pointers are device pointers except `consts`, a host pointer to 320 floats
 // laid out as HpConsts.  hp_decode_u8_launch's `fwd` is null, or where to copy
@@ -263,28 +291,18 @@ int hp_rt_u8_launch(const void* img, void* coef, void* rec, int h, int w, int co
 
 int hp_encode_u8_launch(const void* img, void* coef, int h, int w, int core, const void* consts,
                         void* stream, int device) {
-  using Kernel = decltype(&k_encode_u8<0>);
-  static const Kernel kernels[kCores] = {k_encode_u8<0>, k_encode_u8<1>, k_encode_u8<2>, k_encode_u8<3>};
   if (core < 0 || core >= kCores) return static_cast<int>(cudaErrorInvalidValue);
   int err = prologue(device, h, w);
   if (err) return err;
-  kernels[core]<<<grid_for(h, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(img), static_cast<int8_t*>(coef), h, w, consts_of(consts));
-  return static_cast<int>(cudaGetLastError());
+  return hp_encode_u8_enqueue(img, coef, h, w, core, consts, static_cast<cudaStream_t>(stream));
 }
 
 int hp_decode_u8_launch(const void* coef, void* rec, int h, int w, void* fwd, int core,
                         const void* consts, void* stream, int device) {
-  using Kernel = decltype(&k_decode_u8<kDense>);
-  static const Kernel kernels[1 + kCores] = {k_decode_u8<kDense>, k_decode_u8<0>, k_decode_u8<1>,
-                                             k_decode_u8<2>, k_decode_u8<3>};
   if (core < kDense || core >= kCores) return static_cast<int>(cudaErrorInvalidValue);
   int err = prologue(device, h, w);
   if (err) return err;
-  kernels[core - kDense]<<<grid_for(h, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(coef), static_cast<int8_t*>(fwd), static_cast<uint8_t*>(rec), h,
-      w, consts_of(consts));
-  return static_cast<int>(cudaGetLastError());
+  return hp_decode_u8_enqueue(coef, rec, h, w, fwd, core, consts, static_cast<cudaStream_t>(stream));
 }
 
 int hp_rt_f32_launch(const void* img, void* coef, void* rec, int h, int w, int literal,

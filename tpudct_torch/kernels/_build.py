@@ -54,6 +54,8 @@ _SIGNATURES = {
     "color_merge_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I),
     "color_split_direct_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I),
     "color_merge_direct_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I),
+    "color_encode_u8_chain_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I),
+    "color_decode_u8_chain_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I),
     "color_split_variant_launch": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I),
     "color_merge_variant_launch": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I),
     "ring_forward_launch": (_P, _P, _L, _P, _I),

@@ -16,7 +16,11 @@ Two paths, chosen as the reference chooses them:
   ``hp_encode_u8``, and back through two ``hp_decode_u8`` launches and one
   direct merge kernel writing the interleaved frame, every plane at its
   true size rounded up to 8; the gate is the reference's, on the (64, 256)
-  kernel grid.
+  kernel grid.  What the path decides for a frame shape (the gate, the
+  plane shapes, the tables) is worked out once and kept (``_u8_plan``);
+  on a card the encode's three launches and the decode's three are one
+  native call each (``color_codec.cu``'s chain launchers), a CPU tensor
+  runs the wrappers' plain twins.
 
 The ``_auto`` helpers pick the u8 path where the input and the geometry
 allow it, the bulk helpers stack same-width frames into one pass.  Host
@@ -38,9 +42,11 @@ import torch
 import torch.nn.functional as F
 
 from tpudct_torch.config import CodecConfig
+from tpudct_torch.kernels import _build
 from tpudct_torch.kernels import color as ck
 from tpudct_torch.kernels import hp
 from tpudct_torch.models.base import Pipeline
+from tpudct_torch.models.hp_appr import _decode_prec
 from tpudct_torch.models.dispatch import (
     _STACK_MAX_PIXELS,
     _bound,
@@ -365,31 +371,192 @@ def _stacked(cb: torch.Tensor, cr: torch.Tensor):
     return cb.as_strided((2 * h, w), (w, 1))
 
 
+class _U8Plan:
+    """What the u8 path decides for one frame shape, layout, mode,
+    pipeline type and configuration, worked out once (:func:`_u8_plan`):
+    the gate's verdict, the plane shapes, the luma and chroma
+    configurations, and on first use on a card each direction's core ids
+    and constant tables, whose host addresses the chain launchers read.
+    Holds no tensor.  The gate and the tables are evaluated lazily, so
+    every refusal is raised where the unplanned path raised it."""
+
+    __slots__ = ("ptype", "cfg", "hk", "wk", "layout", "mode", "name", "rh", "rw", "y8", "c8",
+                 "chroma", "lcfg", "ccfg", "_ok", "_enc", "_dec")
+
+    def __init__(self, ptype, h: int, w: int, layout: str, mode, cfg: CodecConfig):
+        self.ptype, self.cfg, self.layout, self.mode = ptype, cfg, layout, mode
+        self.hk, self.wk = color_kernel_shape(h, w)
+        self.name = _mode_name(mode)
+        self.rh, self.rw = ck.WINDOWS[self.name]
+        self.y8, self.c8 = ck.direct_shapes(h, w, self.name)
+        self.chroma = _chroma_plane_shape(mode, h, w)
+        self.lcfg, self.ccfg = _luma_cfg(cfg), _chroma_cfg(cfg)
+        self._ok = self._enc = self._dec = None
+
+    @property
+    def ok(self) -> bool:
+        """:func:`supports_color_u8` on the kernel grid."""
+        if self._ok is None:
+            self._ok = supports_color_u8(self.ptype, self.cfg, self.hk, self.wk, self.mode)
+        return self._ok
+
+    def encoder(self) -> tuple:
+        """(luma core, chroma core, tables, their addresses) of the encode
+        chain: ``hp_encode_u8``'s ids and packed constants, after the
+        colour constants."""
+        if self._enc is None:
+            self._enc = self._tables(lambda c: (c.transform, c.q_table, c.q_scale, c.retain_k,
+                                                "butterfly", True), 0)
+        return self._enc
+
+    def decoder(self) -> tuple:
+        """The same of the decode chain: ``hp_decode_u8``'s."""
+        if self._dec is None:
+            self._dec = self._tables(lambda c: (c.transform, c.q_table, c.q_scale, None,
+                                                _decode_prec(c), False), 1)
+        return self._dec
+
+    def _tables(self, key, which: int) -> tuple:
+        keys = [key(c) for c in (self.lcfg, self.ccfg)]
+        ids = [hp._core_of(*k)[which] for k in keys]
+        tables = (ck._consts(), *(hp._args(*k).packed for k in keys))
+        return (*ids, tables, *(t.ctypes.data for t in tables))
+
+
+_PLANS: dict = {}
+_PLANS_MAX = 256
+
+
+def _u8_plan(p: Pipeline, h: int, w: int, layout: str, mode, cfg: CodecConfig) -> _U8Plan:
+    """The plan of a (normalized) mode's u8 path, from the cache; counts
+    ``color.u8.plan.miss`` where it is built, ``color.u8.plan.hit`` where
+    it is reused."""
+    key = (type(p), h, w, layout, mode, cfg)
+    plan = _PLANS.get(key)
+    if plan is not None:
+        profiling.count("color.u8.plan.hit", 1)
+        return plan
+    if len(_PLANS) >= _PLANS_MAX:
+        _PLANS.clear()
+    plan = _PLANS[key] = _U8Plan(type(p), h, w, layout, mode, cfg)
+    profiling.count("color.u8.plan.miss", 1)
+    return plan
+
+
+# cleared with the caches keyed by table names (a plan holds the tables)
+_u8_plan.cache_clear = _PLANS.clear
+
+
+def _chain(fn_name: str, dev: torch.device, *args) -> None:
+    """``fn_name(*args, stream, device)``, a colour chain launcher, on
+    ``dev``'s current stream (its raw handle: ``current_stream(dev)``
+    builds a Stream object, 30 times the cost); raises as ``_build.call``
+    does."""
+    lib = _build.library()
+    err = getattr(lib, fn_name)(*args, torch._C._cuda_getCurrentRawStream(dev.index), dev.index)
+    if err:
+        raise RuntimeError(f"{fn_name}: CUDA error {err}: {lib.hp_error_string(err).decode()}")
+
+
+def _scratch(plan: _U8Plan, dev: torch.device) -> torch.Tensor:
+    """One buffer for a chain's intermediate planes: luma, then the
+    stacked chroma (the split's output and the codec's input, or the
+    decodes' output and the merge's input)."""
+    (yh, yw), (ch, cw) = plan.y8, plan.c8
+    return torch.empty(yh * yw + 2 * ch * cw, dtype=torch.uint8, device=dev)
+
+
+def _encode_chain(plan: _U8Plan, x: torch.Tensor, h: int, w: int, scratch) -> tuple:
+    """(luma, stacked chroma) int8 coefficients of a card frame: the direct
+    split and two ``hp_encode_u8`` launches in one native call."""
+    (yh, yw), (ch, cw) = plan.y8, plan.c8
+    dev = x.device
+    cy = torch.empty((yh, yw), dtype=torch.int8, device=dev)
+    ccq = torch.empty((2 * ch, cw), dtype=torch.int8, device=dev)
+    s = scratch.data_ptr()
+    core_y, core_c, _tables, k, kl, kc = plan.encoder()
+    hwc = plan.layout == "interleaved"
+    _chain("color_encode_u8_chain_launch", dev, x.data_ptr(), s, s + yh * yw, cy.data_ptr(),
+           ccq.data_ptr(), h, w, plan.rh, plan.rw, int(hwc), ck._align(x, 3 * w if hwc else w),
+           core_y, core_c, k, kl, kc)
+    ck.LAUNCHES[f"color_split_direct_{plan.name}"] += 1
+    hp.LAUNCHES["hp_encode_u8"] += 2
+    return cy, ccq
+
+
+def _decode_chain(plan: _U8Plan, cy: torch.Tensor, ccq: torch.Tensor, h: int, w: int,
+                  scratch) -> torch.Tensor:
+    """(h, w, 3) uint8 of card planes (luma, the stacked chroma: int8,
+    contiguous, 16-byte aligned): two ``hp_decode_u8`` launches and the
+    direct merge in one native call."""
+    yh, yw = plan.y8
+    dev = cy.device
+    out = torch.empty((h, w, 3), dtype=torch.uint8, device=dev)
+    s = scratch.data_ptr()
+    inv_y, inv_c, _tables, k, kl, kc = plan.decoder()
+    _chain("color_decode_u8_chain_launch", dev, cy.data_ptr(), ccq.data_ptr(), s, s + yh * yw,
+           out.data_ptr(), h, w, plan.rh, plan.rw, ck._align(out, 3 * w), inv_y, inv_c, k, kl, kc)
+    hp.LAUNCHES["hp_decode_u8"] += 2
+    ck.LAUNCHES[f"color_merge_direct_{plan.name}"] += 1
+    return out
+
+
+def _planned_frame(p: Pipeline, rgb_u8, cfg: CodecConfig, subsample, device, plan=None) -> tuple:
+    """(frame, h, w, plan) of the u8 encode, ``plan`` reused where its
+    layout is the frame's; raises where the gate refuses."""
+    x, layout = _u8_frame(rgb_u8, device)
+    h, w = x.shape[:2] if layout == "interleaved" else x.shape[1:]
+    if plan is None or plan.layout != layout:
+        plan = _u8_plan(p, h, w, layout, normalize_subsample(subsample), cfg)
+    if not plan.ok:
+        raise ValueError(
+            f"u8 color path unsupported for {h}x{w} subsample={subsample} "
+            "(needs hp pipeline and an int8-safe q_scale); use encode_color"
+        )
+    return x, h, w, plan
+
+
+def _encode_u8(p: Pipeline, x: torch.Tensor, h: int, w: int, plan: _U8Plan, scratch=None) -> tuple:
+    """(planes, meta, stacked chroma coefficients) of a planned frame: on a
+    card one chain call, else the split and codec wrappers (the twins)."""
+    if x.device.type == "cuda" and h > 0 and w > 0:
+        cy, ccq = _encode_chain(plan, x, h, w, _scratch(plan, x.device) if scratch is None else scratch)
+    else:
+        y, cc = ck.color_split_direct_u8(x, plan.name, plan.layout)
+        cy = p._encode_u8_plane(y, plan.lcfg)
+        ccq = p._encode_u8_plane(cc, plan.ccfg)
+    profiling.count("color.u8.direct", 1)
+    ch = plan.c8[0]
+    meta = {"orig_shape": (h, w), "chroma_shape": plan.chroma, "subsample": plan.mode}
+    return {"y": cy, "cb": ccq[:ch], "cr": ccq[ch:]}, meta, ccq
+
+
+def _decode_u8(p: Pipeline, y: torch.Tensor, cc: torch.Tensor, h: int, w: int, plan: _U8Plan,
+               scratch=None) -> torch.Tensor:
+    """(h, w, 3) uint8 of contiguous int8 luma and stacked chroma planes at
+    the plan's shapes: on one card and 16-byte aligned, one chain call;
+    else the codec and merge wrappers (the twins, and every refusal)."""
+    profiling.count("color.u8.direct", 1)
+    if (y.device.type == "cuda" and cc.device == y.device and h > 0 and w > 0
+            and not y.data_ptr() % 16 and not cc.data_ptr() % 16):
+        return _decode_chain(plan, y, cc, h, w, _scratch(plan, y.device) if scratch is None else scratch)
+    yd = p._decode_u8_plane(y, plan.lcfg)
+    cd = p._decode_u8_plane(cc, plan.ccfg)
+    ch = plan.c8[0]
+    return ck.color_merge_direct_u8(yd, cd[:ch], cd[ch:], h, w, plan.name)
+
+
 def encode_color_u8(p: Pipeline, rgb_u8, cfg: CodecConfig, subsample=True, device=None):
     """u8 color encode: uint8 RGB (either layout) -> int8 coefficient planes.
 
     The direct split reads the frame as it lies (edge rows and columns
     replicated, as the reference's pad to :func:`color_kernel_shape` gives
     them) and writes luma and the stacked chroma at the 8-aligned true plane
-    shapes; one ``hp_encode_u8`` launch codes each.  A ragged frame's planes
-    have the f32 path's shapes; cb and cr are the row halves of one
-    buffer."""
-    x, layout = _u8_frame(rgb_u8, device)
-    h, w = x.shape[:2] if layout == "interleaved" else x.shape[1:]
-    mode = normalize_subsample(subsample)
-    hk, wk = color_kernel_shape(h, w)
-    if not supports_color_u8(p, cfg, hk, wk, mode):
-        raise ValueError(
-            f"u8 color path unsupported for {h}x{w} subsample={subsample} "
-            "(needs hp pipeline and an int8-safe q_scale); use encode_color"
-        )
-    y, cc = ck.color_split_direct_u8(x, _mode_name(mode), layout)
-    cy = p._encode_u8_plane(y, _luma_cfg(cfg))
-    ccq = p._encode_u8_plane(cc, _chroma_cfg(cfg))
-    profiling.count("color.u8.direct", 1)
-    ch = cc.shape[0] // 2
-    meta = {"orig_shape": (h, w), "chroma_shape": _chroma_plane_shape(mode, h, w), "subsample": mode}
-    return {"y": cy, "cb": ccq[:ch], "cr": ccq[ch:]}, meta
+    shapes; one ``hp_encode_u8`` launch codes each (on a card the three
+    launches are one native call).  A ragged frame's planes have the f32
+    path's shapes; cb and cr are the row halves of one buffer."""
+    planes, meta, _ccq = _encode_u8(p, *_planned_frame(p, rgb_u8, cfg, subsample, device))
+    return planes, meta
 
 
 def decode_color_u8(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig, device=None):
@@ -398,11 +565,11 @@ def decode_color_u8(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig, dev
     Takes planes at the 8-aligned true plane shapes (what both encode paths
     give) and decodes luma and the stacked chroma (one ``hp_decode_u8``
     launch each; cb and cr from one buffer are stacked as a view, others by
-    one copy); the direct merge writes the (H, W, 3) frame, contiguous."""
+    one copy); the direct merge writes the (H, W, 3) frame, contiguous (on
+    a card the three launches are one native call)."""
     h, w = meta["orig_shape"]
-    mode = normalize_subsample(meta["subsample"])
-    y8 = padded_shape(h, w)
-    c8 = padded_shape(*_chroma_plane_shape(mode, h, w))
+    plan = _u8_plan(p, h, w, "interleaved", normalize_subsample(meta["subsample"]), cfg)
+    y8, c8 = plan.y8, plan.c8
     shapes = {k: tuple(planes[k].shape) for k in PLANES}
     if shapes["y"] != y8 or shapes["cb"] != c8 or shapes["cr"] != c8:
         raise ValueError(
@@ -414,10 +581,7 @@ def decode_color_u8(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig, dev
     cc = _stacked(pl["cb"], pl["cr"])
     if cc is None:
         cc = _stack(pl["cb"], pl["cr"])
-    y = p._decode_u8_plane(pl["y"], _luma_cfg(cfg))
-    cd = p._decode_u8_plane(cc, _chroma_cfg(cfg))
-    profiling.count("color.u8.direct", 1)
-    return ck.color_merge_direct_u8(y, cd[: c8[0]], cd[c8[0]:], h, w, _mode_name(mode))
+    return _decode_u8(p, pl["y"].contiguous(), cc, h, w, plan)
 
 
 def _decode_u8_padded(p: Pipeline, y_i8: torch.Tensor, cc_i8: torch.Tensor, cfg: CodecConfig,
@@ -432,34 +596,49 @@ def _decode_u8_padded(p: Pipeline, y_i8: torch.Tensor, cc_i8: torch.Tensor, cfg:
     return merge(y, cc[:chk], cc[chk:])
 
 
+def _roundtrip_u8(p: Pipeline, x: torch.Tensor, h: int, w: int, plan: _U8Plan) -> tuple:
+    """The u8 encode and decode of a planned frame; on a card both chains
+    share one scratch buffer (stream-ordered: the decode's writes follow
+    the encode's reads)."""
+    scratch = _scratch(plan, x.device) if x.device.type == "cuda" else None
+    planes, meta, ccq = _encode_u8(p, x, h, w, plan, scratch)
+    return planes, meta, _decode_u8(p, planes["y"], ccq, h, w, plan, scratch)
+
+
 def roundtrip_color_u8(p: Pipeline, rgb_u8, cfg: CodecConfig, subsample=True, device=None):
     """u8 color pass: uint8 RGB -> (int8 coefficient planes, meta, uint8
     RGB reconstruction); any chroma mode (default 4:2:0)."""
-    planes, meta = encode_color_u8(p, rgb_u8, cfg, subsample=subsample, device=device)
-    return planes, meta, decode_color_u8(p, planes, meta, cfg)
+    return _roundtrip_u8(p, *_planned_frame(p, rgb_u8, cfg, subsample, device))
 
 
 # ---- auto dispatch -----------------------------------------------------------
 
 
-def _u8_eligible(p: Pipeline, rgb, cfg: CodecConfig, subsample) -> bool:
-    """uint8 pixels of either layout whose kernel-padded dims pass the gate
-    (dtype and shape read without a transfer)."""
+def _u8_eligible_plan(p: Pipeline, rgb, cfg: CodecConfig, subsample):
+    """The plan of uint8 pixels of either layout whose kernel-padded dims
+    pass the gate (dtype and shape read without a transfer), else None."""
     if getattr(rgb, "dtype", None) is None or not _is_u8(rgb):
-        return False
+        return None
     try:
-        _layout_name, h, w = _layout(rgb)
+        layout, h, w = _layout(rgb)
     except ValueError:
-        return False
-    return supports_color_u8(p, cfg, *color_kernel_shape(h, w), normalize_subsample(subsample))
+        return None
+    plan = _u8_plan(p, h, w, layout, normalize_subsample(subsample), cfg)
+    return plan if plan.ok else None
+
+
+def _u8_eligible(p: Pipeline, rgb, cfg: CodecConfig, subsample) -> bool:
+    return _u8_eligible_plan(p, rgb, cfg, subsample) is not None
 
 
 @profiling.entry
 def encode_color_auto(p: Pipeline, rgb, cfg: CodecConfig, subsample=True, device=None):
     """Encode through the u8 path where the input and geometry allow it,
     else the f32 path; either layout."""
-    if _u8_eligible(p, rgb, cfg, subsample):
-        return encode_color_u8(p, rgb, cfg, subsample=subsample, device=device)
+    plan = _u8_eligible_plan(p, rgb, cfg, subsample)
+    if plan is not None:
+        planes, meta, _ccq = _encode_u8(p, *_planned_frame(p, rgb, cfg, subsample, device, plan))
+        return planes, meta
     return encode_color(p, _interleaved_f32(rgb, device), cfg, subsample=subsample)
 
 
@@ -468,15 +647,14 @@ def _u8_decodable(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig) -> bo
     true plane shapes, and values that fit int8 (the f32 path's planes of
     out-of-range pixels may not)."""
     h, w = meta["orig_shape"]
-    mode = normalize_subsample(meta["subsample"])
-    c8 = padded_shape(*_chroma_plane_shape(mode, h, w))
+    plan = _u8_plan(p, h, w, "interleaved", normalize_subsample(meta["subsample"]), cfg)
     return (
         meta.get("y_q_table", "luma") == "luma"
         and meta.get("c_q_table", "chroma") == "chroma"
-        and supports_color_u8(p, cfg, *color_kernel_shape(h, w), mode)
-        and tuple(planes["y"].shape) == padded_shape(h, w)
-        and tuple(planes["cb"].shape) == c8
-        and tuple(planes["cr"].shape) == c8
+        and plan.ok
+        and tuple(planes["y"].shape) == plan.y8
+        and tuple(planes["cb"].shape) == plan.c8
+        and tuple(planes["cr"].shape) == plan.c8
         and all(_fits_i8(planes[k]) for k in PLANES)
     )
 
@@ -494,8 +672,9 @@ def decode_color_auto(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig, d
 def roundtrip_color_auto(p: Pipeline, rgb, cfg: CodecConfig, subsample=True, device=None):
     """Roundtrip whose decode takes the path the encode took.  Returns
     (planes, meta, rgb u8 interleaved)."""
-    if _u8_eligible(p, rgb, cfg, subsample):
-        return roundtrip_color_u8(p, rgb, cfg, subsample=subsample, device=device)
+    plan = _u8_eligible_plan(p, rgb, cfg, subsample)
+    if plan is not None:
+        return _roundtrip_u8(p, *_planned_frame(p, rgb, cfg, subsample, device, plan))
     return roundtrip_color(p, _interleaved_f32(rgb, device), cfg, subsample=subsample)
 
 

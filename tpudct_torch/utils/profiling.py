@@ -28,7 +28,9 @@ Every name starts with ``PREFIX``; callers pass the rest:
   of a frame strided in neither layout, the chroma stacks of planes from
   separate buffers, dtype casts and the bulk merge's interleave);
 - the counter ``color.u8.direct``: a u8 colour encode or decode that ran
-  the direct split or merge (``models/color.py``), one each;
+  the direct split or merge (``models/color.py``), one each; and
+  ``color.u8.plan.miss`` / ``color.u8.plan.hit``: a lookup of the u8
+  colour path's per-shape plan that built it / found it;
 - ``to_device``, ``to_host`` and the counter ``bytes.pageable``: a host
   array's copy to the card and a device tensor's copy back, in the port's
   own calls;
